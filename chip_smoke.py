@@ -17,7 +17,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. policy: FastVLA-0.5B at batch 128, 256 px, ``tokenizer_max_length`` 64,
    bf16, full depth, random weights from a seed, driven through
    ``FastVLAPolicy.forward``; outputs (128, 14) and finite; launch counts of
-   one step (24 flash, 38 RepMixer); the same weights through the plain path
+   one step (24 flash, 38 RepMixer); the same observations as tensors
+   already on the card give the same actions; the same weights through the plain path
    (``attention_impl="xla"``, ``vision_block_impl="xla"``) agree with it.
 4. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
@@ -66,6 +67,9 @@ TOL = {
 # of the pooled features and of the actions (bf16 roundings in another order
 # through 24 decoder layers and 44 vision blocks).
 POLICY_REL_L2 = 3e-2
+# Card-resident and numpy observations run the same kernels on the same
+# values; only library algorithm choices could differ.
+DEVICE_INPUT_REL_L2 = 1e-3
 
 
 def log(msg: str) -> None:
@@ -307,6 +311,13 @@ def phase_policy():
     expect = {"flash_attention": 24, "repmixer_block": 38}
     if counts != expect:
         fail(f"launch counts {counts} != {expect}")
+
+    # The same observations already on the card: no host round trip, same actions.
+    dev_actions = policy.forward(torch.from_numpy(images).cuda(), torch.from_numpy(states).cuda(), tasks)
+    rel = float((dev_actions.float() - actions.float()).norm() / actions.float().norm())
+    log(f"  card-resident inputs vs numpy inputs: actions rel_l2={rel:.3e} (limit {DEVICE_INPUT_REL_L2:g})")
+    if dev_actions.device.type != "cuda" or not rel <= DEVICE_INPUT_REL_L2:
+        fail(f"card-resident inputs: actions on {dev_actions.device}, rel_l2={rel:.3e}")
 
     reset_launch_counts()
     plain_actions = plain.forward(images, states, tasks)

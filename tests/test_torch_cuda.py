@@ -83,6 +83,42 @@ def test_repmixer_kernel_matches_plain(cuda, shape, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
 
 
+def test_auto_impls_raise_on_shapes_the_kernels_do_not_take(cuda):
+    """On the card "auto" is the kernel path: no quiet plain fallback."""
+    from vla_fastvlm_tpu_torch.models.fastvit import RepMixerBlock, fastvithd_tiny
+    from vla_fastvlm_tpu_torch.ops.attention import attention
+
+    q, k, v, mask = _flash_inputs(1, 16, 4, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attention(q[..., :32].contiguous(), k[..., :32].contiguous(), v[..., :32].contiguous(),
+                  kv_mask=mask, causal=True, impl="auto")
+    with torch.device(cuda):
+        block = RepMixerBlock(32, fastvithd_tiny(block_impl="auto"), 4.0)
+    with pytest.raises(ValueError, match="repmixer kernel"), torch.no_grad():
+        block(torch.zeros(1, 8, 8, 32, device=cuda))
+
+
+def test_policy_forward_keeps_cuda_inputs_on_the_card(cuda):
+    """Images and states already on the card go through ``FastVLAPolicy.forward``
+    without a host round trip and give the numpy inputs' actions."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
+
+    cfg = FastVLAConfig(vlm_model_name="fastvlm-tiny", bootstrap_model_name="fastvlm-tiny",
+                        state_dim=6, action_dim=5, hidden_dim=16, fusion_dim=16,
+                        tokenizer_max_length=16, attention_impl="xla", vision_block_impl="xla")
+    policy = FastVLAPolicy(cfg)
+    rng = np.random.default_rng(0)
+    images = rng.random((2, 3, 48, 64), dtype=np.float32)
+    states = rng.standard_normal((2, 6)).astype(np.float32)
+    ref = policy.forward(images, states, "pick up the cube")
+    cimg, cstates = torch.from_numpy(images).to(cuda), torch.from_numpy(states).to(cuda)
+    prepared = policy.processor.prepare_images(cimg)
+    assert prepared.device.type == "cuda"
+    out = policy.forward(cimg, cstates, "pick up the cube")
+    assert out.device.type == "cuda"
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+
+
 def test_kernels_reject_non_contiguous(cuda):
     q, k, v, mask = _flash_inputs(1, 16, 4, 2, 64, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="contiguous"):

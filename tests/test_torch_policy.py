@@ -88,6 +88,25 @@ def test_policy_forward_host_api():
     policy.reset()
 
 
+@pytest.mark.parametrize("layout", ["bchw", "bhwc", "list_chw", "time_major"])
+def test_policy_forward_takes_tensors(layout):
+    """Tensor images and states give the numpy inputs' actions, and stay tensors."""
+    policy = FastVLAPolicy(FastVLAConfig(**TINY), device="cpu")
+    images, _, _, states = _inputs(seed=9)
+    ref = policy.forward(images, states, "stack the cups")
+    timg, tstates = torch.from_numpy(images), torch.from_numpy(states).double()
+    if layout == "bhwc":
+        timg = timg.permute(0, 2, 3, 1)
+    elif layout == "list_chw":
+        timg = list(timg)
+    elif layout == "time_major":  # (B, T, ...): the latest step is used
+        timg = torch.stack([torch.zeros_like(timg), timg], dim=1)
+        tstates = torch.stack([torch.zeros_like(tstates), tstates], dim=1)
+    assert isinstance(policy.processor.prepare_images(timg), torch.Tensor)
+    out = policy.forward(timg, tstates, "stack the cups")
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
 def test_text_only_mode_matches_jax():
     """image_token_mode='none': the tower is not built and features are text-only."""
     jmodel, params = _jax_model(7, image_token_mode="none")

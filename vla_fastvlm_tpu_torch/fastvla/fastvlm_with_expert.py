@@ -3,7 +3,8 @@
 
 ``apply_fn(images, input_ids, attention_mask, states)`` is the policy step on
 device tensors (what the JAX package jits); ``forward(images, states, tasks)``
-is the eager API that takes host inputs. Parameters live in the backbone's
+is the eager API that takes host inputs (numpy, PIL, lists) or tensors, which
+stay on their device. Parameters live in the backbone's
 ``FastVLM`` module and the head module, on the backbone's device.
 """
 
@@ -11,12 +12,11 @@ from __future__ import annotations
 
 from typing import List, Mapping, Optional
 
-import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_dtype
 from ..io.bridge import jax_params_to_torch
-from ..model.fastvlm_adapter import FastVLMBackbone
+from ..model.fastvlm_adapter import FastVLMBackbone, as_float32
 from ..models.action_head import ActionChunkHead, ActionExpertHead
 from ..models.layers import init_weights
 from .configuration_fastvla import FastVLAConfig
@@ -74,7 +74,7 @@ class FastVLMWithExpert:
         to = self.backbone.to_device
         images = to(self.backbone._as_bchw(images))
         ids, mask = self.backbone._prep_text(tasks)
-        states = to(np.asarray(states, dtype=np.float32))
+        states = to(as_float32(states))
         return self.apply_fn(images, to(ids), to(mask), states)
 
     __call__ = forward

@@ -9,10 +9,10 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from ..device import DeviceLike
+from ..model.fastvlm_adapter import as_float32
 from .configuration_fastvla import FastVLAConfig
 from .fastvlm_with_expert import FastVLMWithExpert
 from .processor_fastvla import FastVLAProcessor
@@ -39,8 +39,8 @@ class FastVLAPolicy:
 
     def select_action(self, image, state, task: str, device: DeviceLike = None) -> torch.Tensor:
         """Produce a single action for inference scenarios."""
-        image_batch = np.asarray(image, dtype=np.float32)[None]
-        state_batch = np.asarray(state, dtype=np.float32)[None]
+        image_batch = as_float32(image)[None]
+        state_batch = as_float32(state)[None]
         tasks = self.processor.prepare_tasks(task, batch_size=1)
         return self.forward(image_batch, state_batch, tasks, device=device)[0]
 

@@ -3,16 +3,15 @@
 
 Task broadcast + trailing newline, time-major squeeze (the last step of
 ``(B, T, ...)``), image layout normalization delegated to the backbone.
-Host-side numpy; the device work happens in the backbone.
+Host input stays numpy and tensors stay on their device; the device work
+happens in the backbone.
 """
 
 from __future__ import annotations
 
 from typing import List
 
-import numpy as np
-
-from ..model.fastvlm_adapter import FastVLMBackbone
+from ..model.fastvlm_adapter import FastVLMBackbone, as_float32
 from .configuration_fastvla import FastVLAConfig
 
 
@@ -31,8 +30,8 @@ class FastVLAProcessor:
             tasks = [task if task.endswith("\n") else f"{task}\n" for task in tasks]
         return tasks
 
-    def prepare_images(self, images) -> np.ndarray:
-        images = np.asarray(images, dtype=np.float32)
+    def prepare_images(self, images):
+        images = as_float32(images)
         if self.config.num_cameras > 1:
             if images.ndim == 6:  # (B, T, ncam, C, H, W): keep the latest step
                 images = images[:, -1]
@@ -40,8 +39,8 @@ class FastVLAProcessor:
             images = images[:, -1]
         return self.backbone._as_bchw(images)
 
-    def prepare_states(self, states) -> np.ndarray:
-        states = np.asarray(states, dtype=np.float32)
+    def prepare_states(self, states):
+        states = as_float32(states)
         if states.ndim == 3:  # (B, T, D): keep the latest step
             states = states[:, -1]
         return states

@@ -80,6 +80,20 @@ def _check_supported(cfg: FastVLMBackboneConfig) -> None:
         )
 
 
+def as_float32(x):
+    """float32 view of host or device input: numpy for host input (lists,
+    PIL, numpy), a tensor on its own device for a tensor or a list of them."""
+    if isinstance(x, (list, tuple)) and x and all(isinstance(e, torch.Tensor) for e in x):
+        x = torch.stack(list(x))
+    if isinstance(x, torch.Tensor):
+        return x.detach().float()
+    return np.asarray(x, dtype=np.float32)
+
+
+def _permute(x, axes):
+    return x.permute(*axes) if isinstance(x, torch.Tensor) else np.transpose(x, axes)
+
+
 def prepare_policy_images(images: torch.Tensor, mcfg, cfg: FastVLMBackboneConfig):
     """(B, 3, H, W) -- or (B, ncam, 3, H, W) -- float in [0,1] -> the letterboxed,
     normalized batch at the tower resolution in the model dtype; ``None`` for
@@ -158,36 +172,39 @@ class FastVLMBackbone:
         )
         return batch.input_ids, batch.attention_mask
 
-    def _as_bchw(self, images) -> np.ndarray:
-        """PIL / numpy / torch (BCHW/BHWC/CHW/HWC/lists) -> float32 BCHW numpy."""
+    def _as_bchw(self, images):
+        """PIL / numpy / torch (BCHW/BHWC/CHW/HWC/lists) -> float32 BCHW.
 
-        def one_to_chw(x) -> np.ndarray:
-            if isinstance(x, torch.Tensor):
-                x = x.detach().cpu().numpy()
-            arr = np.asarray(x)
+        Host input becomes numpy; a tensor stays a tensor on its own device,
+        so images already on the card are not copied through the host.
+        """
+
+        def one_to_chw(x):
+            arr = as_float32(x)
             if arr.ndim == 3:
                 if arr.shape[0] in (1, 3):
-                    return arr.astype(np.float32)
+                    return arr
                 if arr.shape[-1] in (1, 3):
-                    return np.transpose(arr, (2, 0, 1)).astype(np.float32)
-                raise ValueError(f"Unsupported array shape: {arr.shape}")
+                    return _permute(arr, (2, 0, 1))
+                raise ValueError(f"Unsupported array shape: {tuple(arr.shape)}")
             if arr.ndim == 2:
-                return arr[None].astype(np.float32)
+                return arr[None]
             raise ValueError(f"Unsupported tensor shape: {tuple(arr.shape)}")
 
         if isinstance(images, (list, tuple)):
-            return np.stack([one_to_chw(img) for img in images], axis=0)
-        if isinstance(images, torch.Tensor):
-            images = images.detach().cpu().numpy()
-        arr = np.asarray(images)
+            chw = [one_to_chw(img) for img in images]
+            if all(isinstance(c, torch.Tensor) for c in chw):
+                return torch.stack(chw)
+            return np.stack([c.cpu().numpy() if isinstance(c, torch.Tensor) else c for c in chw])
+        arr = as_float32(images)
         if arr.ndim == 5:  # (B, ncam, C, H, W) multi-camera batch
             if arr.shape[-1] in (1, 3) and arr.shape[2] not in (1, 3):
-                arr = np.transpose(arr, (0, 1, 4, 2, 3))
-            return arr.astype(np.float32)
+                arr = _permute(arr, (0, 1, 4, 2, 3))
+            return arr
         if arr.ndim == 4:
             if arr.shape[-1] in (1, 3) and arr.shape[1] not in (1, 3):
-                arr = np.transpose(arr, (0, 3, 1, 2))
-            return arr.astype(np.float32)
+                arr = _permute(arr, (0, 3, 1, 2))
+            return arr
         return one_to_chw(arr)[None]
 
     # ------------------------------------------------------------------

@@ -5,10 +5,10 @@ NHWC at every module boundary, like the JAX module; convs run through
 and parameter names follow the Flax tree (``stem_0``, ``stage1_block3``,
 ``patch_embed_2`` ...) so the weight bridge is a per-leaf layout change.
 
-``RepMixerBlock`` dispatches on ``cfg.block_impl``: "auto" and "fused" call
-the port's fused RepMixer kernel (``ops/kernels/repmixer.py``; the CUDA
-kernel on the card, its plain version on the CPU), "fused" raising where the
-kernel does not take the shape; "xla" keeps the unfused composition.
+``RepMixerBlock`` dispatches on ``cfg.block_impl``: "auto" and "fused" are
+one path, the port's fused RepMixer kernel (``ops/kernels/repmixer.py``: the
+CUDA kernel on the card, raising where it does not take the shape, and its
+plain version on the CPU); "xla" keeps the unfused composition.
 ``SpatialAttention`` (head_dim 32) stays plain torch, as it stays outside any
 Pallas kernel in JAX.
 """
@@ -180,26 +180,12 @@ class RepMixerBlock(nn.Module):
         self.convffn = ConvFFN(channels, self.hidden, cfg)
         self.layer_scale = LayerScale(channels, cfg.layer_scale_init, cfg.param_dtype)
 
-    def _use_kernel(self, x: torch.Tensor) -> bool:
-        from ..ops.kernels.repmixer import supports_fused_repmixer
-
-        impl = self.cfg.block_impl
-        if impl == "xla":
-            return False
-        if impl not in ("auto", "fused"):
-            raise ValueError(f"unknown block_impl {impl!r}")
-        if x.device.type == "cpu" or supports_fused_repmixer(tuple(x.shape), self.hidden, x.dtype, x.device):
-            return True
-        if impl == "fused":
-            raise ValueError(
-                f"block_impl='fused' but shape {tuple(x.shape)} hidden={self.hidden} "
-                f"{x.dtype} is unsupported by the fused RepMixer kernel"
-            )
-        return False
-
     def forward(self, x):
         x = x.to(self.cfg.dtype)
-        if self._use_kernel(x):
+        impl = self.cfg.block_impl
+        if impl not in ("auto", "fused", "xla"):
+            raise ValueError(f"unknown block_impl {impl!r}")
+        if impl != "xla":
             from ..ops.kernels.repmixer import repmixer_block
 
             ffn = self.convffn

@@ -6,8 +6,9 @@ softmax; it is what every kernel is checked against. ``attention`` is the
 entry point the decoder calls: with the structured mask (``bias is None``,
 ``kv_mask`` given) and ``impl`` "auto" or "flash" it goes to the port's
 flash kernel (``ops/kernels/flash_attention.py``), which launches the CUDA
-kernel on a CUDA tensor. ``impl="xla"`` (the name is kept for config
-parity with the JAX package) always runs the plain path.
+kernel on a CUDA tensor or raises; it never gives way to the plain path on
+the card. ``impl="xla"`` (the name is kept for config parity with the JAX
+package) always runs the plain path.
 """
 
 from __future__ import annotations
@@ -69,22 +70,6 @@ def dot_product_attention(
     return out.to(v.dtype)
 
 
-def supports_flash(q_shape, k_shape, dtype: torch.dtype, device: Optional[torch.device] = None) -> bool:
-    """Shapes and dtypes the CUDA flash kernel takes (no TPU gates carried over).
-
-    On a CUDA ``device`` the keys must also fit one block's shared memory
-    (the kernel keeps K/V resident, as the Pallas kernel keeps them in VMEM).
-    """
-    d = q_shape[-1]
-    n, kh = q_shape[2], k_shape[2]
-    ok = d in (64, 128) and n % kh == 0 and dtype in (torch.bfloat16, torch.float32)
-    if ok and device is not None and device.type == "cuda":
-        from .kernels.flash_attention import fits
-
-        ok = fits(k_shape[1], d, dtype, device)
-    return ok
-
-
 def attention(
     q: torch.Tensor,  # (B, T, N, D)
     k: torch.Tensor,  # (B, S, K, D)
@@ -99,26 +84,20 @@ def attention(
     """Attention entry point with flash-kernel dispatch.
 
     - structured mask (``kv_mask`` + ``causal``, prefill layout) with
-      ``impl`` "auto"/"flash": the flash kernel's wrapper, which launches the
-      CUDA kernel on a CUDA tensor and runs its plain version on a CPU one.
-      "auto" takes the plain path for shapes the kernel does not take;
-      "flash" raises on them instead of degrading.
+      ``impl`` "auto" or "flash" (one path): the flash kernel's wrapper, which
+      launches the CUDA kernel on a CUDA tensor, raising on a shape the kernel
+      does not take, and runs its plain version on a CPU one. On a CPU tensor
+      "flash" also holds the input to the kernel's shape rules.
     - additive ``bias`` or ``impl="xla"``: the plain path.
     """
     if impl not in ("auto", "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if bias is None and kv_mask is not None and impl in ("auto", "flash"):
-        from .kernels.flash_attention import flash_attention
+    if bias is None and kv_mask is not None and impl != "xla":
+        from .kernels.flash_attention import check_kernel_shapes, flash_attention
 
-        if supports_flash(q.shape, k.shape, q.dtype, q.device):
-            return flash_attention(q, k, v, kv_mask, causal, scale)
         if impl == "flash":
-            raise ValueError(
-                f"attention_impl='flash' forced but q{tuple(q.shape)} / "
-                f"k{tuple(k.shape)} {q.dtype} is unsupported by the flash "
-                "kernel (requires head_dim 64 or 128, n_heads % kv_heads == 0, "
-                "bf16 or fp32, and K/V of one head within a block's shared memory)"
-            )
+            check_kernel_shapes(q, k, v, kv_mask)
+        return flash_attention(q, k, v, kv_mask, causal, scale)
 
     if bias is None:
         b, t = q.shape[0], q.shape[1]

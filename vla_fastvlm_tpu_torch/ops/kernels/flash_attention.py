@@ -19,6 +19,7 @@ header says what bounds it and how the design answers that).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -59,6 +60,7 @@ def flash_attention_reference(
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@functools.lru_cache(maxsize=None)
 def smem_bytes(s: int, d: int, dtype: torch.dtype) -> int:
     """Shared memory one block needs to keep K and V of ``s`` keys resident.
 
@@ -70,13 +72,11 @@ def smem_bytes(s: int, d: int, dtype: torch.dtype) -> int:
     return fn(s, d, _DTYPES[dtype])
 
 
-def fits(s: int, d: int, dtype: torch.dtype, device: torch.device) -> bool:
-    """True when K/V of ``s`` keys fit one block's shared memory on ``device``."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    return smem_bytes(s, d, dtype) <= _build.smem_per_block(index)
+def check_kernel_shapes(q, k, v, kv_mask) -> None:
+    """Raise unless the kernel takes these dtypes, shapes and layouts.
 
-
-def _launch(q, k, v, kv_mask, causal: bool, scale: float) -> torch.Tensor:
+    The shared-memory limit on S is checked at launch, where the card is known.
+    """
     b, t, n, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -92,7 +92,14 @@ def _launch(q, k, v, kv_mask, causal: bool, scale: float) -> torch.Tensor:
             raise ValueError(f"flash kernel takes contiguous tensors; {name} is not")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    if not fits(s, d, q.dtype, q.device):
+
+
+def _launch(q, k, v, kv_mask, causal: bool, scale: float) -> torch.Tensor:
+    check_kernel_shapes(q, k, v, kv_mask)
+    b, t, n, d = q.shape
+    s, kh = k.shape[1], k.shape[2]
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    if smem_bytes(s, d, q.dtype) > _build.smem_per_block(index):
         raise ValueError(
             f"flash kernel keeps K/V of one head resident in shared memory; S={s} keys at "
             f"head_dim {d} in {q.dtype} need {smem_bytes(s, d, q.dtype)} bytes, more than this card has"

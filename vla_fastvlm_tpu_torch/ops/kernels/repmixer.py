@@ -20,6 +20,7 @@ what bounds it and how the design answers that).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -56,18 +57,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_WIDTHS = (96, 192, 384)
 
 
-def supports_fused_repmixer(shape: tuple, hidden: int, dtype: torch.dtype, device: torch.device) -> bool:
-    """True when the CUDA kernel takes NHWC ``shape`` with ``hidden`` units on ``device``.
+@functools.lru_cache(maxsize=None)
+def smem_bytes(c: int, dtype: torch.dtype) -> int:
+    """Shared memory one block needs at width ``c``; asks the kernel library
+    (built on first use)."""
+    fn = _build.LIBRARIES.entry("repmixer", "repmixer_smem_bytes", [ctypes.c_int] * 2, ctypes.c_longlong)
+    return fn(c, _DTYPES[dtype])
 
-    Builds the kernel library on first use to ask it for its shared-memory
-    need at this width.
-    """
-    c = shape[-1]
-    if dtype not in _DTYPES or c not in KERNEL_WIDTHS or hidden % 64 or len(shape) != 4:
+
+def _kernel_takes(c: int, hidden: int, dtype: torch.dtype, device: torch.device) -> bool:
+    if c not in KERNEL_WIDTHS or hidden % 64:
         return False
-    smem_fn = _build.LIBRARIES.entry("repmixer", "repmixer_smem_bytes", [ctypes.c_int] * 2, ctypes.c_longlong)
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return smem_fn(c, _DTYPES[dtype]) <= _build.smem_per_block(index)
+    return smem_bytes(c, dtype) <= _build.smem_per_block(index)
 
 
 def _launch(x, w3, b3, w7, b7, w1, b1, w2, b2, gamma) -> torch.Tensor:
@@ -87,7 +89,7 @@ def _launch(x, w3, b3, w7, b7, w1, b1, w2, b2, gamma) -> torch.Tensor:
     for a, shape in zip(args, expected):
         if tuple(a.shape) != shape:
             raise ValueError(f"repmixer kernel parameter shape {tuple(a.shape)}, expected {shape}")
-    if not supports_fused_repmixer(tuple(x.shape), f, dtype, x.device):
+    if not _kernel_takes(c, f, dtype, x.device):
         raise ValueError(
             f"repmixer kernel does not take C={c} F={f} in {dtype}: it needs C in "
             f"{KERNEL_WIDTHS}, F % 64 == 0 and one block's tiles within the card's shared memory"
