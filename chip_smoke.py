@@ -3,24 +3,39 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about a minute
-    python3 chip_smoke.py --profile DIR   # also write a torch.profiler table of one step
+    python3 chip_smoke.py                 # the full check, about two minutes
+    python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps and decode ticks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build: both CUDA kernels of ``vla_fastvlm_tpu_torch/csrc`` with ``nvcc``
-   for sm_90a, all sources at once.
+1. build: the three CUDA kernels of ``vla_fastvlm_tpu_torch/csrc`` with
+   ``nvcc`` for sm_90a, all sources at once.
 2. kernels: each kernel against its plain PyTorch version on the same inputs,
-   in bf16 at the policy step's shapes (flash with right-padded masks and
-   fully padded rows) and in fp32 at a small batch with a tight tolerance;
-   flash also at head_dim 128 (the 7B decoder's shape).
+   in bf16 at the main paths' shapes and in fp32 at a small batch with a
+   tight tolerance: flash at the policy step's shapes (right-padded masks,
+   fully padded rows), at head_dim 128 (the 7B decoder's shape) and at
+   S = 2048 / 1024 (the streamed instance); RepMixer per stage, fp32 up to
+   C = 384; paged decode attention at the serving shape in bf16 and over
+   int8 pools, at head_dim 128, and in fp32 with trash pages and an empty
+   stored mask.
 3. policy: FastVLA-0.5B at batch 128, 256 px, ``tokenizer_max_length`` 64,
    bf16, full depth, random weights from a seed, driven through
    ``FastVLAPolicy.forward``; outputs (128, 14) and finite; launch counts of
-   one step (24 flash, 38 RepMixer); the same observations as tensors
-   already on the card give the same actions; the same weights through the plain path
-   (``attention_impl="xla"``, ``vision_block_impl="xla"``) agree with it.
-4. timing: p50 step time and actions/sec of the kernel path and the plain
+   one step (24 flash, 38 RepMixer, 0 paged); the same observations as
+   tensors already on the card give the same actions; the same weights
+   through the plain path (``attention_impl="xla"``, ``vision_block_impl="xla"``)
+   agree with it.
+4. serving: the paged server (``PagedGenerationServer``) of FastVLM-0.5B at
+   its 1024 px, bf16, random weights from a seed, on the synthetic stream of
+   ``scripts/serve.py``: 128 requests arriving 16 a tick, 64 slots, admission
+   batches of 16, prompts of 4..64 tokens, 64 new tokens each, greedy, pages
+   of 16. Three runs: ``decode_impl="kernel"``, ``"gathered"`` (the plain
+   program) and ``"kernel"`` over int8 pools. Each answers every request
+   with 64 tokens and returns every page; launch counts (paged = 24 x ticks,
+   RepMixer = 38 x admissions, flash = 0); kernel and gathered tick logits
+   from one admitted state agree; serve.py's summary and the device's idle
+   share over a few decode ticks.
+5. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work.
@@ -49,9 +64,23 @@ BATCH, IMAGE, TEXT_LEN, SEED = 128, 256, 64, 0
 # The policy step's kernel shapes at 0.5B (T = 16 image + 64 text tokens).
 FLASH_MAIN = dict(b=BATCH, t=80, n=14, kh=2, d=64)
 FLASH_7B = dict(b=16, t=80, n=28, kh=4, d=128)
+# Flash above what a block's shared memory holds: the streamed instance.
+FLASH_LONG = [dict(b=2, t=2048, n=14, kh=2, d=64), dict(b=2, t=1024, n=28, kh=4, d=128)]
 # (B, H, W, C, F) per FastViTHD RepMixer stage at 256 px, with launches per step.
 REPMIXER_STAGES = [((BATCH, 64, 64, 96, 384), 2), ((BATCH, 32, 32, 192, 768), 12),
                    ((BATCH, 16, 16, 384, 1536), 24)]
+
+# FastVLM-0.5B serving on the synthetic stream of scripts/serve.py, at the
+# preset's own 1024 px (256 image tokens): windows of 256 + 64 + 64 = 384
+# positions, 24 pages of 16, a pool of 64 x 24 + 1 = 1,537 pages.
+SERVE = dict(num_slots=64, prefill_batch=16, prompt_len=64, max_new_tokens=64, page_size=16)
+SERVE_REQUESTS, SERVE_ARRIVALS, N_IMG, DECODER_LAYERS = 128, 16, 256, 24
+# The paged kernel at the serving shape (one launch per layer and tick) and
+# with the 7B decoder's heads.
+PAGED_MAIN = dict(b=64, n=14, kh=2, d=64)
+PAGED_7B = dict(b=16, n=28, kh=4, d=128)
+# Decode ticks whose device time the profiler adds up for the idle share.
+IDLE_TICKS = 5
 
 # Kernel against plain version, |kernel - plain| <= ATOL + RTOL * |plain| per element.
 # bf16: both sides round at the same points but in another order, so outputs
@@ -62,6 +91,10 @@ TOL = {
     ("flash", "fp32"): (1e-5, 1e-5),
     ("repmixer", "bf16"): (5e-2, 5e-2),
     ("repmixer", "fp32"): (1e-4, 1e-4),
+    # P rounded to bf16 relative to the running maximum (kernel) or after
+    # normalization (plain): a few bf16 ulps of outputs up to ~3.
+    ("paged", "bf16"): (2e-2, 2e-2),
+    ("paged", "fp32"): (1e-5, 1e-5),
 }
 # Kernel path against plain path over the whole bf16 policy: relative L2 error
 # of the pooled features and of the actions (bf16 roundings in another order
@@ -70,6 +103,9 @@ POLICY_REL_L2 = 3e-2
 # Card-resident and numpy observations run the same kernels on the same
 # values; only library algorithm choices could differ.
 DEVICE_INPUT_REL_L2 = 1e-3
+# Kernel tick against gathered tick from one admitted state, bf16: only the
+# 24 decode attentions differ (order of sums, where P is rounded).
+SERVE_LOGITS_REL_L2 = 2e-2
 
 
 def log(msg: str) -> None:
@@ -151,6 +187,71 @@ def flash_inputs(b, t, n, kh, d, dtype, seed=0):
     return q, k, v, mask
 
 
+def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False):
+    """A decode tick's paged attention at the serving windows (24 pages of
+    16): slot i holds 256 image + 4..64 prompt positions (the rest of the
+    64-wide prompt dead), then 0..63 decoded ones, on pages of its own; one
+    slot in 16 is inactive (one-hot mask on the trash page, as the server
+    runs them); with ``empty_slot`` slot 1 has an empty stored mask. Pools
+    N(0, 1), or their int8 quantization with scales."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.quant import quantize_kv
+
+    page, p_slot = SERVE["page_size"], (N_IMG + SERVE["prompt_len"] + SERVE["max_new_tokens"]) // SERVE["page_size"]
+    prefill = N_IMG + SERVE["prompt_len"]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p_total = b * p_slot + 1
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q, kn, vn = rnd(b, n, d), rnd(b, kh, d), rnd(b, kh, d)
+    pk, pv = rnd(p_total, kh, page, d), rnd(p_total, kh, page, d)
+    tables = torch.zeros(b, p_slot, dtype=torch.int32)
+    mask = torch.zeros(b, p_slot * page, dtype=torch.bool)
+    lengths = torch.ones(b, dtype=torch.int32)
+    perm = torch.randperm(p_total - 1, generator=g) + 1
+    for i in range(b):
+        if empty_slot and i == 1:
+            continue
+        if i % 16 == 15:
+            mask[i, 0] = True
+            continue
+        plen = int(torch.randint(4, SERVE["prompt_len"] + 1, (1,), generator=g))
+        length = prefill + int(torch.randint(0, SERVE["max_new_tokens"], (1,), generator=g))
+        mask[i, :N_IMG + plen] = True
+        mask[i, prefill:length] = True
+        used = length // page + 1  # pages through the write position
+        tables[i, :used] = perm[i * p_slot: i * p_slot + used]
+        lengths[i] = length
+    scales = {}
+    if int8:
+        (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+        scales = dict(pool_k_scale=ks.cuda(), pool_v_scale=vs.cuda())
+        (kq, kss), (vq, vss) = quantize_kv(kn), quantize_kv(vn)
+        kn, vn = kq.float() * kss[..., None], vq.float() * vss[..., None]
+    else:
+        pk, pv = pk.to(dtype), pv.to(dtype)
+    args = [q.to(dtype), pk, pv, tables, mask, lengths, kn.to(dtype), vn.to(dtype)]
+    return [a.cuda() for a in args], scales
+
+
+def serve_stream(seed=SEED):
+    """``scripts/serve.py``'s synthetic requests: prompt lengths uniform in
+    4..prompt_len, token ids in 3..249, images uniform in [0, 1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    width = SERVE["prompt_len"]
+    reqs = []
+    for _ in range(SERVE_REQUESTS):
+        length = int(rng.integers(4, width + 1))
+        ids = np.zeros((1, width), np.int32)
+        mask = np.zeros((1, width), np.int32)
+        ids[0, :length] = rng.integers(3, 250, length)
+        mask[0, :length] = 1
+        reqs.append((ids, mask, rng.random((1, 3, 1024, 1024), dtype=np.float32)))
+    return reqs
+
+
 def repmixer_inputs(b, h, w, c, f, dtype, seed=0):
     """x ~ N(0, 1); dirac-plus-noise depthwise kernels (the init's form, with
     noise so every tap counts), lecun-scaled fc weights, biases and a layer
@@ -196,6 +297,23 @@ def repmixer_bound_ms(args, out):
     return _bound(nbytes, flops)
 
 
+def paged_bound_ms(args, scales, out):
+    """Bytes: the distinct pages holding a valid position, K and V, plus q,
+    out, the new rows, the int32 mask and tables, and for int8 pools the
+    two (B, K, S) float32 scale windows. Operations: 4 D per (query row,
+    valid position), the new column included."""
+    q, pk, pv, tables, mask, lengths, kn, vn = args
+    b, n, d = q.shape
+    page = pk.shape[2]
+    reached = tables[mask.view(b, tables.shape[1], page).any(-1)].unique().numel()
+    nbytes = 2 * reached * pk[0].numel() * pk.element_size()
+    nbytes += sum(x.numel() * x.element_size() for x in (q, kn, vn, out)) + 4 * (mask.numel() + tables.numel())
+    if scales:
+        nbytes += 2 * 4 * b * pk.shape[1] * mask.shape[1]
+    flops = 4 * d * n * (int(mask.sum()) + b)
+    return _bound(nbytes, flops)
+
+
 def _bound(nbytes, flops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
@@ -208,9 +326,9 @@ def _bound(nbytes, flops):
 def phase_build():
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/4] build")
+    log("[1/5] build")
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "repmixer"])
+    logs = _build.build(["flash_attention", "repmixer", "paged_attention"])
     for name, text in logs.items():
         usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: " + (" | ".join(usage) if usage else "built"))
@@ -221,10 +339,11 @@ def phase_kernels():
     import torch
 
     from vla_fastvlm_tpu_torch.ops.kernels import (
-        flash_attention, flash_attention_reference, repmixer_block, repmixer_block_reference,
+        flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
+        paged_attention_decode_reference, repmixer_block, repmixer_block_reference,
     )
 
-    log("[2/4] kernels against their plain versions")
+    log("[2/5] kernels against their plain versions")
     errs = {"flash_attention": 0.0, "repmixer_block": 0.0}
     cases = [
         ("flash bf16 main", FLASH_MAIN, torch.bfloat16, "bf16"),
@@ -232,6 +351,9 @@ def phase_kernels():
         ("flash fp32 d64", dict(FLASH_MAIN, b=4), torch.float32, "fp32"),
         ("flash fp32 d128", dict(FLASH_7B, b=2), torch.float32, "fp32"),
     ]
+    for shape in FLASH_LONG:
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            cases.append((f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, dtype, kind))
     for what, shape, dtype, kind in cases:
         q, k, v, mask = flash_inputs(**shape, dtype=dtype)
         out = flash_attention(q, k, v, mask, True)
@@ -239,7 +361,10 @@ def phase_kernels():
         err = check_close(what, out, flash_attention_reference(q, k, v, mask, True), TOL[("flash", kind)])
         if kind == "bf16" and shape is FLASH_MAIN:
             errs["flash_attention"] = err
-    for (shape, _), small_c in zip(REPMIXER_STAGES, (True, True, False)):
+    q, k, v, mask = flash_inputs(**FLASH_MAIN, dtype=torch.bfloat16)
+    check_close("flash bf16 main, streamed instance", flash_attention_streamed(q, k, v, mask, True),
+                flash_attention_reference(q, k, v, mask, True), TOL[("flash", "bf16")])
+    for shape, _ in REPMIXER_STAGES:
         b, h, w, c, f = shape
         args = repmixer_inputs(*shape, torch.bfloat16)
         out = repmixer_block(*args)
@@ -247,12 +372,32 @@ def phase_kernels():
         err = check_close(f"repmixer bf16 {shape}", out, repmixer_block_reference(*args),
                           TOL[("repmixer", "bf16")])
         errs["repmixer_block"] = max(errs["repmixer_block"], err)
-        if small_c:  # fp32 tiles of C=384 exceed one block's shared memory
-            args = repmixer_inputs(2, h, w, c, f, torch.float32)
-            out = repmixer_block(*args)
-            torch.cuda.synchronize()
-            check_close(f"repmixer fp32 {(2, h, w, c, f)}", out, repmixer_block_reference(*args),
-                        TOL[("repmixer", "fp32")])
+        args = repmixer_inputs(2, h, w, c, f, torch.float32)
+        out = repmixer_block(*args)
+        torch.cuda.synchronize()
+        check_close(f"repmixer fp32 {(2, h, w, c, f)}", out, repmixer_block_reference(*args),
+                    TOL[("repmixer", "fp32")])
+    paged_cases = [
+        ("paged_attention", "paged bf16 main", PAGED_MAIN, torch.bfloat16, False, False),
+        ("paged_attention_int8", "paged int8 main", PAGED_MAIN, torch.bfloat16, True, False),
+        (None, "paged bf16 d128", PAGED_7B, torch.bfloat16, False, False),
+        (None, "paged int8 d128", PAGED_7B, torch.bfloat16, True, False),
+        (None, "paged fp32 d64", dict(PAGED_MAIN, b=17), torch.float32, False, True),
+        (None, "paged fp32 int8 d64", dict(PAGED_MAIN, b=17), torch.float32, True, True),
+        (None, "paged fp32 d128", dict(PAGED_7B, b=3), torch.float32, False, True),
+    ]
+    for name, what, shape, dtype, int8, empty in paged_cases:
+        args, scales = paged_inputs(**shape, dtype=dtype, int8=int8, empty_slot=empty)
+        out = paged_attention_decode(*args, **scales)
+        torch.cuda.synchronize()
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        err = check_close(what, out, paged_attention_decode_reference(*args, **scales), TOL[("paged", kind)])
+        if name:
+            errs[name] = err
+        if empty:  # slot 1's stored mask is empty: its rows are its new V row
+            rep = shape["n"] // shape["kh"]
+            check_close(f"{what}, empty stored mask", out[1], args[7][1].repeat_interleave(rep, dim=0),
+                        TOL[("paged", kind)])
     # An odd size exercises the ragged edge tiles of the 8x8 pixel grid.
     args = repmixer_inputs(3, 12, 20, 96, 384, torch.float32)
     check_close("repmixer fp32 ragged (3, 12, 20, 96, 384)", repmixer_block(*args),
@@ -290,7 +435,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/4] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/5] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -308,7 +453,7 @@ def phase_policy():
     log(f"  launches in one step: {counts}")
     if tuple(actions.shape) != (BATCH, 14) or not torch.isfinite(actions).all():
         fail(f"actions {tuple(actions.shape)} finite={bool(torch.isfinite(actions).all())}")
-    expect = {"flash_attention": 24, "repmixer_block": 38}
+    expect = {"flash_attention": 24, "repmixer_block": 38, "paged_attention": 0}
     if counts != expect:
         fail(f"launch counts {counts} != {expect}")
 
@@ -341,15 +486,155 @@ def phase_policy():
     return policy, plain, step, counts
 
 
+def make_servers():
+    """The bf16 model of FastVLM-0.5B at 1024 px from seed 0, and the same
+    weights under a text config with int8 KV pools."""
+    from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig
+
+    def backbone(kv):
+        return FastVLMBackbone(FastVLMBackboneConfig(
+            model_id="fastvlm-0.5b", bootstrap_model_id="fastvlm-0.5b", dtype="bfloat16",
+            param_dtype="bfloat16", kv_cache_quantization=kv, seed=SEED,
+        ))
+
+    bf16, int8 = backbone("none"), backbone("int8")
+    int8.model.load_state_dict(bf16.model.state_dict())
+    return bf16.model, int8.model
+
+
+def new_server(model, impl):
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+
+    return PagedGenerationServer(model, eos_token_id=-1, temperature=0.0, seed=SEED, decode_impl=impl, **SERVE)
+
+
+def device_ms(prof) -> float:
+    """Device time (ms) of the kernels in a profile: the self device time of
+    the device-side events, as the profiler's own table totals it (an
+    operator's row repeats its kernels' time, so it is not added)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
+
+
+def run_stream(server, reqs, table: Path | None = None):
+    """``scripts/serve.py``'s loop: up to 16 arrivals a tick while slots and
+    pages allow, then one ``step``. Once every slot is busy and nothing
+    arrives, ``IDLE_TICKS`` decode ticks run under the profiler for the
+    device time of a tick; their time and tokens are left out of the tick
+    times and the rate (each active slot emits one token a decode tick).
+    With ``table`` the profile of those ticks is written there, by device
+    time and by host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    submitted, finished, tick_times, prof_ms = 0, {}, [], None
+    window_tokens, window_s = 0, 0.0
+    t_start = time.perf_counter()
+    while len(finished) < len(reqs):
+        arrivals = 0
+        while submitted < len(reqs) and server.has_free_slot() and arrivals < SERVE_ARRIVALS:
+            server.submit(*reqs[submitted])
+            submitted += 1
+            arrivals += 1
+        if prof_ms is None and arrivals == 0 and server.num_active == SERVE["num_slots"] and server.ticks >= 8:
+            w0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(IDLE_TICKS):
+                    window_tokens += server.num_active
+                    finished.update(server.step())
+                torch.cuda.synchronize()
+            window_s = time.perf_counter() - w0
+            prof_ms = device_ms(prof) / IDLE_TICKS
+            if table is not None:
+                avg = prof.key_averages()
+                table.write_text(avg.table(sort_by="self_cuda_time_total", row_limit=30) + "\n"
+                                 + avg.table(sort_by="self_cpu_time_total", row_limit=30))
+            continue
+        t0 = time.perf_counter()
+        finished.update(server.step())
+        torch.cuda.synchronize()
+        tick_times.append((time.perf_counter() - t0) * 1e3)
+    elapsed = time.perf_counter() - t_start - window_s
+    total = sum(len(t) for t in finished.values())
+    p50 = statistics.median(tick_times)
+    summary = {
+        "requests": len(reqs), "slots": SERVE["num_slots"], "prefill_batch": SERVE["prefill_batch"],
+        "total_new_tokens": total, "tokens_per_sec": (total - window_tokens) / elapsed, "p50_tick_ms": p50,
+        "ticks": server.ticks, "admissions": server.admissions,
+        "device_ms_per_decode_tick": prof_ms,
+        "device_idle_share": None if prof_ms is None else 1.0 - prof_ms / p50,
+    }
+    return finished, summary
+
+
+def phase_serving(profile_dir: Path | None = None):
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    log("[4/5] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    t0 = time.perf_counter()
+    model, model_int8 = make_servers()
+    reqs = serve_stream()
+    log(f"  models and stream ready in {time.perf_counter() - t0:.1f} s")
+
+    # One admitted state (64 slots, 8 ticks decoded), both tick programs.
+    server = new_server(model, "kernel")
+    for req in reqs[: SERVE["num_slots"]]:
+        server.submit(*req)
+    for _ in range(8):
+        server.step()
+    kernel_logits, gathered_logits = server.tick_logits("kernel").float(), server.tick_logits("gathered").float()
+    rel = float((kernel_logits - gathered_logits).norm() / gathered_logits.norm())
+    agree = float((kernel_logits.argmax(-1) == gathered_logits.argmax(-1)).float().mean())
+    log(f"  kernel vs gathered tick logits from one admitted state: rel_l2={rel:.3e} "
+        f"(limit {SERVE_LOGITS_REL_L2:g}), same argmax in {agree:.3f} of slots")
+    if not rel <= SERVE_LOGITS_REL_L2:
+        fail(f"kernel tick differs from the gathered tick: rel_l2={rel:.3e}")
+    del server
+    torch.cuda.empty_cache()
+
+    outputs, summaries, counts = {}, {}, {}
+    for name, mdl, impl in (("kernel", model, "kernel"), ("gathered", model, "gathered"),
+                            ("kernel_int8", model_int8, "kernel")):
+        server = new_server(mdl, impl)
+        reset_launch_counts()
+        table = None if profile_dir is None else profile_dir / f"serve_{name}_ticks.txt"
+        finished, summary = run_stream(server, reqs, table)
+        counts[name] = launch_counts()
+        summaries[name], outputs[name] = summary, finished
+        log(f"  {name}: {json.dumps(summary)}")
+        log(f"  {name}: launches {counts[name]}")
+        if len(finished) != SERVE_REQUESTS or any(len(t) != SERVE["max_new_tokens"] for t in finished.values()):
+            fail(f"{name}: {len(finished)} requests answered, token counts {sorted({len(t) for t in finished.values()})}")
+        pool = server.pool
+        if pool.free_pages != pool.num_pages - 1 or pool.page_table.any():
+            fail(f"{name}: {pool.free_pages} of {pool.num_pages - 1} pages back on the free list")
+        expect = {"flash_attention": 0, "repmixer_block": 38 * server.admissions,
+                  "paged_attention": DECODER_LAYERS * server.ticks if impl == "kernel" else 0}
+        if counts[name] != expect:
+            fail(f"{name}: launch counts {counts[name]} != {expect}")
+        del server
+        torch.cuda.empty_cache()
+    for other in ("gathered", "kernel_int8"):
+        same = sum(a == b for rid in outputs["kernel"] for a, b in zip(outputs["kernel"][rid], outputs[other][rid]))
+        log(f"  greedy tokens identical between kernel and {other}: "
+            f"{same / (SERVE_REQUESTS * SERVE['max_new_tokens']):.4f}")
+    return summaries, counts
+
+
 def phase_timing(policy, plain, step):
     import torch
 
     from vla_fastvlm_tpu_torch.ops.kernels import (
-        flash_attention, flash_attention_reference, repmixer_block, repmixer_block_reference,
+        flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
+        paged_attention_decode_reference, repmixer_block, repmixer_block_reference,
     )
     from vla_fastvlm_tpu_torch.ops.kernels.repmixer import _dw_weight
 
-    log("[4/4] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[5/5] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -390,6 +675,28 @@ def phase_timing(policy, plain, step):
     r = results["flash_attention"]
     log(f"  flash_attention {tuple(q.shape)}x{tuple(k.shape)}: kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x24 per step")
+    streamed = time_ms(lambda: flash_attention_streamed(q, k, v, mask, True), 50)
+    log(f"  flash_attention streamed instance at the same shape: {streamed:.4f} ms")
+    for shape in FLASH_LONG:
+        q, k, v, mask = flash_inputs(**shape, dtype=torch.bfloat16)
+        out = flash_attention(q, k, v, mask, True)
+        bound, by = flash_bound_ms(q, k, v, mask, out)
+        log(f"  flash_attention streamed {tuple(q.shape)}: kernel {time_ms(lambda: flash_attention(q, k, v, mask, True), 10):.4f} ms, "
+            f"plain {time_ms(lambda: flash_attention_reference(q, k, v, mask, True), 3):.4f} ms, "
+            f"bound {bound:.4f} ms ({by})")
+
+    # paged decode attention: one launch per layer and tick at the serving shape
+    for name, shape, int8 in (("paged_attention", PAGED_MAIN, False), ("paged_attention_int8", PAGED_MAIN, True),
+                              ("paged_attention d128", PAGED_7B, False), ("paged_attention_int8 d128", PAGED_7B, True)):
+        args, scales = paged_inputs(**shape, dtype=torch.bfloat16, int8=int8)
+        out = paged_attention_decode(*args, **scales)
+        bound, by = paged_bound_ms(args, scales, out)
+        r = dict(ms=time_ms(lambda: paged_attention_decode(*args, **scales), 50),
+                 plain_ms=time_ms(lambda: paged_attention_decode_reference(*args, **scales), 20),
+                 library_ms=None, bound_ms=bound, bound_by=by)
+        results[name] = r
+        log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x{DECODER_LAYERS} per tick")
 
     # repmixer: per stage, weighted by launches per step into one per-launch mean
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
@@ -414,6 +721,9 @@ def phase_timing(policy, plain, step):
     )
     log(f"  repmixer_block per step: kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
         f"bound {total['bound_ms']:.3f} ms over {launches} launches")
+    args = repmixer_inputs(16, 16, 16, 384, 1536, torch.float32)
+    log(f"  repmixer_block fp32 (16, 16, 16, 384) F 1536: kernel {time_ms(lambda: repmixer_block(*args), 10):.4f} ms, "
+        f"plain {time_ms(lambda: repmixer_block_reference(*args), 5):.4f} ms")
     return results
 
 
@@ -436,7 +746,8 @@ def profile_step(policy, step, out_dir: Path) -> None:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=Path, default=None,
-                        help="directory for a torch.profiler table of three policy steps")
+                        help="directory for torch.profiler tables of three policy steps and of "
+                             f"{IDLE_TICKS} decode ticks of each server")
     args = parser.parse_args(argv)
 
     import torch
@@ -453,25 +764,47 @@ def main(argv=None) -> int:
     strict_fp32()  # fp32 plain versions in full fp32: no TF32 in cuDNN or matmuls
 
     t_start = time.perf_counter()
-    phase_build()
-    errs = phase_kernels()
-    policy, plain, step, counts = phase_policy()
-    timings = phase_timing(policy, plain, step)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", phase_build)
+    errs = timed("kernels", phase_kernels)
+    policy, plain, step, counts = timed("policy", phase_policy)
+    if args.profile is not None:
+        args.profile.mkdir(parents=True, exist_ok=True)
+    summaries, serve_counts = timed("serving", phase_serving, args.profile)
+    timings = timed("timing", phase_timing, policy, plain, step)
+    log(f"seconds per phase: {phase_s}")
     if args.profile is not None:
         profile_step(policy, step, args.profile)
 
+    # name: (source, TPU kernel it replaces, launches on its main path's run)
     meta = {
         "flash_attention": ("vla_fastvlm_tpu_torch/csrc/flash_attention.cu",
-                            "vla_fastvlm_tpu/ops/pallas/flash_attention.py:51"),
+                            "vla_fastvlm_tpu/ops/pallas/flash_attention.py:51", counts["flash_attention"]),
         "repmixer_block": ("vla_fastvlm_tpu_torch/csrc/repmixer.cu",
-                           "vla_fastvlm_tpu/ops/pallas/repmixer.py:67"),
+                           "vla_fastvlm_tpu/ops/pallas/repmixer.py:67", counts["repmixer_block"]),
+        "paged_attention": ("vla_fastvlm_tpu_torch/csrc/paged_attention.cu",
+                            "vla_fastvlm_tpu/ops/pallas/paged_attention.py:65",
+                            serve_counts["kernel"]["paged_attention"]),
+        "paged_attention_int8": ("vla_fastvlm_tpu_torch/csrc/paged_attention.cu",
+                                 "vla_fastvlm_tpu/ops/pallas/paged_attention.py:96",
+                                 serve_counts["kernel_int8"]["paged_attention"]),
     }
+    for name, summary in summaries.items():
+        log(f"serve {name}: tokens/s {summary['tokens_per_sec']:.1f}, p50 tick {summary['p50_tick_ms']:.2f} ms, "
+            f"ticks {summary['ticks']}, device idle share {summary['device_idle_share']}")
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, launches) in meta.items():
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": errs[name],
+            "launches": launches, "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

@@ -18,7 +18,10 @@ from vla_fastvlm_tpu_torch.device import strict_fp32
 from vla_fastvlm_tpu_torch.ops.kernels import (
     flash_attention,
     flash_attention_reference,
+    flash_attention_streamed,
     launch_counts,
+    paged_attention_decode,
+    paged_attention_decode_reference,
     repmixer_block,
     repmixer_block_reference,
     reset_launch_counts,
@@ -58,6 +61,17 @@ def test_flash_kernel_matches_plain(cuda, d, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
 
 
+@pytest.mark.parametrize("s", [1024, 80])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_flash_streamed_instance_matches_plain(cuda, s, dtype, atol):
+    """Above what shared memory holds the wrapper takes the streamed instance
+    by itself; at the policy's S = 80 it is asked for by name."""
+    q, k, v, mask = _flash_inputs(2, s, 14, 2, 64, dtype, cuda)
+    ref = flash_attention_reference(q, k, v, mask, True)
+    out = flash_attention(q, k, v, mask, True) if s > 768 else flash_attention_streamed(q, k, v, mask, True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
 def _rep_args(b, h, w, c, f, dtype, device, seed=0):
     rng = np.random.default_rng(seed)
     arr = lambda *s, scale=0.5: torch.from_numpy((rng.standard_normal(s) * scale).astype(np.float32))
@@ -71,7 +85,7 @@ def _rep_args(b, h, w, c, f, dtype, device, seed=0):
     return [a.to(device, dtype) for a in args]
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16, 96, 384), (1, 12, 20, 192, 768)])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 96, 384), (1, 12, 20, 192, 768), (1, 12, 20, 384, 1536)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-1)])
 def test_repmixer_kernel_matches_plain(cuda, shape, dtype, atol):
     args = _rep_args(*shape, dtype, cuda)
@@ -81,6 +95,71 @@ def test_repmixer_kernel_matches_plain(cuda, shape, dtype, atol):
     assert launch_counts()["repmixer_block"] == 1
     ref = repmixer_block_reference(*args)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+def _paged_inputs(b, n, kh, d, dtype, int8, device, page=16, p_slot=6, seed=0):
+    """Slot b % 4 == 0: inactive (empty stored mask, all trash); others hold
+    ragged, non page-aligned lengths with pad holes, the rest of their table
+    on the trash page."""
+    from vla_fastvlm_tpu_torch.ops.quant import quantize_kv
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    p_total = b * p_slot + 1
+    rnd = lambda *s: torch.randn(*s, generator=g)
+    q, kn, vn = rnd(b, n, d), rnd(b, kh, d), rnd(b, kh, d)
+    pk, pv = rnd(p_total, kh, page, d), rnd(p_total, kh, page, d)
+    tables = torch.zeros(b, p_slot, dtype=torch.int32)
+    mask = torch.zeros(b, p_slot * page, dtype=torch.bool)
+    lengths = torch.ones(b, dtype=torch.int32)
+    perm = torch.randperm(p_total - 1, generator=g) + 1
+    for i in range(b):
+        if i % 4 == 0:
+            continue
+        length = int(torch.randint(1, p_slot * page, (1,), generator=g))
+        used = -(-length // page)
+        tables[i, :used] = perm[i * p_slot: i * p_slot + used]
+        mask[i, :length] = True
+        mask[i, length // 3] = False  # a dead pad slot
+        lengths[i] = length
+    scales = {}
+    if int8:
+        (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+        scales = dict(pool_k_scale=ks.to(device), pool_v_scale=vs.to(device))
+        (kq, kss), (vq, vss) = quantize_kv(kn), quantize_kv(vn)
+        kn, vn = kq.float() * kss[..., None], vq.float() * vss[..., None]
+    else:
+        pk, pv = pk.to(dtype), pv.to(dtype)
+    args = [q.to(dtype), pk, pv, tables, mask, lengths, kn.to(dtype), vn.to(dtype)]
+    return [a.to(device) for a in args], scales
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_paged_kernel_matches_plain(cuda, d, int8, dtype, atol):
+    args, scales = _paged_inputs(9, 14, 2, d, dtype, int8, cuda)
+    reset_launch_counts()
+    out = paged_attention_decode(*args, **scales)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention"] == 1
+    ref = paged_attention_decode_reference(*args, **scales)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+    # inactive slots attend only their new row
+    torch.testing.assert_close(out[0].float(), args[7][0].float().repeat_interleave(7, dim=0), atol=atol, rtol=atol)
+
+
+def test_paged_server_kernel_path_raises_on_shapes_the_kernel_does_not_take(cuda):
+    """On the card decode_impl "kernel" launches the paged kernel or raises:
+    the tiny decoder's head_dim 16 has no kernel, and nothing falls back."""
+    from vla_fastvlm_tpu_torch.models import FastVLM, fastvlm_tiny
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+
+    with torch.device(cuda):
+        model = FastVLM(fastvlm_tiny().replace(image_token_mode="none")).eval()
+    server = PagedGenerationServer(model, num_slots=2, prompt_len=4, max_new_tokens=3, eos_token_id=-1, page_size=4)
+    server.submit(np.array([[5, 6, 7, 0]], np.int32), np.array([[1, 1, 1, 0]], np.int32))
+    with pytest.raises(ValueError, match="head_dim"):
+        server.step()
 
 
 def test_auto_impls_raise_on_shapes_the_kernels_do_not_take(cuda):

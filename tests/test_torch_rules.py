@@ -2,7 +2,8 @@
 
 - The port imports without JAX and without the JAX package.
 - No file of the port, nor ``chip_smoke.py``, names the JAX package or JAX.
-- Entry points raise without CUDA unless ``device="cpu"`` is passed.
+- Entry points raise without CUDA unless ``device="cpu"`` is passed; the
+  paged server runs where the backbone put its model.
 - The weight bridge covers every parameter at full ``fastvlm_0_5b`` width:
   ``jax.eval_shape`` of the JAX init against the port built on the meta
   device (nothing is allocated for either).
@@ -68,7 +69,9 @@ def test_no_jax_in_port_sources(path):
 def test_every_module_has_a_jax_counterpart_layout():
     """The port mirrors the JAX package's layout for every ported module."""
     mirrored = {
-        "ops/norms.py", "ops/rope.py", "ops/attention.py", "ops/image.py",
+        "ops/norms.py", "ops/rope.py", "ops/attention.py", "ops/image.py", "ops/quant.py",
+        "serving/__init__.py", "serving/sampling.py", "serving/generate.py",
+        "serving/continuous_batching.py", "serving/paged_kv.py",
         "models/qwen2.py", "models/fastvit.py", "models/fastvlm.py", "models/action_head.py",
         "io/tokenizer.py", "model/fastvlm_adapter.py", "fastvla/configuration_fastvla.py",
         "fastvla/processor_fastvla.py", "fastvla/fastvlm_with_expert.py", "fastvla/modeling_fastvla.py",
@@ -88,21 +91,32 @@ class TestDevice:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device("cuda")
 
-    @pytest.mark.parametrize("entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy"])
+    @pytest.mark.parametrize(
+        "entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy", "PagedGenerationServer"]
+    )
     def test_entry_points_need_cuda_unless_cpu(self, entry, monkeypatch):
         from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMWithExpert
         from vla_fastvlm_tpu_torch.model import FastVLMBackbone
+        from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-        cfg = FastVLAConfig(vlm_model_name="tiny", hidden_dim=8, fusion_dim=8, tokenizer_max_length=8)
+        cfg = FastVLAConfig(vlm_model_name="tiny", hidden_dim=8, fusion_dim=8, tokenizer_max_length=8,
+                            kv_cache_quantization="int8")
         build = {
             "FastVLMBackbone": lambda **kw: FastVLMBackbone(cfg.to_backbone_config(), **kw),
             "FastVLMWithExpert": lambda **kw: FastVLMWithExpert(cfg, **kw),
             "FastVLAPolicy": lambda **kw: FastVLAPolicy(cfg, **kw),
+            # The server runs where the backbone put the model, pools included.
+            "PagedGenerationServer": lambda **kw: PagedGenerationServer(
+                FastVLMBackbone(cfg.to_backbone_config(), **kw).model, num_slots=1, prompt_len=8, max_new_tokens=2
+            ),
         }[entry]
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
-        assert build(device="cpu").device == torch.device("cpu")
+        built = build(device="cpu")
+        assert built.device == torch.device("cpu")
+        if entry == "PagedGenerationServer":
+            assert built.pool.pool_k.device == torch.device("cpu") and built.pool.quantized
 
     def test_forward_rejects_another_device(self):
         from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig

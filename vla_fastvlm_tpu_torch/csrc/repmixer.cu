@@ -28,15 +28,20 @@
 //    of one pixel column, holds the channel's taps in registers and sweeps
 //    the ring's rows once with the column's 8 sums in registers. t7
 //    (64 px x C) and the centre of t3 stay in shared memory.
-// 2. fc1 -> GELU -> fc2 over hidden chunks of 64 on the tensor cores
+// 2. fc1 -> GELU -> fc2 over hidden chunks of FC on the tensor cores
 //    (mma.sync m16n8k16, operands through ldmatrix). The fp32 y tile (64 x C)
 //    lives in registers for the whole loop: warp w owns rows 16 (w % 4) and
 //    half of the columns. Weight chunks are staged in shared memory with
 //    cp.async: the w2 chunk loads while fc1 runs and the next w1 chunk while
 //    fc2 runs.
 // 3. Epilogue from the registers: + b2, round, x gamma, round, + t3, store.
-// The fp32 instance runs the same code with CUDA-core products (mma_tiles.cuh)
-// and fits shared memory up to C = 192.
+// The fp32 instance runs the same code with CUDA-core products (mma_tiles.cuh).
+//
+// Plan per instance (Plan below): FC = 64 hidden units per chunk, with the
+// centre of t3 kept in shared memory for the residual. The fp32 instance at
+// C = 384 would need 430 KB that way; it takes FC = 32 and parks the t3
+// centre in `out` itself (each block writes and later reads back only its own
+// pixels, after a barrier), which brings it to 217 KB.
 
 #include "mma_tiles.cuh"
 
@@ -53,7 +58,6 @@ constexpr int HALO = 4;                   // dw3 (1) + dw7 (3)
 constexpr int IN_SIDE = TILE + 2 * HALO;  // 16
 constexpr int RING = TILE + 6;            // dw3 output incl. the dw7 halo: 14
 constexpr int CC = 32;                    // channels per depthwise chunk
-constexpr int FC = 64;                    // hidden units per fc chunk
 constexpr int THREADS = 256;
 constexpr int PAD = 8;                    // row padding (elements) against bank conflicts
 static_assert(THREADS / CC == TILE, "dw7 gives each warp one pixel column");
@@ -75,24 +79,37 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + (sizeof(T) == 2 ? fast_tanh(u) : tanhf(u)));
 }
 
+// Hidden units per fc chunk, and whether the t3 centre stays in shared memory.
+template <typename T, int C>
+struct Plan {
+  static constexpr bool WIDE_FP32 = sizeof(T) == 4 && C >= 384;
+  static constexpr int FC = WIDE_FP32 ? 32 : 64;
+  static constexpr bool T3_SMEM = !WIDE_FP32;
+};
+
 // Shared-memory layout, shared by the host planner and the kernel.
 struct Layout {
   size_t t7, t3c, xs, ring, w1s, w2s, hs, total;
-  __host__ __device__ Layout(int esz, int c) {
+  __host__ __device__ Layout(int esz, int c, int fc, bool t3_smem) {
     const size_t tsz = align128((size_t)PIX * (c + PAD) * esz);
     t7 = 0;
-    t3c = tsz;
-    const size_t uni = 2 * tsz;  // phase 1 (depthwise) and phase 2 (fc) share the rest
+    t3c = tsz;  // unused without t3_smem
+    const size_t uni = (t3_smem ? 2 : 1) * tsz;  // phase 1 (depthwise) and phase 2 (fc) share the rest
     xs = uni;                    // two input tiles: the chunk in use and the next
     ring = xs + 2 * align128((size_t)IN_SIDE * IN_SIDE * CC * esz);
     const size_t phase1 = ring + align128((size_t)RING * RING * CC * esz);
     w1s = uni;
-    w2s = w1s + align128((size_t)c * (FC + PAD) * esz);
-    hs = w2s + align128((size_t)FC * (c + PAD) * esz);
-    const size_t phase2 = hs + align128((size_t)PIX * (FC + PAD) * esz);
+    w2s = w1s + align128((size_t)c * (fc + PAD) * esz);
+    hs = w2s + align128((size_t)fc * (c + PAD) * esz);
+    const size_t phase2 = hs + align128((size_t)PIX * (fc + PAD) * esz);
     total = phase1 > phase2 ? phase1 : phase2;
   }
 };
+
+template <typename T, int C>
+__host__ __device__ Layout plan_layout() {
+  return Layout(sizeof(T), C, Plan<T, C>::FC, Plan<T, C>::T3_SMEM);
+}
 
 // Start copying the haloed 16x16 input tile of channels [c0, c0 + CC) into
 // dst (pixel-major, CC wide); pixels outside the image are zero-filled.
@@ -109,7 +126,7 @@ __device__ __forceinline__ void stage_input(T* dst, const T* xi, int H, int W, i
 }
 
 // Stage w1[:, f0 : f0 + FC] (C rows of FC) into dst with row stride FC + PAD.
-template <typename T, int C>
+template <typename T, int C, int FC>
 __device__ __forceinline__ void stage_w1(T* dst, const T* w1, int F, int f0) {
   constexpr int VEC = 16 / sizeof(T), PER_ROW = FC / VEC;
   for (int i = threadIdx.x; i < C * PER_ROW; i += THREADS) {
@@ -119,7 +136,7 @@ __device__ __forceinline__ void stage_w1(T* dst, const T* w1, int F, int f0) {
 }
 
 // Stage w2[f0 : f0 + FC, :] (FC rows of C) into dst with row stride C + PAD.
-template <typename T, int C>
+template <typename T, int C, int FC>
 __device__ __forceinline__ void stage_w2(T* dst, const T* w2, int f0) {
   constexpr int VEC = 16 / sizeof(T), PER_ROW = C / VEC;
   for (int i = threadIdx.x; i < FC * PER_ROW; i += THREADS) {
@@ -140,11 +157,13 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
                 const T* __restrict__ b1, const T* __restrict__ w2, const T* __restrict__ b2,
                 const T* __restrict__ gamma, T* __restrict__ out, int H, int W, int F,
                 int tiles_w) {
+  constexpr int FC = Plan<T, C>::FC;
+  constexpr bool T3_SMEM = Plan<T, C>::T3_SMEM;
   constexpr int LDT = C + PAD;      // t7 / t3c / w2s row stride
   constexpr int LDH = FC + PAD;     // w1s / hs row stride
   constexpr int NJ2 = C / 16;       // 8-column tiles of y per warp (half of C)
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(sizeof(T), C);
+  const Layout L = plan_layout<T, C>();
   T* t7 = reinterpret_cast<T*>(smem + L.t7);
   T* t3c = reinterpret_cast<T*>(smem + L.t3c);
   T* w1s = reinterpret_cast<T*>(smem + L.w1s);
@@ -155,6 +174,7 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
   const int ox = (blockIdx.x % tiles_w) * TILE;
   const size_t img = (size_t)blockIdx.y * H * W * C;
   const T* xi = x + img;
+  T* oi = out + img;
   const int ch = threadIdx.x % CC;  // a thread's channel within the chunk, fixed
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -222,26 +242,33 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
             for (int dx = 0; dx < 7; ++dx) acc[py] = fmaf(k7[dy * 7 + dx], row[dx], acc[py]);
           }
         }
-        if (ry >= 3 && ry < 3 + TILE) t3c[((ry - 3) * TILE + px) * LDT + c0 + ch] = ring[(ry * RING + px + 3) * CC + ch];
+        if (ry >= 3 && ry < 3 + TILE) {
+          const T t3 = ring[(ry * RING + px + 3) * CC + ch];
+          if (T3_SMEM) {
+            t3c[((ry - 3) * TILE + px) * LDT + c0 + ch] = t3;
+          } else if (oy + ry - 3 < H && ox + px < W) {
+            oi[((size_t)(oy + ry - 3) * W + ox + px) * C + c0 + ch] = t3;
+          }
+        }
       }
 #pragma unroll
       for (int py = 0; py < TILE; ++py) t7[(py * TILE + px) * LDT + c0 + ch] = from_f<T>(acc[py]);
     }
   }
-  __syncthreads();  // phase 2 reuses the input tiles' and ring's memory
+  __syncthreads();  // phase 2 reuses the input tiles' and ring's memory; t3 in out is visible
 
   // ---- phase 2: fc1 -> GELU -> fc2 over hidden chunks, y in registers ------
   const int m0 = (warp & 3) * 16;        // this warp's 16 pixel rows
-  const int n1 = (warp >> 2) * (FC / 2);  // its 32 columns of a hidden chunk
+  const int n1 = (warp >> 2) * (FC / 2);  // its FC / 2 columns of a hidden chunk
   const int n2 = (warp >> 2) * (C / 2);   // its C / 2 columns of y
   float y[NJ2][4];
 #pragma unroll
   for (int j = 0; j < NJ2; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.0f;
 
-  stage_w1<T, C>(w1s, w1, F, 0);
+  stage_w1<T, C, FC>(w1s, w1, F, 0);
   cp_async_commit();
   for (int f0 = 0; f0 < F; f0 += FC) {
-    stage_w2<T, C>(w2s, w2, f0);
+    stage_w2<T, C, FC>(w2s, w2, f0);
     cp_async_commit();
     cp_async_wait<1>();  // this chunk's w1 has landed
     __syncthreads();
@@ -266,7 +293,7 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
     __syncthreads();  // hs complete; every warp is done reading w1s
 
     if (f0 + FC < F) {
-      stage_w1<T, C>(w1s, w1, F, f0 + FC);
+      stage_w1<T, C, FC>(w1s, w1, F, f0 + FC);
       cp_async_commit();
       cp_async_wait<1>();  // this chunk's w2 has landed
     } else {
@@ -280,7 +307,6 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
   }
 
   // ---- epilogue: + b2, round, x gamma, round, + t3, store ------------------
-  T* oi = out + img;
 #pragma unroll
   for (int j = 0; j < NJ2; ++j) {
     const int col = n2 + j * 8 + 2 * t;
@@ -291,7 +317,8 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
       const int p = m0 + g + 8 * half;
       const int gy = oy + p / TILE, gx = ox + p % TILE;
       if (gy < H && gx < W) {
-        const float2 r = unpack(*reinterpret_cast<const pair_t<T>*>(t3c + p * LDT + col));
+        const T* t3 = T3_SMEM ? t3c + p * LDT + col : oi + ((size_t)gy * W + gx) * C + col;
+        const float2 r = unpack(*reinterpret_cast<const pair_t<T>*>(t3));
         const float v0 = r.x + round_to<T>(round_to<T>(y[j][2 * half] + bb0) * g0);
         const float v1 = r.y + round_to<T>(round_to<T>(y[j][2 * half + 1] + bb1) * g1);
         *reinterpret_cast<pair_t<T>*>(oi + ((size_t)gy * W + gx) * C + col) = pack<T>(v0, v1);
@@ -307,7 +334,7 @@ int launch(const void* x, const void* w3, const void* b3, const void* w7, const 
   int dev = 0, max_smem = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t smem = Layout(sizeof(T), C).total;
+  const size_t smem = plan_layout<T, C>().total;
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(repmixer_kernel<T, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -334,13 +361,23 @@ int dispatch(const void* x, const void* w3, const void* b3, const void* w7, cons
   }
 }
 
+template <typename T>
+long long smem_bytes(int C) {
+  switch (C) {
+    case 96: return (long long)plan_layout<T, 96>().total;
+    case 192: return (long long)plan_layout<T, 192>().total;
+    case 384: return (long long)plan_layout<T, 384>().total;
+    default: return 0;
+  }
+}
+
 }  // namespace
 
-// Shared memory one block needs, in bytes (0 for an unknown dtype), so the
-// caller can reject a shape before launching.
+// Shared memory one block needs, in bytes (0 for an unknown dtype or width),
+// so the caller can reject a shape before launching.
 extern "C" long long repmixer_smem_bytes(int C, int dtype) {
-  if (dtype == 1) return (long long)Layout(sizeof(bf16), C).total;
-  if (dtype == 0) return (long long)Layout(sizeof(float), C).total;
+  if (dtype == 1) return smem_bytes<bf16>(C);
+  if (dtype == 0) return smem_bytes<float>(C);
   return 0;
 }
 
@@ -351,7 +388,7 @@ extern "C" int repmixer_block_fwd(const void* x, const void* w3, const void* b3,
                                   const void* b7, const void* w1, const void* b1, const void* w2,
                                   const void* b2, const void* gamma, void* out, int B, int H,
                                   int W, int C, int F, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || F <= 0 || F % FC != 0 || B > 65535)
+  if (B <= 0 || H <= 0 || W <= 0 || F <= 0 || F % 64 != 0 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return dispatch<bf16>(x, w3, b3, w7, b7, w1, b1, w2, b2, gamma, out, B, H, W, C, F, st);

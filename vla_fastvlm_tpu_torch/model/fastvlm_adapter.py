@@ -66,9 +66,10 @@ class FastVLMBackboneConfig:
 
 
 def _check_supported(cfg: FastVLMBackboneConfig) -> None:
+    if cfg.kv_cache_quantization not in ("none", "int8"):
+        raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
     unported = {
         "quantization": cfg.quantization != "none",
-        "kv_cache_quantization": cfg.kv_cache_quantization != "none",
         "train_backbone": cfg.train_backbone,
         "gradient_checkpointing": cfg.gradient_checkpointing,
     }
@@ -137,6 +138,7 @@ class FastVLMBackbone:
             text=self.model_config.text.replace(
                 attention_impl=cfg.attention_impl,
                 fused_projections=cfg.fused_projections,
+                kv_cache_quantization=cfg.kv_cache_quantization,
             ),
             vision=self.model_config.vision.replace(block_impl=cfg.vision_block_impl),
         )

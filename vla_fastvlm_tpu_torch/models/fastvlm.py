@@ -1,8 +1,11 @@
 """FastVLM (llava_qwen2) composition: FastViTHD + mm projector + Qwen2
-(counterpart of ``vla_fastvlm_tpu/models/fastvlm.py``, prefill path).
+(counterpart of ``vla_fastvlm_tpu/models/fastvlm.py``).
 
 ``image_token_mode="prefix"`` prepends the projected image tokens to the text
-sequence; ``"none"`` is text-only and does not build the vision tower.
+sequence; ``"none"`` is text-only and does not build the vision tower. Besides
+the cache-free forward, ``prefill`` / ``decode_step`` run against a dense KV
+cache (``models/qwen2.py::init_kv_cache``) and ``decode_step_paged`` against
+a paged pool (``serving/paged_kv.py``).
 """
 
 from __future__ import annotations
@@ -136,13 +139,56 @@ class FastVLM(nn.Module):
     def forward_logits(self, images, input_ids, attention_mask=None):
         """Full-sequence lm_head logits: ``(logits (B, N_img + T, V), seq_mask, text_mask)``."""
         inputs_embeds, seq_mask, text_mask = self._splice(images, input_ids, attention_mask)
-        tied = self.cfg.text.tie_word_embeddings
-        hidden, _, tied_logits = self.language_model(
-            inputs_embeds=inputs_embeds, attention_mask=seq_mask, causal=True,
-            compute_tied_logits=tied,
+        hidden, _, _ = self.language_model(inputs_embeds=inputs_embeds, attention_mask=seq_mask, causal=True)
+        return self._logits(hidden), seq_mask, text_mask
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """LM head: the tied embedding's ``attend`` or the untied ``lm_head``."""
+        if self.cfg.text.tie_word_embeddings:
+            return self.language_model.embed_tokens.attend(hidden)
+        return self.lm_head(hidden)
+
+    def prefill(self, images, input_ids, attention_mask, cache: dict):
+        """Multimodal prefill into a dense KV cache (written in place).
+
+        Returns ``(last_logits, hidden, new_cache, seq_mask, text_mask)`` with
+        ``last_logits`` (B, V) at each sequence's true last position. The LM
+        head runs on those positions only (JAX computes every position's
+        logits and keeps the last; the numbers are the same). The cursor
+        advances by the PADDED width, so pad slots are dead but stored; the
+        cache mask keeps them out of attention and RoPE counts true lengths.
+        """
+        inputs_embeds, seq_mask, text_mask = self._splice(images, input_ids, attention_mask)
+        hidden, new_cache, _ = self.language_model(
+            inputs_embeds=inputs_embeds, attention_mask=seq_mask, cache=cache, causal=True,
         )
-        logits = tied_logits if tied else self.lm_head(hidden)
-        return logits, seq_mask, text_mask
+        idx = (seq_mask.sum(dim=1) - 1).clamp_min(0)
+        last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+        return self._logits(last), hidden, new_cache, seq_mask, text_mask
+
+    def decode_step(self, input_ids: torch.Tensor, cache: dict):
+        """One KV-cached decode step: (B, 1) token ids -> ((B, V) logits, new_cache)."""
+        hidden, new_cache, _ = self.language_model(
+            input_ids=input_ids, attention_mask=torch.ones_like(input_ids, dtype=torch.int32),
+            cache=cache, causal=True,
+        )
+        return self._logits(hidden[:, -1]), new_cache
+
+    def decode_step_paged(self, input_ids: torch.Tensor, cache: dict):
+        """One decode step against a paged KV pool, which it only reads.
+
+        ``cache``: ``{"pool_k","pool_v"}`` (L, P, K, page, D), ``"tables"``
+        (B, P_slot), ``"mask"`` (B, S_max) stored validity, ``"index"`` (B,)
+        write cursors; int8 pools add ``{"pool_k_scale","pool_v_scale"}``
+        (L, P, K, page). Returns ``(logits (B, V), rows)`` with ``rows``
+        ``{"k_rows","v_rows"}`` (L, B, K, D) for the server to scatter
+        (+ ``{"k_scale_rows","v_scale_rows"}`` (L, B, K) for int8 pools).
+        """
+        hidden, rows, _ = self.language_model(
+            input_ids=input_ids, attention_mask=torch.ones_like(input_ids, dtype=torch.int32),
+            cache=cache, causal=True,
+        )
+        return self._logits(hidden[:, -1]), rows
 
 
 def pool_hidden(hidden: torch.Tensor, mask: Optional[torch.Tensor], mode: str) -> torch.Tensor:

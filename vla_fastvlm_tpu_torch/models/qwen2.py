@@ -1,4 +1,4 @@
-"""Qwen2 decoder, prefill path (counterpart of ``vla_fastvlm_tpu/models/qwen2.py``).
+"""Qwen2 decoder (counterpart of ``vla_fastvlm_tpu/models/qwen2.py``).
 
 Same config fields and presets as the JAX module. Differences in form, not
 in numbers:
@@ -8,11 +8,19 @@ in numbers:
   one ``gate_up_proj`` (gate, up order): the JAX package concatenates them
   at apply time when ``fused_projections`` is on (``qwen2.py:224-228,368-371``);
   the weight bridge concatenates them once instead.
-- Prefill only: no KV cache, quantization or LoRA yet. Fields for those are
-  kept for config parity and rejected when set.
+- A dense KV cache (``init_kv_cache``) is written in place: the forward
+  returns the same ``k``/``v`` (and scale) buffers with a new mask and
+  cursor, where JAX returns new buffers.
+- Weight quantization and LoRA are not ported yet: ``quantization`` is
+  kept for config parity and rejected when set. ``kv_cache_quantization``
+  "int8" is ported.
 
-The prefill attention goes through ``ops.attention.attention`` with the
-structured mask, which launches the port's flash kernel on the card.
+Three attention paths, as in JAX: prefill without a cache takes the
+structured mask (``ops.attention.attention``, the flash kernel on the card);
+a dense cache takes the additive-bias plain path; a paged pool
+(``cache["pool_k"]``) takes ``ops.attention.paged_attention``, the paged
+decode kernel on the card, and returns the new rows instead of writing the
+pool.
 """
 
 from __future__ import annotations
@@ -24,8 +32,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import attention
+from ..ops.attention import attention, make_attention_bias, paged_attention
 from ..ops.norms import rms_norm
+from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 from .layers import Dense, Embed
 
@@ -52,9 +61,8 @@ class Qwen2Config:
     remat: bool = False
     attention_impl: str = "auto"  # "auto" | "xla" | "flash"
     fused_projections: bool = True
-    # Not ported yet: must stay "none".
-    quantization: str = "none"
-    kv_cache_quantization: str = "none"
+    quantization: str = "none"  # not ported yet: must stay "none"
+    kv_cache_quantization: str = "none"  # "none" | "int8"
 
     @property
     def resolved_head_dim(self) -> int:
@@ -93,10 +101,38 @@ def qwen2_tiny(**kw) -> Qwen2Config:
 
 
 def _check_supported(cfg: Qwen2Config) -> None:
-    if cfg.quantization != "none" or cfg.kv_cache_quantization != "none":
-        raise NotImplementedError(
-            "quantized weights and KV caches are not ported to PyTorch yet"
-        )
+    if cfg.quantization != "none":
+        raise NotImplementedError("quantized weights are not ported to PyTorch yet")
+    if cfg.kv_cache_quantization not in ("none", "int8"):
+        raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
+
+
+def init_kv_cache(cfg: Qwen2Config, batch_size: int, max_len: int, dtype: Optional[torch.dtype] = None,
+                  device=None) -> dict:
+    """Dense KV cache: stacked per-layer key/value buffers (L, B, S, K, D),
+    the (B, S) valid-position mask and the (B,) per-example write cursors.
+
+    With ``cfg.kv_cache_quantization == "int8"`` the K/V buffers are int8
+    with per-(position, kv-head) float32 scales ``k_scale``/``v_scale``
+    (L, B, S, K), quantized at write and dequantized at read
+    (``ops/quant.py``).
+    """
+    dtype = dtype or cfg.dtype
+    shape = (cfg.num_hidden_layers, batch_size, max_len, cfg.num_key_value_heads, cfg.resolved_head_dim)
+    quantized = cfg.kv_cache_quantization == "int8"
+    if not quantized and cfg.kv_cache_quantization != "none":
+        raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
+    kv_dtype = torch.int8 if quantized else dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "mask": torch.zeros((batch_size, max_len), dtype=torch.bool, device=device),
+        "index": torch.zeros((batch_size,), dtype=torch.int32, device=device),
+    }
+    if quantized:
+        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return cache
 
 
 class RMSNorm(nn.Module):
@@ -120,18 +156,59 @@ class Qwen2Attention(nn.Module):
         self.qkv_proj = Dense(cfg.hidden_size, (n + 2 * k) * d, True, cfg.dtype, cfg.param_dtype)
         self.o_proj = Dense(n * d, cfg.hidden_size, False, cfg.dtype, cfg.param_dtype)
 
-    def forward(self, x, kv_mask, cos, sin, causal: bool = True):
+    def forward(self, x, kv_mask, cos, sin, causal: bool = True, bias=None, cache=None):
+        """-> ``(out, new)``. ``cache`` is None (prefill), one layer of a dense
+        cache (``k``/``v`` (B, S, K, D), ``rows``/``cols`` write positions, int8
+        scales) or of a paged pool (``pool_k``/``pool_v`` (P, K, page, D),
+        ``tables``, ``mask``, ``index``, int8 scale pools). ``new`` is the
+        paged path's new rows ``(k, v, k_scale, v_scale)`` at t == 1 (the
+        window axis squeezed), else None."""
         cfg = self.cfg
         b, t, _ = x.shape
         n, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.resolved_head_dim
         q, k, v = self.qkv_proj(x).split([n * d, kh * d, kh * d], dim=-1)
         q, k = apply_rope(q.reshape(b, t, n, d), k.reshape(b, t, kh, d), cos, sin)
+        q = q.contiguous()
         v = v.reshape(b, t, kh, d).contiguous()
-        out = attention(
-            q.contiguous(), k.to(q.dtype).contiguous(), v.to(q.dtype),
-            kv_mask=kv_mask, causal=causal, impl=cfg.attention_impl,
-        )
-        return self.o_proj(out.reshape(b, t, n * d))
+        new = None
+        if cache is None:
+            out = attention(
+                q, k.to(q.dtype).contiguous(), v.to(q.dtype),
+                kv_mask=kv_mask, causal=causal, impl=cfg.attention_impl,
+            )
+        elif "tables" in cache:
+            scales = {}
+            if cache.get("pool_k_scale") is not None:
+                # int8 pool: quantize the new rows for the server's scatter and
+                # attend with their dequant-roundtrip (what the pool will hold).
+                k_q, k_s = quantize_kv(k)
+                v_q, v_s = quantize_kv(v)
+                k, v = dequantize_kv(k_q, k_s, q.dtype), dequantize_kv(v_q, v_s, q.dtype)
+                scales = dict(pool_k_scale=cache["pool_k_scale"], pool_v_scale=cache["pool_v_scale"])
+                rows = (k_q, v_q, k_s, v_s)
+            else:
+                rows = (k, v, None, None)
+            out = paged_attention(
+                q, cache["pool_k"], cache["pool_v"], cache["tables"], cache["mask"], cache["index"],
+                k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous(), impl=cfg.attention_impl, **scales,
+            )
+            new = tuple(r[:, 0] if r is not None and t == 1 else r for r in rows)
+        else:
+            at = (cache["rows"], cache["cols"])
+            if cache["k"].dtype == torch.int8:
+                # int8 cache: quantize at write, dequantize the whole window at read.
+                k_q, k_s = quantize_kv(k)
+                v_q, v_s = quantize_kv(v)
+                cache["k"][at], cache["v"][at] = k_q, v_q
+                cache["k_scale"][at], cache["v_scale"][at] = k_s, v_s
+                k = dequantize_kv(cache["k"], cache["k_scale"], q.dtype)
+                v = dequantize_kv(cache["v"], cache["v_scale"], q.dtype)
+            else:
+                cache["k"][at] = k.to(cache["k"].dtype)
+                cache["v"][at] = v.to(cache["v"].dtype)
+                k, v = cache["k"], cache["v"]
+            out = attention(q, k.to(q.dtype), v.to(q.dtype), bias=bias, causal=causal, impl=cfg.attention_impl)
+        return self.o_proj(out.reshape(b, t, n * d)), new
 
 
 class Qwen2MLP(nn.Module):
@@ -153,17 +230,22 @@ class Qwen2Block(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.param_dtype)
         self.mlp = Qwen2MLP(cfg)
 
-    def forward(self, x, kv_mask, cos, sin, causal: bool = True):
-        x = x + self.self_attn(self.input_layernorm(x), kv_mask, cos, sin, causal)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, kv_mask, cos, sin, causal: bool = True, bias=None, cache=None):
+        attn_out, new = self.self_attn(self.input_layernorm(x), kv_mask, cos, sin, causal, bias, cache)
+        x = x + attn_out
+        return x + self.mlp(self.post_attention_layernorm(x)), new
 
 
 class Qwen2Model(nn.Module):
     """Decoder stack: embeddings + blocks + final norm.
 
-    ``forward`` returns ``(hidden, None, logits)`` like the JAX module's
-    ``(x, new_cache, logits)`` (no cache in the prefill slice); logits are the
-    tied-embedding logits when ``compute_tied_logits`` is set, else None.
+    ``forward`` returns ``(hidden, new_cache, logits)`` like the JAX module;
+    logits are the tied-embedding logits when ``compute_tied_logits`` is set,
+    else None. ``new_cache`` is None without a cache; for a dense cache it is
+    the cache with its buffers written in place, the updated mask and the
+    cursors advanced by t; for a paged pool it is the new rows
+    ``{"k_rows", "v_rows"}`` (L, B, K, D) (+ ``{"k_scale_rows",
+    "v_scale_rows"}`` (L, B, K) for int8 pools) for the caller to scatter.
     """
 
     def __init__(self, cfg: Qwen2Config):
@@ -183,6 +265,7 @@ class Qwen2Model(nn.Module):
         inputs_embeds: Optional[torch.Tensor] = None,  # (B, T, H)
         attention_mask: Optional[torch.Tensor] = None,  # (B, T) 1 = real token
         positions: Optional[torch.Tensor] = None,  # (B, T)
+        cache: Optional[dict] = None,
         causal: bool = True,
         compute_tied_logits: bool = False,
     ):
@@ -191,17 +274,62 @@ class Qwen2Model(nn.Module):
             inputs_embeds = self.embed(input_ids)
         x = inputs_embeds.to(cfg.dtype)
         b, t, _ = x.shape
+        dev = x.device
         if attention_mask is None:
-            attention_mask = torch.ones((b, t), dtype=torch.int32, device=x.device)
+            attention_mask = torch.ones((b, t), dtype=torch.int32, device=dev)
+        steps = torch.arange(t, device=dev)[None, :]
         if positions is None:
-            positions = torch.arange(t, device=x.device)[None, :].expand(b, t)
+            if cache is not None:
+                # Two position systems: RoPE continues each example's TRUE length
+                # (valid cache entries); causality runs on SLOT indices.
+                positions = cache["mask"].to(torch.int32).sum(dim=1)[:, None] + steps
+            else:
+                positions = steps.expand(b, t)
         cos, sin = rope_cos_sin(positions, cfg.resolved_head_dim, cfg.rope_theta, cfg.dtype)
-        kv_mask = attention_mask.to(torch.int32)
-        for layer in self.layers:
-            x = layer(x, kv_mask, cos, sin, causal)
+
+        paged = cache is not None and "pool_k" in cache
+        bias = None
+        layer_caches = [None] * cfg.num_hidden_layers
+        if paged:
+            kv_mask = cache["mask"].to(torch.int32)
+            for i in range(cfg.num_hidden_layers):
+                layer_caches[i] = {
+                    "pool_k": cache["pool_k"][i], "pool_v": cache["pool_v"][i],
+                    "tables": cache["tables"], "mask": kv_mask, "index": cache["index"],
+                    "pool_k_scale": cache["pool_k_scale"][i] if "pool_k_scale" in cache else None,
+                    "pool_v_scale": cache["pool_v_scale"][i] if "pool_v_scale" in cache else None,
+                }
+        elif cache is not None:
+            s = cache["k"].shape[2]
+            slots = cache["index"].long()[:, None] + steps  # (B, t) slot of each new token
+            rows = torch.arange(b, device=dev)[:, None].expand(b, t)
+            kv_mask = cache["mask"].to(torch.int32).clone()
+            kv_mask[rows, slots] = attention_mask.to(torch.int32)
+            kv_positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+            bias = make_attention_bias(slots, kv_positions, kv_mask, causal=causal)
+            for i in range(cfg.num_hidden_layers):
+                layer_caches[i] = {"k": cache["k"][i], "v": cache["v"][i], "rows": rows, "cols": slots}
+                if "k_scale" in cache:
+                    layer_caches[i].update(k_scale=cache["k_scale"][i], v_scale=cache["v_scale"][i])
+        else:
+            kv_mask = attention_mask.to(torch.int32)
+
+        news = []
+        for layer, layer_cache in zip(self.layers, layer_caches):
+            x, new = layer(x, kv_mask, cos, sin, causal, bias, layer_cache)
+            news.append(new)
         x = self.norm(x)
+
+        new_cache = None
+        if paged:
+            new_cache = {"k_rows": torch.stack([n[0] for n in news]), "v_rows": torch.stack([n[1] for n in news])}
+            if news[0][2] is not None:
+                new_cache["k_scale_rows"] = torch.stack([n[2] for n in news])
+                new_cache["v_scale_rows"] = torch.stack([n[3] for n in news])
+        elif cache is not None:
+            new_cache = dict(cache, mask=kv_mask.bool(), index=cache["index"] + t)
         logits = self.embed_tokens.attend(x) if compute_tied_logits else None
-        return x, None, logits
+        return x, new_cache, logits
 
 
 class Qwen2ForCausalLM(nn.Module):
@@ -215,11 +343,11 @@ class Qwen2ForCausalLM(nn.Module):
             self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, False, cfg.dtype, cfg.param_dtype)
 
     def forward(self, input_ids=None, inputs_embeds=None, attention_mask=None,
-                positions=None, causal: bool = True):
-        hidden, _, tied_logits = self.model(
+                positions=None, cache=None, causal: bool = True):
+        hidden, new_cache, tied_logits = self.model(
             input_ids=input_ids, inputs_embeds=inputs_embeds,
-            attention_mask=attention_mask, positions=positions, causal=causal,
+            attention_mask=attention_mask, positions=positions, cache=cache, causal=causal,
             compute_tied_logits=self.cfg.tie_word_embeddings,
         )
         logits = tied_logits if self.cfg.tie_word_embeddings else self.lm_head(hidden)
-        return logits, hidden, None
+        return logits, hidden, new_cache

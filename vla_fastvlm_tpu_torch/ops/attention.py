@@ -1,5 +1,5 @@
-"""Attention ops: the plain masked attention plus dispatch to the flash kernel
-(counterpart of ``vla_fastvlm_tpu/ops/attention.py``).
+"""Attention ops: the plain masked attention plus dispatch to the flash and
+paged-attention kernels (counterpart of ``vla_fastvlm_tpu/ops/attention.py``).
 
 ``dot_product_attention`` is exact masked GQA attention with an fp32
 softmax; it is what every kernel is checked against. ``attention`` is the
@@ -8,7 +8,9 @@ entry point the decoder calls: with the structured mask (``bias is None``,
 flash kernel (``ops/kernels/flash_attention.py``), which launches the CUDA
 kernel on a CUDA tensor or raises; it never gives way to the plain path on
 the card. ``impl="xla"`` (the name is kept for config parity with the JAX
-package) always runs the plain path.
+package) always runs the plain path. ``paged_attention`` is the decode
+tick's attention against a paged KV pool, dispatched the same way to
+``ops/kernels/paged_attention.py``.
 """
 
 from __future__ import annotations
@@ -107,3 +109,101 @@ def attention(
         mask = kv_mask if kv_mask is not None else torch.ones((b, s), dtype=torch.int32, device=q.device)
         bias = make_attention_bias(positions, kv_positions, mask, causal=causal)
     return dot_product_attention(q, k, v, bias=bias, scale=scale)
+
+
+def paged_attention_gathered(
+    q: torch.Tensor,  # (B, W, N, D) post-RoPE decode/verify queries
+    pool_k: torch.Tensor,  # (P_total, K, page, D) physical page pool
+    pool_v: torch.Tensor,  # (P_total, K, page, D)
+    tables: torch.Tensor,  # (B, P_slot) physical page ids (0 = trash)
+    kv_mask: torch.Tensor,  # (B, S_max) stored-position validity
+    lengths: torch.Tensor,  # (B,) slot write cursor of the current window
+    k_new: torch.Tensor,  # (B, W, K, D) current window K (post-RoPE)
+    v_new: torch.Tensor,  # (B, W, K, D)
+    pool_k_scale: Optional[torch.Tensor] = None,  # (P_total, K, page) int8 pools
+    pool_v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The plain paged attention: gather each slot's window through its table,
+    insert the new rows at the cursor, then dense slot-causal attention
+    (the XLA fallback of the JAX ``paged_attention``). Returns (B, W, N, D)."""
+    b, w = q.shape[:2]
+    p_slot, page = tables.shape[1], pool_k.shape[2]
+    s_max = p_slot * page
+    tables = tables.long()
+
+    def gather(pool):
+        g = pool[tables]  # (B, P_slot, K, page[, D])
+        if pool.ndim == 4:
+            return g.permute(0, 1, 3, 2, 4).reshape(b, s_max, pool.shape[1], pool.shape[3])
+        return g.permute(0, 1, 3, 2).reshape(b, s_max, pool.shape[1])  # scales
+
+    rows = torch.arange(b, device=q.device)[:, None]
+    cols = lengths.long()[:, None] + torch.arange(w, device=q.device)[None, :]  # (B, W)
+
+    def insert(win, new):
+        win[rows, cols] = new.to(win.dtype)
+        return win
+
+    if pool_k_scale is not None:
+        from .quant import dequantize_kv
+
+        win_k = insert(dequantize_kv(gather(pool_k), gather(pool_k_scale), q.dtype), k_new)
+        win_v = insert(dequantize_kv(gather(pool_v), gather(pool_v_scale), q.dtype), v_new)
+    else:
+        win_k = insert(gather(pool_k), k_new)
+        win_v = insert(gather(pool_v), v_new)
+    # scatter_ with a scalar stays on the device (also under CUDA graph capture).
+    mask = kv_mask.to(torch.int32).scatter(1, cols, 1)
+    kv_positions = torch.arange(s_max, device=q.device)[None, :].expand(b, s_max)
+    bias = make_attention_bias(cols, kv_positions, mask, causal=True)
+    return dot_product_attention(q, win_k.to(q.dtype), win_v.to(q.dtype), bias=bias, scale=scale)
+
+
+def paged_attention(
+    q: torch.Tensor,  # (B, W, N, D) post-RoPE decode/verify queries
+    pool_k: torch.Tensor,  # (P_total, K, page, D) physical page pool
+    pool_v: torch.Tensor,  # (P_total, K, page, D)
+    tables: torch.Tensor,  # (B, P_slot) physical page ids (0 = trash)
+    kv_mask: torch.Tensor,  # (B, S_max) stored-position validity
+    lengths: torch.Tensor,  # (B,) slot write cursor of the current window
+    k_new: torch.Tensor,  # (B, W, K, D) current window K (post-RoPE)
+    v_new: torch.Tensor,  # (B, W, K, D)
+    *,
+    pool_k_scale: Optional[torch.Tensor] = None,  # (P_total, K, page) int8 pools
+    pool_v_scale: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Attention for a W-token window against a paged KV pool -> (B, W, N, D).
+
+    Window position ``i`` sits at slot ``lengths[b] + i`` and attends the
+    stored positions where ``kv_mask`` is set plus window positions ``<= i``.
+    For int8 pools ``k_new``/``v_new`` are the dequant-roundtripped new rows.
+
+    Dispatch: with ``impl`` "auto" or "flash" and ``W == 1`` the decode
+    kernel's wrapper (``ops/kernels/paged_attention.py``), which launches the
+    CUDA kernel on a CUDA tensor or raises and runs the plain version on a CPU
+    one. ``W > 1`` (the speculative verify window) has no kernel in the port
+    yet and raises on the card (``ROADMAP.md``, Queue 2 item 5).
+    ``impl="xla"`` and CPU tensors run ``paged_attention_gathered``.
+    """
+    if impl not in ("auto", "flash", "xla"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    w = q.shape[1]
+    if impl != "xla" and q.device.type != "cpu":
+        if w != 1:
+            raise NotImplementedError(
+                f"paged attention over a window of W={w} tokens has no CUDA kernel in the "
+                "port yet (ROADMAP.md, Queue 2 item 5); use impl='xla'"
+            )
+        from .kernels.paged_attention import paged_attention_decode
+
+        return paged_attention_decode(
+            q[:, 0], pool_k, pool_v, tables, kv_mask, lengths, k_new[:, 0], v_new[:, 0],
+            pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale, scale=scale,
+        )[:, None]
+    return paged_attention_gathered(
+        q, pool_k, pool_v, tables, kv_mask, lengths, k_new, v_new,
+        pool_k_scale, pool_v_scale, scale,
+    )

@@ -3,12 +3,14 @@
 Nothing here builds or loads a kernel at import; see ``_build.py``.
 """
 
-from .flash_attention import flash_attention, flash_attention_reference
+from .flash_attention import flash_attention, flash_attention_reference, flash_attention_streamed
+from .paged_attention import paged_attention_decode, paged_attention_decode_reference
 from .repmixer import repmixer_block, repmixer_block_reference
 
 KERNELS = {
     "flash_attention": flash_attention,
     "repmixer_block": repmixer_block,
+    "paged_attention": paged_attention_decode,
 }
 
 
@@ -26,7 +28,10 @@ __all__ = [
     "KERNELS",
     "flash_attention",
     "flash_attention_reference",
+    "flash_attention_streamed",
     "launch_counts",
+    "paged_attention_decode",
+    "paged_attention_decode_reference",
     "repmixer_block",
     "repmixer_block_reference",
     "reset_launch_counts",

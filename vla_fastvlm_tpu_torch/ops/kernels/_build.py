@@ -29,6 +29,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # Optimize a source's kernels on all cores: the sources with many
+    # template instances set the build's wall time.
+    "-split-compile=0",
 )
 
 

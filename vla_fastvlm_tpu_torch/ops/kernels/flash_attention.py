@@ -7,9 +7,12 @@ header says what bounds it and how the design answers that).
 
 - ``flash_attention(q, k, v, kv_mask, causal, scale)`` keeps the JAX layout:
   ``(B, T, N, D) x (B, S, K, D) -> (B, T, N, D)``. On a CUDA tensor it
-  launches the kernel (bf16 or fp32, head_dim 64 or 128, contiguous, K/V of
-  one head within a block's shared memory) or raises; on a CPU tensor it
-  runs ``flash_attention_reference``.
+  launches the kernel (bf16 or fp32, head_dim 64 or 128, contiguous, any S:
+  the resident instance where K/V of one head fit a block's shared memory,
+  the streamed one above that) or raises; on a CPU tensor it runs
+  ``flash_attention_reference``.
+- ``flash_attention_streamed`` launches the streamed instance at any S, so
+  the two can be checked and timed against each other.
 - ``flash_attention_reference`` follows ``_xla_reference``.
 - ``flash_attention.launches`` counts kernel launches (nothing else adds to it).
 - The backward recomputes through the plain version, as the JAX ``_bwd``
@@ -19,7 +22,6 @@ header says what bounds it and how the design answers that).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
@@ -60,23 +62,8 @@ def flash_attention_reference(
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.lru_cache(maxsize=None)
-def smem_bytes(s: int, d: int, dtype: torch.dtype) -> int:
-    """Shared memory one block needs to keep K and V of ``s`` keys resident.
-
-    Asks the kernel library (``Layout`` in ``csrc/flash_attention.cu``), which
-    is built on first use.
-    """
-    fn = _build.LIBRARIES.entry("flash_attention", "flash_attention_smem_bytes",
-                                [ctypes.c_int] * 3, ctypes.c_longlong)
-    return fn(s, d, _DTYPES[dtype])
-
-
 def check_kernel_shapes(q, k, v, kv_mask) -> None:
-    """Raise unless the kernel takes these dtypes, shapes and layouts.
-
-    The shared-memory limit on S is checked at launch, where the card is known.
-    """
+    """Raise unless the kernel takes these dtypes, shapes and layouts."""
     b, t, n, d = q.shape
     s, kh = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -94,25 +81,19 @@ def check_kernel_shapes(q, k, v, kv_mask) -> None:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
 
 
-def _launch(q, k, v, kv_mask, causal: bool, scale: float) -> torch.Tensor:
+def _launch(q, k, v, kv_mask, causal: bool, scale: float, streamed: bool = False) -> torch.Tensor:
     check_kernel_shapes(q, k, v, kv_mask)
     b, t, n, d = q.shape
     s, kh = k.shape[1], k.shape[2]
-    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    if smem_bytes(s, d, q.dtype) > _build.smem_per_block(index):
-        raise ValueError(
-            f"flash kernel keeps K/V of one head resident in shared memory; S={s} keys at "
-            f"head_dim {d} in {q.dtype} need {smem_bytes(s, d, q.dtype)} bytes, more than this card has"
-        )
     mask = kv_mask.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     fn = _build.launcher("flash_attention", "flash_attention_fwd", 5,
-                         [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int])
+                         [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            b, t, s, n, kh, d, int(bool(causal)), float(scale), _DTYPES[q.dtype], stream,
+            b, t, s, n, kh, d, int(bool(causal)), float(scale), _DTYPES[q.dtype], int(streamed), stream,
         )
     _build.check(status, "flash_attention_fwd")
     flash_attention.launches += 1
@@ -159,3 +140,10 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_streamed(q, k, v, kv_mask, causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
+    """The streamed instance of the kernel at any S (CUDA tensors only)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_streamed launches the CUDA kernel; got a tensor on {q.device}")
+    return _launch(q, k, v, kv_mask, causal, q.shape[-1] ** -0.5 if scale is None else scale, streamed=True)

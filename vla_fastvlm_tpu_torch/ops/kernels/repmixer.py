@@ -10,8 +10,8 @@ what bounds it and how the design answers that).
   (3, 3, 1, C) / (7, 7, 1, C) or (3, 3, C) / (7, 7, C), ``w1`` (C, F),
   ``w2`` (F, C). On a CUDA tensor it launches the kernel (bf16 or fp32,
   C one of the FastViTHD RepMixer widths 96 / 192 / 384, F % 64 == 0, one
-  block's tiles within the card's shared memory: fp32 stops at C = 192) or
-  raises; on a CPU tensor it runs ``repmixer_block_reference``.
+  block's tiles within the card's shared memory) or raises; on a CPU tensor
+  it runs ``repmixer_block_reference``.
 - ``repmixer_block_reference`` follows ``_repmixer_block_xla``.
 - ``repmixer_block.launches`` counts kernel launches.
 - The backward recomputes through the plain version, as the JAX VJP does.
