@@ -3,13 +3,13 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about two minutes
-    python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps and decode ticks
+    python3 chip_smoke.py                 # the full check, about four minutes
+    python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-1. build: the three CUDA kernels of ``vla_fastvlm_tpu_torch/csrc`` with
-   ``nvcc`` for sm_90a, all sources at once.
+1. build: the four CUDA sources of ``vla_fastvlm_tpu_torch/csrc`` with
+   ``nvcc`` for sm_90a, all at once.
 2. kernels: each kernel against its plain PyTorch version on the same inputs,
    in bf16 at the main paths' shapes and in fp32 at a small batch with a
    tight tolerance: flash at the policy step's shapes (right-padded masks,
@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    S = 2048 / 1024 (the streamed instance); RepMixer per stage, fp32 up to
    C = 384; paged decode attention at the serving shape in bf16 and over
    int8 pools, at head_dim 128, and in fp32 with trash pages and an empty
-   stored mask.
+   stored mask; the verify window kernel (W > 1) in bf16 and over int8
+   pools at the 7B verify shape and with the 0.5B heads, and in fp32 at
+   W = 2, 5 and 9 with an empty stored mask and inactive slots.
 3. policy: FastVLA-0.5B at batch 128, 256 px, ``tokenizer_max_length`` 64,
    bf16, full depth, random weights from a seed, driven through
    ``FastVLAPolicy.forward``; outputs (128, 14) and finite; launch counts of
@@ -35,7 +37,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    RepMixer = 38 x admissions, flash = 0); kernel and gathered tick logits
    from one admitted state agree; serve.py's summary and the device's idle
    share over a few decode ticks.
-5. timing: p50 step time and actions/sec of the kernel path and the plain
+5. speculative serving: ``SpeculativePagedGenerationServer`` with a
+   FastVLM-7B target (28 layers, hidden 3584, untied LM head, vocab 152064)
+   and a FastVLM-0.5B draft (vocab padded to 152064), 1024 px, bf16, random
+   weights from seeds 0 and 1, k = 4, pages of 16, 16 slots, admission
+   batches of 8, 32 requests of the same stream with 32 new tokens each.
+   Three runs: ``decode_impl="kernel"`` (the W = 5 verify window kernel),
+   ``"gathered"`` and ``"kernel"`` over int8 pools; each answers every
+   request with 32 tokens and returns every page; launch counts (window =
+   28 x rounds, RepMixer = 76 x admissions: the target's tower and the
+   draft's); kernel and gathered verify logits from one admitted state
+   agree; greedy agreement with the plain paged server on the same target
+   (printed). Then FastVLM-0.5B as its own draft on 16 requests: at least
+   2.0 tokens per active slot and round.
+6. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work.
@@ -82,6 +97,25 @@ PAGED_7B = dict(b=16, n=28, kh=4, d=128)
 # Decode ticks whose device time the profiler adds up for the idle share.
 IDLE_TICKS = 5
 
+# Speculative decoding on the paged server, the repo's design point
+# (scripts/bench_speculative.py, scripts/serve.py --draft-model-id): a
+# FastVLM-7B target verifying k = 4 proposals of a FastVLM-0.5B draft whose
+# vocab is padded to the target's 152064, 1024 px, bf16. 32 requests of the
+# stream above, 32 new tokens each, 16 slots, admission batches of 8: windows
+# of 256 + 64 + 32 + k + 1 = 357 positions, 23 pages of 16.
+SPEC = dict(k=4, num_slots=16, prefill_batch=8, prompt_len=64, max_new_tokens=32, page_size=16)
+SPEC_REQUESTS, SPEC_ARRIVALS, TARGET_LAYERS, TARGET_VOCAB = 32, 16, 28, 152064
+SPEC_PAGES = -(-(N_IMG + SPEC["prompt_len"] + SPEC["max_new_tokens"] + SPEC["k"] + 1) // SPEC["page_size"])
+# The self-draft run (FastVLM-0.5B as its own draft): tokens per active slot
+# and round. A draft that the target always rejects gives 1.0; k + 1 = 5 is
+# every proposal accepted.
+SELF_DRAFT_REQUESTS, SELF_DRAFT_MIN_TOKENS_PER_SLOT_ROUND = 16, 2.0
+# The verify window kernel at the 7B verify shape (16 slots and the dead
+# lane, 28 query heads over 4 KV heads, D = 128, W = k + 1) and with the
+# 0.5B draft's heads at 64 slots.
+WINDOW_7B = dict(b=SPEC["num_slots"] + 1, w=SPEC["k"] + 1, n=28, kh=4, d=128)
+WINDOW_MAIN = dict(b=65, w=SPEC["k"] + 1, n=14, kh=2, d=64)
+
 # Kernel against plain version, |kernel - plain| <= ATOL + RTOL * |plain| per element.
 # bf16: both sides round at the same points but in another order, so outputs
 # of magnitude up to ~4 may differ by a few bf16 ulps (2**-7 at 2..4).
@@ -104,7 +138,8 @@ POLICY_REL_L2 = 3e-2
 # values; only library algorithm choices could differ.
 DEVICE_INPUT_REL_L2 = 1e-3
 # Kernel tick against gathered tick from one admitted state, bf16: only the
-# 24 decode attentions differ (order of sums, where P is rounded).
+# 24 decode attentions differ (order of sums, where P is rounded). The same
+# limit holds the 7B verify window (28 window attentions).
 SERVE_LOGITS_REL_L2 = 2e-2
 
 
@@ -187,41 +222,52 @@ def flash_inputs(b, t, n, kh, d, dtype, seed=0):
     return q, k, v, mask
 
 
-def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False):
-    """A decode tick's paged attention at the serving windows (24 pages of
-    16): slot i holds 256 image + 4..64 prompt positions (the rest of the
-    64-wide prompt dead), then 0..63 decoded ones, on pages of its own; one
-    slot in 16 is inactive (one-hot mask on the trash page, as the server
-    runs them); with ``empty_slot`` slot 1 has an empty stored mask. Pools
-    N(0, 1), or their int8 quantization with scales."""
+def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False, w=None):
+    """A decode tick's paged attention (``w`` None: q (B, N, D), new rows
+    (B, K, D)) at the serving windows (24 pages of 16): slot i holds 256
+    image + 4..64 prompt positions (the rest of the 64-wide prompt dead),
+    then 0..63 decoded ones, on pages of its own. With ``w`` a verify
+    round's window attention (q (B, W, N, D), new rows (B, W, K, D)) at the
+    speculative serving windows (23 pages of 16, 0..31 decoded positions),
+    the last slot the dead lane; the table reaches the pages through the
+    window's end, whose rows past the cursor hold random values and are
+    masked, as a rejected suffix of an earlier round would. One slot in 16
+    is inactive (one-hot mask on the trash page, length 1, as the servers
+    run them); table entries past a slot's pages are the trash page; with
+    ``empty_slot`` slot 1 has an empty stored mask. Pools N(0, 1), or their
+    int8 quantization with scales; int8 new rows arrive dequant-roundtripped."""
     import torch
 
     from vla_fastvlm_tpu_torch.ops.quant import quantize_kv
 
-    page, p_slot = SERVE["page_size"], (N_IMG + SERVE["prompt_len"] + SERVE["max_new_tokens"]) // SERVE["page_size"]
-    prefill = N_IMG + SERVE["prompt_len"]
+    cfg = SERVE if w is None else SPEC
+    page, prefill = cfg["page_size"], N_IMG + cfg["prompt_len"]
+    p_slot = (prefill + SERVE["max_new_tokens"]) // page if w is None else SPEC_PAGES
+    rows = () if w is None else (w,)
     g = torch.Generator(device="cpu").manual_seed(seed)
     p_total = b * p_slot + 1
     rnd = lambda *s: torch.randn(*s, generator=g)
-    q, kn, vn = rnd(b, n, d), rnd(b, kh, d), rnd(b, kh, d)
+    q, kn, vn = rnd(b, *rows, n, d), rnd(b, *rows, kh, d), rnd(b, *rows, kh, d)
     pk, pv = rnd(p_total, kh, page, d), rnd(p_total, kh, page, d)
     tables = torch.zeros(b, p_slot, dtype=torch.int32)
     mask = torch.zeros(b, p_slot * page, dtype=torch.bool)
     lengths = torch.ones(b, dtype=torch.int32)
     perm = torch.randperm(p_total - 1, generator=g) + 1
     for i in range(b):
-        if empty_slot and i == 1:
+        if empty_slot and i == 1 and w is None:
             continue
-        if i % 16 == 15:
+        if i % 16 == 15 or (w is not None and i == b - 1):
             mask[i, 0] = True
             continue
-        plen = int(torch.randint(4, SERVE["prompt_len"] + 1, (1,), generator=g))
-        length = prefill + int(torch.randint(0, SERVE["max_new_tokens"], (1,), generator=g))
-        mask[i, :N_IMG + plen] = True
-        mask[i, prefill:length] = True
-        used = length // page + 1  # pages through the write position
+        plen = int(torch.randint(4, cfg["prompt_len"] + 1, (1,), generator=g))
+        length = prefill + int(torch.randint(0, cfg["max_new_tokens"], (1,), generator=g))
+        used = (length + (w or 1) - 1) // page + 1  # pages through the last new row
         tables[i, :used] = perm[i * p_slot: i * p_slot + used]
         lengths[i] = length
+        if empty_slot and i == 1:
+            continue
+        mask[i, :N_IMG + plen] = True
+        mask[i, prefill:length] = True
     scales = {}
     if int8:
         (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
@@ -301,16 +347,18 @@ def paged_bound_ms(args, scales, out):
     """Bytes: the distinct pages holding a valid position, K and V, plus q,
     out, the new rows, the int32 mask and tables, and for int8 pools the
     two (B, K, S) float32 scale windows. Operations: 4 D per (query row,
-    valid position), the new column included."""
+    valid stored position) and per (query row, new column at or before its
+    own): with W new rows a slot's rows see 1 .. W of them."""
     q, pk, pv, tables, mask, lengths, kn, vn = args
-    b, n, d = q.shape
+    b, n, d = q.shape[0], q.shape[-2], q.shape[-1]
+    w = q.shape[1] if q.ndim == 4 else 1
     page = pk.shape[2]
     reached = tables[mask.view(b, tables.shape[1], page).any(-1)].unique().numel()
     nbytes = 2 * reached * pk[0].numel() * pk.element_size()
     nbytes += sum(x.numel() * x.element_size() for x in (q, kn, vn, out)) + 4 * (mask.numel() + tables.numel())
     if scales:
         nbytes += 2 * 4 * b * pk.shape[1] * mask.shape[1]
-    flops = 4 * d * n * (int(mask.sum()) + b)
+    flops = 4 * d * n * (w * int(mask.sum()) + b * w * (w + 1) // 2)
     return _bound(nbytes, flops)
 
 
@@ -326,9 +374,9 @@ def _bound(nbytes, flops):
 def phase_build():
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/5] build")
+    log("[1/6] build")
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "repmixer", "paged_attention"])
+    logs = _build.build(["flash_attention", "repmixer", "paged_attention", "paged_window"])
     for name, text in logs.items():
         usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: " + (" | ".join(usage) if usage else "built"))
@@ -340,10 +388,11 @@ def phase_kernels():
 
     from vla_fastvlm_tpu_torch.ops.kernels import (
         flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
-        paged_attention_decode_reference, repmixer_block, repmixer_block_reference,
+        paged_attention_decode_reference, paged_attention_window, paged_attention_window_reference,
+        repmixer_block, repmixer_block_reference,
     )
 
-    log("[2/5] kernels against their plain versions")
+    log("[2/6] kernels against their plain versions")
     errs = {"flash_attention": 0.0, "repmixer_block": 0.0}
     cases = [
         ("flash bf16 main", FLASH_MAIN, torch.bfloat16, "bf16"),
@@ -398,6 +447,33 @@ def phase_kernels():
             rep = shape["n"] // shape["kh"]
             check_close(f"{what}, empty stored mask", out[1], args[7][1].repeat_interleave(rep, dim=0),
                         TOL[("paged", kind)])
+    # The verify window kernel (W > 1): bf16 and int8 pools at the 7B verify
+    # shape (the main path's) and with the 0.5B heads at 64 slots; fp32 at a
+    # small batch with an empty stored mask, inactive slots, trash entries,
+    # W = 2, 5 and 9.
+    window_cases = [
+        ("paged_attention_window", "window bf16 7B", WINDOW_7B, torch.bfloat16, False, False),
+        ("paged_attention_window_int8", "window int8 7B", WINDOW_7B, torch.bfloat16, True, False),
+        (None, "window bf16 0.5B heads", WINDOW_MAIN, torch.bfloat16, False, False),
+        (None, "window int8 0.5B heads", WINDOW_MAIN, torch.bfloat16, True, False),
+        (None, "window fp32 W=2 d64", dict(WINDOW_MAIN, b=5, w=2), torch.float32, False, True),
+        (None, "window fp32 W=9 d64", dict(WINDOW_MAIN, b=5, w=9), torch.float32, False, True),
+        (None, "window fp32 int8 W=5 d64", dict(WINDOW_MAIN, b=5), torch.float32, True, True),
+        (None, "window fp32 W=5 d128", dict(WINDOW_7B, b=5), torch.float32, False, True),
+        (None, "window fp32 int8 W=9 d128", dict(WINDOW_7B, b=5, w=9), torch.float32, True, True),
+    ]
+    for name, what, shape, dtype, int8, edge in window_cases:
+        args, scales = paged_inputs(**shape, dtype=dtype, int8=int8, empty_slot=edge)
+        out = paged_attention_window(*args, **scales)
+        torch.cuda.synchronize()
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        err = check_close(what, out, paged_attention_window_reference(*args, **scales), TOL[("paged", kind)])
+        if name:
+            errs[name] = err
+        if edge:  # slot 1's stored mask is empty: its window position 0 is its first new V row
+            rep = shape["n"] // shape["kh"]
+            check_close(f"{what}, empty stored mask", out[1, 0], args[7][1, 0].repeat_interleave(rep, dim=0),
+                        TOL[("paged", kind)])
     # An odd size exercises the ragged edge tiles of the 8x8 pixel grid.
     args = repmixer_inputs(3, 12, 20, 96, 384, torch.float32)
     check_close("repmixer fp32 ragged (3, 12, 20, 96, 384)", repmixer_block(*args),
@@ -435,7 +511,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/5] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/6] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -453,7 +529,7 @@ def phase_policy():
     log(f"  launches in one step: {counts}")
     if tuple(actions.shape) != (BATCH, 14) or not torch.isfinite(actions).all():
         fail(f"actions {tuple(actions.shape)} finite={bool(torch.isfinite(actions).all())}")
-    expect = {"flash_attention": 24, "repmixer_block": 38, "paged_attention": 0}
+    expect = {"flash_attention": 24, "repmixer_block": 38, "paged_attention": 0, "paged_attention_window": 0}
     if counts != expect:
         fail(f"launch counts {counts} != {expect}")
 
@@ -508,49 +584,57 @@ def new_server(model, impl):
     return PagedGenerationServer(model, eos_token_id=-1, temperature=0.0, seed=SEED, decode_impl=impl, **SERVE)
 
 
-def device_ms(prof) -> float:
-    """Device time (ms) of the kernels in a profile: the self device time of
-    the device-side events, as the profiler's own table totals it (an
-    operator's row repeats its kernels' time, so it is not added)."""
+def device_ms(avg) -> float:
+    """Device time (ms) of the kernels in a profile's ``key_averages()``: the
+    self device time of the device-side events, as the profiler's own table
+    totals it (an operator's row repeats its kernels' time, so it is not
+    added)."""
     from torch.autograd import DeviceType
 
-    return sum(e.self_device_time_total for e in prof.key_averages()
+    return sum(e.self_device_time_total for e in avg
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation) / 1e3
 
 
-def run_stream(server, reqs, table: Path | None = None):
-    """``scripts/serve.py``'s loop: up to 16 arrivals a tick while slots and
-    pages allow, then one ``step``. Once every slot is busy and nothing
-    arrives, ``IDLE_TICKS`` decode ticks run under the profiler for the
+def run_stream(server, reqs, table: Path | None = None, slots: int = SERVE["num_slots"],
+               arrivals_per_tick: int = SERVE_ARRIVALS):
+    """``scripts/serve.py``'s loop: up to ``arrivals_per_tick`` arrivals a
+    tick while slots and pages allow, then one ``step`` (a decode tick, or a
+    draft-verify round on a speculative server). Once every slot is busy and
+    nothing arrives, ``IDLE_TICKS`` ticks run under the profiler for the
     device time of a tick; their time and tokens are left out of the tick
-    times and the rate (each active slot emits one token a decode tick).
-    With ``table`` the profile of those ticks is written there, by device
-    time and by host time."""
+    times and the rate. With ``table`` the profile of those ticks is written
+    there, by device time and by host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    spec = hasattr(server, "spec_ticks")
+    ticks = lambda: server.spec_ticks if spec else server.ticks
     submitted, finished, tick_times, prof_ms = 0, {}, [], None
     window_tokens, window_s = 0, 0.0
     t_start = time.perf_counter()
     while len(finished) < len(reqs):
         arrivals = 0
-        while submitted < len(reqs) and server.has_free_slot() and arrivals < SERVE_ARRIVALS:
+        while submitted < len(reqs) and server.has_free_slot() and arrivals < arrivals_per_tick:
             server.submit(*reqs[submitted])
             submitted += 1
             arrivals += 1
-        if prof_ms is None and arrivals == 0 and server.num_active == SERVE["num_slots"] and server.ticks >= 8:
+        if prof_ms is None and arrivals == 0 and server.num_active == slots and ticks() >= 8:
             w0 = time.perf_counter()
+            emitted0 = server.spec_tokens_emitted if spec else 0
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(IDLE_TICKS):
-                    window_tokens += server.num_active
+                    window_tokens += 0 if spec else server.num_active  # one token per active slot
                     finished.update(server.step())
                 torch.cuda.synchronize()
-            window_s = time.perf_counter() - w0
-            prof_ms = device_ms(prof) / IDLE_TICKS
+            window_tokens += server.spec_tokens_emitted - emitted0 if spec else 0
+            # Reading the profile takes seconds for a round's ~7,000 launches:
+            # it stays inside the window left out of the run's time.
+            avg = prof.key_averages()
+            prof_ms = device_ms(avg) / IDLE_TICKS
             if table is not None:
-                avg = prof.key_averages()
                 table.write_text(avg.table(sort_by="self_cuda_time_total", row_limit=30) + "\n"
                                  + avg.table(sort_by="self_cpu_time_total", row_limit=30))
+            window_s = time.perf_counter() - w0
             continue
         t0 = time.perf_counter()
         finished.update(server.step())
@@ -560,13 +644,30 @@ def run_stream(server, reqs, table: Path | None = None):
     total = sum(len(t) for t in finished.values())
     p50 = statistics.median(tick_times)
     summary = {
-        "requests": len(reqs), "slots": SERVE["num_slots"], "prefill_batch": SERVE["prefill_batch"],
+        "requests": len(reqs), "slots": slots, "prefill_batch": server.prefill_batch,
         "total_new_tokens": total, "tokens_per_sec": (total - window_tokens) / elapsed, "p50_tick_ms": p50,
-        "ticks": server.ticks, "admissions": server.admissions,
+        "ticks": ticks(), "admissions": server.admissions,
         "device_ms_per_decode_tick": prof_ms,
         "device_idle_share": None if prof_ms is None else 1.0 - prof_ms / p50,
     }
+    if spec:
+        summary.update(tokens_per_tick=server.tokens_per_tick, tokens_per_slot_round=server.tokens_per_slot_round)
     return finished, summary
+
+
+def check_answers(name, server, finished, n_requests, n_tokens):
+    """Every request answered with ``n_tokens`` tokens, every page back."""
+    if len(finished) != n_requests or any(len(t) != n_tokens for t in finished.values()):
+        fail(f"{name}: {len(finished)} requests answered, token counts {sorted({len(t) for t in finished.values()})}")
+    pool = server.pool
+    if pool.free_pages != pool.num_pages - 1 or pool.page_table.any():
+        fail(f"{name}: {pool.free_pages} of {pool.num_pages - 1} pages back on the free list")
+
+
+def same_tokens(a: dict, b: dict) -> float:
+    """Share of positions where two runs over the same requests agree."""
+    pairs = [(x, y) for rid in a for x, y in zip(a[rid], b[rid])]
+    return sum(x == y for x, y in pairs) / len(pairs)
 
 
 def phase_serving(profile_dir: Path | None = None):
@@ -574,7 +675,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[4/5] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[4/6] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -607,21 +708,136 @@ def phase_serving(profile_dir: Path | None = None):
         summaries[name], outputs[name] = summary, finished
         log(f"  {name}: {json.dumps(summary)}")
         log(f"  {name}: launches {counts[name]}")
-        if len(finished) != SERVE_REQUESTS or any(len(t) != SERVE["max_new_tokens"] for t in finished.values()):
-            fail(f"{name}: {len(finished)} requests answered, token counts {sorted({len(t) for t in finished.values()})}")
-        pool = server.pool
-        if pool.free_pages != pool.num_pages - 1 or pool.page_table.any():
-            fail(f"{name}: {pool.free_pages} of {pool.num_pages - 1} pages back on the free list")
+        check_answers(name, server, finished, SERVE_REQUESTS, SERVE["max_new_tokens"])
         expect = {"flash_attention": 0, "repmixer_block": 38 * server.admissions,
-                  "paged_attention": DECODER_LAYERS * server.ticks if impl == "kernel" else 0}
+                  "paged_attention": DECODER_LAYERS * server.ticks if impl == "kernel" else 0,
+                  "paged_attention_window": 0}
         if counts[name] != expect:
             fail(f"{name}: launch counts {counts[name]} != {expect}")
         del server
         torch.cuda.empty_cache()
     for other in ("gathered", "kernel_int8"):
-        same = sum(a == b for rid in outputs["kernel"] for a, b in zip(outputs["kernel"][rid], outputs[other][rid]))
         log(f"  greedy tokens identical between kernel and {other}: "
-            f"{same / (SERVE_REQUESTS * SERVE['max_new_tokens']):.4f}")
+            f"{same_tokens(outputs['kernel'], outputs[other]):.4f}")
+    del model_int8
+    return summaries, counts, model
+
+
+def build_model(cfg, seed: int):
+    """A FastVLM of ``cfg`` on the card, weights random from ``seed``."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.models import FastVLM, init_weights
+
+    with torch.device("cuda"):
+        model = FastVLM(cfg)
+    model.eval().requires_grad_(False)
+    init_weights(model, torch.Generator(device="cuda").manual_seed(seed))
+    return model
+
+
+def spec_models():
+    """FastVLM-7B (seed 0) and the FastVLM-0.5B draft with its vocab padded to
+    the target's (seed 1), bf16 at 1024 px; and the target's weights, shared,
+    under a text config with int8 KV pools."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.models import FastVLM, FastVLMConfig, fastvithd, qwen2_0_5b, qwen2_7b
+
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    target_cfg = FastVLMConfig(vision=fastvithd(**bf16), text=qwen2_7b(**bf16), image_size=1024)
+    draft_cfg = FastVLMConfig(vision=fastvithd(**bf16), text=qwen2_0_5b(vocab_size=TARGET_VOCAB, **bf16),
+                              image_size=1024)
+    target, draft = build_model(target_cfg, SEED), build_model(draft_cfg, SEED + 1)
+    with torch.device("meta"):
+        target_int8 = FastVLM(target_cfg.replace(text=target_cfg.text.replace(kv_cache_quantization="int8")))
+    target_int8.load_state_dict(target.state_dict(), assign=True)
+    return target, draft, target_int8.eval().requires_grad_(False)
+
+
+def new_spec_server(target, draft, impl):
+    from vla_fastvlm_tpu_torch.serving import SpeculativePagedGenerationServer
+
+    return SpeculativePagedGenerationServer(target, draft, eos_token_id=-1, temperature=0.0, seed=SEED,
+                                            decode_impl=impl, **SPEC)
+
+
+def phase_speculative(draft_self, profile_dir: Path | None = None):
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+
+    log(f"[5/6] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+        f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
+    t0 = time.perf_counter()
+    target, draft, target_int8 = spec_models()
+    reqs = serve_stream()[:SPEC_REQUESTS]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in target.parameters())
+    log(f"  models ready in {time.perf_counter() - t0:.1f} s ({n_params / 1e9:.2f} B target parameters)")
+    slots = SPEC["num_slots"]
+
+    # One admitted state (16 slots, 3 rounds), both verify programs.
+    server = new_spec_server(target, draft, "kernel")
+    for req in reqs[:slots]:
+        server.submit(*req)
+    for _ in range(3):
+        server.step()
+    kernel_logits, gathered_logits = server.verify_logits("kernel").float(), server.verify_logits("gathered").float()
+    rel = float((kernel_logits - gathered_logits).norm() / gathered_logits.norm())
+    agree = float((kernel_logits.argmax(-1) == gathered_logits.argmax(-1)).float().mean())
+    log(f"  kernel vs gathered verify logits from one admitted state: rel_l2={rel:.3e} "
+        f"(limit {SERVE_LOGITS_REL_L2:g}), same argmax in {agree:.3f} of window rows")
+    if not rel <= SERVE_LOGITS_REL_L2:
+        fail(f"kernel verify differs from the gathered verify: rel_l2={rel:.3e}")
+    del server
+    torch.cuda.empty_cache()
+
+    outputs, summaries, counts = {}, {}, {}
+    for name, tgt, impl in (("spec_kernel", target, "kernel"), ("spec_gathered", target, "gathered"),
+                            ("spec_kernel_int8", target_int8, "kernel")):
+        server = new_spec_server(tgt, draft, impl)
+        reset_launch_counts()
+        table = None if profile_dir is None else profile_dir / f"{name}_rounds.txt"
+        finished, summary = run_stream(server, reqs, table, slots, SPEC_ARRIVALS)
+        counts[name] = launch_counts()
+        summaries[name], outputs[name] = summary, finished
+        log(f"  {name}: {json.dumps(summary)}")
+        log(f"  {name}: launches {counts[name]}")
+        check_answers(name, server, finished, SPEC_REQUESTS, SPEC["max_new_tokens"])
+        # Every admission runs the target's vision tower and the draft's.
+        expect = {"flash_attention": 0, "repmixer_block": 2 * 38 * server.admissions, "paged_attention": 0,
+                  "paged_attention_window": TARGET_LAYERS * server.spec_ticks if impl == "kernel" else 0}
+        if counts[name] != expect:
+            fail(f"{name}: launch counts {counts[name]} != {expect}")
+        del server
+        torch.cuda.empty_cache()
+
+    # The plain paged server on the same target: greedy agreement, printed only
+    # (random weights put the argmax near ties; one flip changes the rest).
+    plain = PagedGenerationServer(target, eos_token_id=-1, temperature=0.0, seed=SEED, decode_impl="kernel",
+                                  **{k: v for k, v in SPEC.items() if k != "k"})
+    plain_out, plain_summary = run_stream(plain, reqs, None, slots, SPEC_ARRIVALS)
+    log(f"  plain paged server, same target: {json.dumps(plain_summary)}")
+    check_answers("plain 7B", plain, plain_out, SPEC_REQUESTS, SPEC["max_new_tokens"])
+    for name in outputs:
+        log(f"  greedy tokens identical between {name} and the plain paged server: "
+            f"{same_tokens(outputs[name], plain_out):.4f}")
+    summaries["plain_7b"] = plain_summary
+    del plain, target, draft, target_int8
+    torch.cuda.empty_cache()
+
+    # FastVLM-0.5B as its own draft: the proposals are the target's own
+    # greedy tokens up to bf16 ties, so most are accepted.
+    server = new_spec_server(draft_self, draft_self, "kernel")
+    finished, summary = run_stream(server, serve_stream()[:SELF_DRAFT_REQUESTS], None, slots, SPEC_ARRIVALS)
+    log(f"  self-draft 0.5B: {json.dumps(summary)}")
+    check_answers("self-draft", server, finished, SELF_DRAFT_REQUESTS, SPEC["max_new_tokens"])
+    if not server.tokens_per_slot_round >= SELF_DRAFT_MIN_TOKENS_PER_SLOT_ROUND:
+        fail(f"self-draft: {server.tokens_per_slot_round:.3f} tokens per slot and round "
+             f"< {SELF_DRAFT_MIN_TOKENS_PER_SLOT_ROUND}")
+    summaries["self_draft"] = summary
     return summaries, counts
 
 
@@ -630,11 +846,12 @@ def phase_timing(policy, plain, step):
 
     from vla_fastvlm_tpu_torch.ops.kernels import (
         flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
-        paged_attention_decode_reference, repmixer_block, repmixer_block_reference,
+        paged_attention_decode_reference, paged_attention_window, paged_attention_window_reference,
+        repmixer_block, repmixer_block_reference,
     )
     from vla_fastvlm_tpu_torch.ops.kernels.repmixer import _dw_weight
 
-    log("[5/5] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[6/6] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -698,6 +915,22 @@ def phase_timing(policy, plain, step):
         log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x{DECODER_LAYERS} per tick")
 
+    # verify window (W = k + 1): one launch per target layer and round; the
+    # 7B verify shape is the main path's, the 0.5B heads' shape is logged.
+    for name, shape, int8 in (("paged_attention_window", WINDOW_7B, False),
+                              ("paged_attention_window_int8", WINDOW_7B, True),
+                              ("paged_attention_window 0.5B heads", WINDOW_MAIN, False),
+                              ("paged_attention_window_int8 0.5B heads", WINDOW_MAIN, True)):
+        args, scales = paged_inputs(**shape, dtype=torch.bfloat16, int8=int8)
+        out = paged_attention_window(*args, **scales)
+        bound, by = paged_bound_ms(args, scales, out)
+        r = dict(ms=time_ms(lambda: paged_attention_window(*args, **scales), 50),
+                 plain_ms=time_ms(lambda: paged_attention_window_reference(*args, **scales), 20),
+                 library_ms=None, bound_ms=bound, bound_by=by)
+        results[name] = r
+        log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x{TARGET_LAYERS} per round at 7B")
+
     # repmixer: per stage, weighted by launches per step into one per-launch mean
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
     launches = sum(n for _, n in REPMIXER_STAGES)
@@ -747,7 +980,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=Path, default=None,
                         help="directory for torch.profiler tables of three policy steps and of "
-                             f"{IDLE_TICKS} decode ticks of each server")
+                             f"{IDLE_TICKS} decode ticks or verify rounds of each server")
     args = parser.parse_args(argv)
 
     import torch
@@ -777,7 +1010,9 @@ def main(argv=None) -> int:
     policy, plain, step, counts = timed("policy", phase_policy)
     if args.profile is not None:
         args.profile.mkdir(parents=True, exist_ok=True)
-    summaries, serve_counts = timed("serving", phase_serving, args.profile)
+    summaries, serve_counts, model_05b = timed("serving", phase_serving, args.profile)
+    spec_summaries, spec_counts = timed("speculative", phase_speculative, model_05b, args.profile)
+    del model_05b
     timings = timed("timing", phase_timing, policy, plain, step)
     log(f"seconds per phase: {phase_s}")
     if args.profile is not None:
@@ -795,10 +1030,23 @@ def main(argv=None) -> int:
         "paged_attention_int8": ("vla_fastvlm_tpu_torch/csrc/paged_attention.cu",
                                  "vla_fastvlm_tpu/ops/pallas/paged_attention.py:96",
                                  serve_counts["kernel_int8"]["paged_attention"]),
+        "paged_attention_window": ("vla_fastvlm_tpu_torch/csrc/paged_window.cu",
+                                   "vla_fastvlm_tpu/ops/pallas/paged_attention.py:140",
+                                   spec_counts["spec_kernel"]["paged_attention_window"]),
+        "paged_attention_window_int8": ("vla_fastvlm_tpu_torch/csrc/paged_window.cu",
+                                        "vla_fastvlm_tpu/ops/pallas/paged_attention.py:140",
+                                        spec_counts["spec_kernel_int8"]["paged_attention_window"]),
     }
     for name, summary in summaries.items():
         log(f"serve {name}: tokens/s {summary['tokens_per_sec']:.1f}, p50 tick {summary['p50_tick_ms']:.2f} ms, "
             f"ticks {summary['ticks']}, device idle share {summary['device_idle_share']}")
+    for name, summary in spec_summaries.items():
+        extra = "" if "tokens_per_tick" not in summary else (
+            f", tokens_per_tick {summary['tokens_per_tick']:.3f}, "
+            f"tokens per slot and round {summary['tokens_per_slot_round']:.3f}")
+        log(f"serve {name}: tokens/s {summary['tokens_per_sec']:.1f}, p50 round {summary['p50_tick_ms']:.2f} ms, "
+            f"rounds {summary['ticks']}, admissions {summary['admissions']}{extra}, "
+            f"device idle share {summary['device_idle_share']}")
     kernels = []
     for name, (source, replaces, launches) in meta.items():
         t = timings[name]

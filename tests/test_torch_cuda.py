@@ -22,6 +22,8 @@ from vla_fastvlm_tpu_torch.ops.kernels import (
     launch_counts,
     paged_attention_decode,
     paged_attention_decode_reference,
+    paged_attention_window,
+    paged_attention_window_reference,
     repmixer_block,
     repmixer_block_reference,
     reset_launch_counts,
@@ -97,10 +99,10 @@ def test_repmixer_kernel_matches_plain(cuda, shape, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
 
 
-def _paged_inputs(b, n, kh, d, dtype, int8, device, page=16, p_slot=6, seed=0):
+def _paged_inputs(b, n, kh, d, dtype, int8, device, page=16, p_slot=6, seed=0, room=1):
     """Slot b % 4 == 0: inactive (empty stored mask, all trash); others hold
     ragged, non page-aligned lengths with pad holes, the rest of their table
-    on the trash page."""
+    on the trash page; each cursor leaves ``room`` positions for new rows."""
     from vla_fastvlm_tpu_torch.ops.quant import quantize_kv
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -115,7 +117,7 @@ def _paged_inputs(b, n, kh, d, dtype, int8, device, page=16, p_slot=6, seed=0):
     for i in range(b):
         if i % 4 == 0:
             continue
-        length = int(torch.randint(1, p_slot * page, (1,), generator=g))
+        length = int(torch.randint(1, p_slot * page + 1 - room, (1,), generator=g))
         used = -(-length // page)
         tables[i, :used] = perm[i * p_slot: i * p_slot + used]
         mask[i, :length] = True
@@ -146,6 +148,56 @@ def test_paged_kernel_matches_plain(cuda, d, int8, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
     # inactive slots attend only their new row
     torch.testing.assert_close(out[0].float(), args[7][0].float().repeat_interleave(7, dim=0), atol=atol, rtol=atol)
+
+
+def _window_inputs(b, w, n, kh, d, dtype, int8, device, seed=0):
+    """``_paged_inputs``' slots with a W-token window at each cursor; pool
+    rows at and past the cursor hold random values (a rejected suffix)."""
+    from vla_fastvlm_tpu_torch.ops.quant import quantize_kv
+
+    args, scales = _paged_inputs(b, n, kh, d, dtype, int8, device, seed=seed, room=w)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    q, kn, vn = (torch.randn(*shape, generator=g) for shape in ((b, w, n, d), (b, w, kh, d), (b, w, kh, d)))
+    if int8:
+        (kq, kss), (vq, vss) = quantize_kv(kn), quantize_kv(vn)
+        kn, vn = kq.float() * kss[..., None], vq.float() * vss[..., None]
+    args[0], args[6], args[7] = (x.to(device, dtype) for x in (q, kn, vn))
+    return args, scales
+
+
+@pytest.mark.parametrize("w", [2, 5, 9])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_paged_window_kernel_matches_plain(cuda, w, d, int8, dtype, atol):
+    args, scales = _window_inputs(9, w, 28, 4, d, dtype, int8, cuda)
+    reset_launch_counts()
+    out = paged_attention_window(*args, **scales)
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention_window"] == 1 and launch_counts()["paged_attention"] == 0
+    ref = paged_attention_window_reference(*args, **scales)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+    # inactive slots (empty stored mask): window position 0 is its own new V row
+    torch.testing.assert_close(out[0, 0].float(), args[7][0, 0].float().repeat_interleave(7, dim=0),
+                               atol=atol, rtol=atol)
+
+
+def test_paged_attention_window_on_the_card_launches_the_kernel(cuda):
+    """``paged_attention`` at W > 1 on a CUDA tensor is the window kernel;
+    ``impl="xla"`` is the only way to the plain version."""
+    from vla_fastvlm_tpu_torch.ops.attention import paged_attention
+
+    args, _ = _window_inputs(5, 5, 14, 2, 64, torch.bfloat16, False, cuda)
+    reset_launch_counts()
+    out = paged_attention(*args)
+    plain = paged_attention(*args, impl="xla")
+    torch.cuda.synchronize()
+    assert launch_counts()["paged_attention_window"] == 1
+    torch.testing.assert_close(out.float(), plain.float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged_attention(args[0][..., :32].contiguous(), args[1][..., :32].contiguous(),
+                        args[2][..., :32].contiguous(), *args[3:6], args[6][..., :32].contiguous(),
+                        args[7][..., :32].contiguous())
 
 
 def test_paged_server_kernel_path_raises_on_shapes_the_kernel_does_not_take(cuda):

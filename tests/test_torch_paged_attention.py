@@ -2,10 +2,13 @@
 
 - ``ops/quant.py``: ``quantize_kv`` / ``dequantize_kv`` bit for bit.
 - ``ops/attention.py::paged_attention`` (the plain gather path, which is the
-  CUDA kernel's plain version) against JAX ``paged_attention(impl="xla")``
+  CUDA kernels' plain version) against JAX ``paged_attention(impl="xla")``
   and the Pallas kernel ``paged_attention_decode(..., interpret=True)``, on
   float and int8 pools, GQA 4/2 and 4/1, trash-page table entries, ragged
-  lengths that are not page-aligned and an empty stored mask.
+  lengths that are not page-aligned and an empty stored mask; at W > 1 (the
+  speculative verify window) against JAX ``paged_attention(impl="xla")`` and
+  ``paged_attention_window(..., interpret=True)``, GQA 4/2 and 6/2, head_dim
+  64 and 128, float and int8 pools, W 2 and 5, within 1e-5.
 - ``models``: ``prefill`` + ``decode_step`` and ``decode_step_paged`` logits
   of the tiny FastVLM, float and int8 caches, with the JAX weights carried
   over by the bridge.
@@ -33,7 +36,12 @@ from vla_fastvlm_tpu_torch.models import fastvlm as t_vlm
 from vla_fastvlm_tpu_torch.models import qwen2 as t_qwen
 from vla_fastvlm_tpu_torch.ops import quant as t_quant
 from vla_fastvlm_tpu_torch.ops.attention import paged_attention
-from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, paged_attention_decode, reset_launch_counts
+from vla_fastvlm_tpu_torch.ops.kernels import (
+    launch_counts,
+    paged_attention_decode,
+    paged_attention_window,
+    reset_launch_counts,
+)
 from vla_fastvlm_tpu_torch.ops.kernels.paged_attention import check_kernel_shapes, scale_window
 
 from _torch_parity import jax_param_shapes, random_params, t
@@ -169,7 +177,7 @@ class TestKernelWrapper:
         with pytest.raises(ValueError, match="CUDA or CPU"):
             paged_attention(*args)
         q, pk, pv, tables, mask, lengths, kn, vn = args
-        with pytest.raises(NotImplementedError, match="ROADMAP"):  # W > 1 has no kernel yet
+        with pytest.raises(ValueError, match="paged_attention_window runs on CUDA or CPU"):  # W > 1
             paged_attention(q.expand(3, 2, 4, 64), pk, pv, tables, mask, lengths, kn.expand(3, 2, 2, 64),
                             vn.expand(3, 2, 2, 64))
 
@@ -196,6 +204,113 @@ class TestKernelWrapper:
         for b in range(2):
             for s in range(12):
                 np.testing.assert_array_equal(win[b, :, s], pool[tables[b, s // 4], :, s % 4])
+
+
+# ---------------------------------------------------------------------------
+# W > 1: the speculative verify window
+
+WINDOW_ATOL = 1e-5
+
+
+def _setup_window(w, n=4, kv=2, d=64, seed=0):
+    """``_setup``'s slots (ragged pages, a one-page slot, an inactive slot
+    with an empty stored mask) with a W-token window at each cursor. The
+    pool positions at and past each cursor hold random rows, as rejected
+    rows of an earlier round would, and are masked."""
+    q, pk, pv, tables, mask, lengths, _, _ = _setup(n=n, kv=kv, d=d, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    b = q.shape[0]
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return f(b, w, n, d), pk, pv, tables, mask, lengths, f(b, w, kv, d), f(b, w, kv, d)
+
+
+_JAX_WINDOW = {}
+
+
+def _jax_window(key):
+    """JAX's gathered path and interpret-mode kernel on one case, computed
+    once per case for the port's two impls."""
+    if key not in _JAX_WINDOW:
+        w, n, kv, d, int8 = key
+        args = _setup_window(w, n, kv, d, seed=w + n + d)
+        scales = None
+        if int8:
+            args, scales = _quantized(args)
+        kw = {} if scales is None else dict(pool_k_scale=jnp.asarray(scales[0]), pool_v_scale=jnp.asarray(scales[1]))
+        q, pk, pv, tables, mask, lengths, kn, vn = (jnp.asarray(a) for a in args)
+        ref = j_paged_attention(q, pk, pv, tables, mask, lengths, kn, vn, impl="xla", **kw)
+        interp = jpaged.paged_attention_window(q, pk, pv, tables, mask, kn, vn, interpret=True, **kw)
+        _JAX_WINDOW[key] = (args, scales, np.asarray(ref), np.asarray(interp))
+    return _JAX_WINDOW[key]
+
+
+class TestPagedWindowPlainVersion:
+    @pytest.mark.parametrize("impl", ["auto", "xla"])
+    @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+    @pytest.mark.parametrize("d", [64, 128])
+    @pytest.mark.parametrize("n,kv", [(4, 2), (6, 2)])
+    @pytest.mark.parametrize("w", [2, 5])
+    def test_matches_jax_gathered_and_interpret_kernel(self, w, n, kv, d, int8, impl):
+        args, scales, ref, interp = _jax_window((w, n, kv, d, int8))
+        kw = {} if scales is None else dict(pool_k_scale=t(scales[0]), pool_v_scale=t(scales[1]))
+        reset_launch_counts()
+        out = paged_attention(*[t(a) for a in args], impl=impl, **kw).numpy()
+        assert launch_counts()["paged_attention_window"] == 0  # a CPU tensor runs the plain version
+        assert out.shape == (3, w, n, d)
+        np.testing.assert_allclose(out, ref, atol=WINDOW_ATOL, rtol=WINDOW_ATOL)
+        np.testing.assert_allclose(out, interp, atol=WINDOW_ATOL, rtol=WINDOW_ATOL)
+
+    @pytest.mark.parametrize("w", [2, 5])
+    def test_empty_mask_causal_self(self, w):
+        """The inactive slot's window attends only its own causal columns:
+        position 0 gives exactly v_new[0]; nothing is NaN."""
+        args = _setup_window(w, seed=10)
+        out = paged_attention(*[t(a) for a in args]).numpy()
+        assert np.isfinite(out).all()
+        rep = args[0].shape[2] // args[6].shape[2]
+        np.testing.assert_allclose(out[2, 0], np.repeat(args[7][2, 0], rep, axis=0), atol=1e-6, rtol=1e-6)
+        interp = jpaged.paged_attention_window(*[jnp.asarray(a) for i, a in enumerate(args) if i != 5],
+                                               interpret=True)
+        np.testing.assert_allclose(out, np.asarray(interp), atol=WINDOW_ATOL, rtol=WINDOW_ATOL)
+
+    def test_rejected_rows_past_the_cursor_do_not_count(self):
+        """Rows at and past each cursor (a rejected suffix) are masked: their
+        values change nothing."""
+        args = list(_setup_window(3, seed=12))
+        base = paged_attention(*[t(a) for a in args]).numpy()
+        pk, pv = args[1].copy(), args[2].copy()
+        page = pk.shape[2]
+        length = int(args[5][0])  # slot 0: pages 3, 5 with its cursor inside page 5
+        pk[5, :, length % page:] = 1e4
+        pv[5, :, length % page:] = -1e4
+        args[1], args[2] = pk, pv
+        np.testing.assert_array_equal(paged_attention(*[t(a) for a in args]).numpy(), base)
+
+    def test_window_wrapper_on_cpu_runs_the_plain_version(self):
+        args = [t(a) for a in _setup_window(4, seed=13)]
+        reset_launch_counts()
+        out = paged_attention_window(*args)
+        assert launch_counts() == {name: 0 for name in launch_counts()}
+        np.testing.assert_array_equal(out.numpy(), paged_attention(*args, impl="xla").numpy())
+
+    def test_kernel_shape_rules(self):
+        q, pk, pv, tables, mask, lengths, kn, vn = [t(a) for a in _setup_window(5, n=4, kv=2, d=64, seed=14)]
+        check_kernel_shapes(q, pk, pv, tables, mask, kn, vn, None, None)
+        with pytest.raises(ValueError, match="N / K <= 8"):  # rep 9
+            check_kernel_shapes(q.repeat(1, 1, 9, 1)[:, :, :18], pk, pv, tables, mask, kn, vn, None, None)
+        with pytest.raises(ValueError, match="W <= 9"):
+            q10, k10, v10 = (x.repeat(1, 2, 1, 1) for x in (q, kn, vn))
+            check_kernel_shapes(q10, pk, pv, tables, mask, k10, v10, None, None)
+        with pytest.raises(ValueError, match="head_dim"):
+            check_kernel_shapes(q[..., :32], pk[..., :32], pv[..., :32], tables, mask, kn[..., :32], vn[..., :32],
+                                None, None)
+        with pytest.raises(ValueError, match="head_dim"):
+            check_kernel_shapes(q.repeat(1, 1, 1, 4), pk.repeat(1, 1, 1, 4), pv.repeat(1, 1, 1, 4), tables, mask,
+                                kn.repeat(1, 1, 1, 4), vn.repeat(1, 1, 1, 4), None, None)  # 256
+        with pytest.raises(ValueError, match=r"\(B, W, K, D\)"):
+            check_kernel_shapes(q, pk, pv, tables, mask, kn[:, :4], vn, None, None)
+        with pytest.raises(ValueError, match="W <= 9"):  # W = 1 takes the decode kernel's layout
+            check_kernel_shapes(q[:, :1], pk, pv, tables, mask, kn[:, :1], vn[:, :1], None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -71,7 +71,8 @@ def test_every_module_has_a_jax_counterpart_layout():
     mirrored = {
         "ops/norms.py", "ops/rope.py", "ops/attention.py", "ops/image.py", "ops/quant.py",
         "serving/__init__.py", "serving/sampling.py", "serving/generate.py",
-        "serving/continuous_batching.py", "serving/paged_kv.py",
+        "serving/continuous_batching.py", "serving/paged_kv.py", "serving/speculative.py",
+        "serving/speculative_paged.py",
         "models/qwen2.py", "models/fastvit.py", "models/fastvlm.py", "models/action_head.py",
         "io/tokenizer.py", "model/fastvlm_adapter.py", "fastvla/configuration_fastvla.py",
         "fastvla/processor_fastvla.py", "fastvla/fastvlm_with_expert.py", "fastvla/modeling_fastvla.py",

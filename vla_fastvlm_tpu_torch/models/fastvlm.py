@@ -5,7 +5,9 @@
 sequence; ``"none"`` is text-only and does not build the vision tower. Besides
 the cache-free forward, ``prefill`` / ``decode_step`` run against a dense KV
 cache (``models/qwen2.py::init_kv_cache``) and ``decode_step_paged`` against
-a paged pool (``serving/paged_kv.py``).
+a paged pool (``serving/paged_kv.py``); ``verify_step`` and
+``verify_step_paged`` are their multi-token forms for the speculative
+verify window (``serving/speculative.py``, ``serving/speculative_paged.py``).
 """
 
 from __future__ import annotations
@@ -190,6 +192,33 @@ class FastVLM(nn.Module):
         )
         return self._logits(hidden[:, -1]), rows
 
+    def verify_step(self, input_ids: torch.Tensor, cache: dict):
+        """The speculative verify pass: multi-token cached decode returning
+        every position's logits. (B, W) window ids -> ``(logits (B, W, V),
+        second)``. Window position ``i`` attends the cache plus window
+        positions ``<= i``, so the target's continuation of each accepted
+        prefix is read from one forward.
+
+        - Dense cache (``serving/speculative.py``): the slot-causal bias of
+          the dense branch; ``second`` is the cache advanced by W, and the
+          caller rolls back the rejected suffix (``_rollback``).
+        - Paged pool, the cache of ``decode_step_paged``
+          (``serving/speculative_paged.py``; also called as
+          ``verify_step_paged``): ``ops.attention.paged_attention`` with W
+          queries, the window kernel on the card at W > 1; the pool is only
+          read, and ``second`` is the window's K/V, ``{"k_rows","v_rows"}``
+          (L, B, W, K, D) (+ (L, B, W, K) scales for int8 pools; the window
+          axis is squeezed at W = 1, as in ``decode_step_paged``), for the
+          server to scatter before it advances masks and cursors only
+          ``accepted + 1`` positions.
+        """
+        hidden, second, _ = self.language_model(
+            input_ids=input_ids, attention_mask=torch.ones_like(input_ids, dtype=torch.int32),
+            cache=cache, causal=True,
+        )
+        return self._logits(hidden), second
+
+    verify_step_paged = verify_step
 
 def pool_hidden(hidden: torch.Tensor, mask: Optional[torch.Tensor], mode: str) -> torch.Tensor:
     """Masked pooling over the sequence axis: (B, T, H) -> (B, H).

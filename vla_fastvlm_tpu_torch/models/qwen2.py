@@ -302,13 +302,17 @@ class Qwen2Model(nn.Module):
         elif cache is not None:
             s = cache["k"].shape[2]
             slots = cache["index"].long()[:, None] + steps  # (B, t) slot of each new token
+            # Writes start at most at s - t, as JAX's dynamic_update_slice
+            # clamps them: only rows that stopped generating (cursors pinned
+            # or running on) ever reach the end, and their outputs are dropped.
+            cols = cache["index"].long().clamp(max=s - t)[:, None] + steps
             rows = torch.arange(b, device=dev)[:, None].expand(b, t)
             kv_mask = cache["mask"].to(torch.int32).clone()
-            kv_mask[rows, slots] = attention_mask.to(torch.int32)
+            kv_mask[rows, cols] = attention_mask.to(torch.int32)
             kv_positions = torch.arange(s, device=dev)[None, :].expand(b, s)
             bias = make_attention_bias(slots, kv_positions, kv_mask, causal=causal)
             for i in range(cfg.num_hidden_layers):
-                layer_caches[i] = {"k": cache["k"][i], "v": cache["v"][i], "rows": rows, "cols": slots}
+                layer_caches[i] = {"k": cache["k"][i], "v": cache["v"][i], "rows": rows, "cols": cols}
                 if "k_scale" in cache:
                     layer_caches[i].update(k_scale=cache["k_scale"][i], v_scale=cache["v_scale"][i])
         else:

@@ -9,8 +9,8 @@ flash kernel (``ops/kernels/flash_attention.py``), which launches the CUDA
 kernel on a CUDA tensor or raises; it never gives way to the plain path on
 the card. ``impl="xla"`` (the name is kept for config parity with the JAX
 package) always runs the plain path. ``paged_attention`` is the decode
-tick's attention against a paged KV pool, dispatched the same way to
-``ops/kernels/paged_attention.py``.
+tick's (W = 1) or speculative verify window's (W > 1) attention against a
+paged KV pool, dispatched the same way to ``ops/kernels/paged_attention.py``.
 """
 
 from __future__ import annotations
@@ -181,27 +181,23 @@ def paged_attention(
     stored positions where ``kv_mask`` is set plus window positions ``<= i``.
     For int8 pools ``k_new``/``v_new`` are the dequant-roundtripped new rows.
 
-    Dispatch: with ``impl`` "auto" or "flash" and ``W == 1`` the decode
-    kernel's wrapper (``ops/kernels/paged_attention.py``), which launches the
-    CUDA kernel on a CUDA tensor or raises and runs the plain version on a CPU
-    one. ``W > 1`` (the speculative verify window) has no kernel in the port
-    yet and raises on the card (``ROADMAP.md``, Queue 2 item 5).
-    ``impl="xla"`` and CPU tensors run ``paged_attention_gathered``.
+    Dispatch: with ``impl`` "auto" or "flash" on a CUDA tensor, ``W == 1``
+    goes to the decode kernel's wrapper and ``W > 1`` (the speculative
+    verify window) to the window kernel's (``ops/kernels/paged_attention.py``);
+    each launches its CUDA kernel or raises on a shape it does not take, and
+    nothing falls back to the plain path. ``impl="xla"`` and CPU tensors run
+    ``paged_attention_gathered``.
     """
     if impl not in ("auto", "flash", "xla"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    w = q.shape[1]
     if impl != "xla" and q.device.type != "cpu":
-        if w != 1:
-            raise NotImplementedError(
-                f"paged attention over a window of W={w} tokens has no CUDA kernel in the "
-                "port yet (ROADMAP.md, Queue 2 item 5); use impl='xla'"
-            )
-        from .kernels.paged_attention import paged_attention_decode
+        from .kernels.paged_attention import paged_attention_decode, paged_attention_window
 
+        kw = dict(pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale, scale=scale)
+        if q.shape[1] > 1:
+            return paged_attention_window(q, pool_k, pool_v, tables, kv_mask, lengths, k_new, v_new, **kw)
         return paged_attention_decode(
-            q[:, 0], pool_k, pool_v, tables, kv_mask, lengths, k_new[:, 0], v_new[:, 0],
-            pool_k_scale=pool_k_scale, pool_v_scale=pool_v_scale, scale=scale,
+            q[:, 0], pool_k, pool_v, tables, kv_mask, lengths, k_new[:, 0], v_new[:, 0], **kw,
         )[:, None]
     return paged_attention_gathered(
         q, pool_k, pool_v, tables, kv_mask, lengths, k_new, v_new,

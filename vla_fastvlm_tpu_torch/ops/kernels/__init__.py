@@ -4,13 +4,19 @@ Nothing here builds or loads a kernel at import; see ``_build.py``.
 """
 
 from .flash_attention import flash_attention, flash_attention_reference, flash_attention_streamed
-from .paged_attention import paged_attention_decode, paged_attention_decode_reference
+from .paged_attention import (
+    paged_attention_decode,
+    paged_attention_decode_reference,
+    paged_attention_window,
+    paged_attention_window_reference,
+)
 from .repmixer import repmixer_block, repmixer_block_reference
 
 KERNELS = {
     "flash_attention": flash_attention,
     "repmixer_block": repmixer_block,
     "paged_attention": paged_attention_decode,
+    "paged_attention_window": paged_attention_window,
 }
 
 
@@ -32,6 +38,8 @@ __all__ = [
     "launch_counts",
     "paged_attention_decode",
     "paged_attention_decode_reference",
+    "paged_attention_window",
+    "paged_attention_window_reference",
     "repmixer_block",
     "repmixer_block_reference",
     "reset_launch_counts",

@@ -20,7 +20,8 @@ table, so device memory scales with allocated tokens, not slots x max_len:
   paged decode kernel on the card) and returns each slot's new K/V row, which
   one scatter writes at ``(tables[slot, len // page], len % page)``.
   "gathered" gathers each slot's window and runs the dense-cache decode step
-  (the plain program).
+  (the plain program). The tick is the W = 1 case of a window forward that
+  the speculative server (``serving/speculative_paged.py``) runs at W = k + 1.
 
 The pools are updated in place (the JAX server donates its buffers to the
 jitted programs instead). Not in this port yet: prefix caching, chunked
@@ -38,7 +39,7 @@ import torch
 
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import Qwen2Config, init_kv_cache
-from .continuous_batching import _pad_to, normalize_buckets, pick_bucket
+from .continuous_batching import _pad_to, admission_arrays, normalize_buckets, pick_bucket
 from .sampling import sample_tokens
 
 
@@ -309,26 +310,12 @@ class PagedGenerationServer:
     @torch.no_grad()
     def _admit(self, batch: List[_Pending]) -> None:
         bp = self.prefill_batch
-        n = len(batch)
-        width = batch[0].bucket
         # Logical prefill width: image tokens + padded prompt (the cursor
         # advances by the padded width; see models/fastvlm.py::prefill).
-        prefill_len = self.model.cfg.num_image_tokens + width
-        ids = np.zeros((bp, width), np.int32)
-        mask = np.zeros((bp, width), np.int32)
-        # Dummy rows keep one real token; their pages stay at the trash page.
-        ids[n:, 0] = max(self.eos_token_id, 0)
-        mask[n:, 0] = 1
-        images = None
-        if batch[0].images is not None:
-            img0 = np.asarray(batch[0].images)
-            images = np.zeros((bp,) + img0.shape[1:], img0.dtype)
+        prefill_len = self.model.cfg.num_image_tokens + batch[0].bucket
+        ids, mask, images = admission_arrays(batch, bp, self.eos_token_id)
         pages = np.zeros((bp, self.pool.pages_per_slot), np.int32)
         for row, req in enumerate(batch):
-            ids[row] = req.input_ids[0]
-            mask[row] = req.attention_mask[0]
-            if images is not None:
-                images[row] = req.images[0]
             self.pool.allocate(req.slot, prefill_len + 1)
             pages[row] = self.pool.page_table[req.slot]
 
@@ -401,20 +388,30 @@ class PagedGenerationServer:
         return (self._to_device(self.pool.page_table), self._to_device(masks), self._to_device(lengths),
                 self._to_device(tokens))
 
-    def _run_tick(self, impl: str, tables, masks, lengths, tokens, write: bool = True) -> torch.Tensor:
-        """One decode step over all slots -> (B, V) logits. With ``write``
-        each slot's new K/V row is scattered into its page at its cursor."""
+    def _run_window(self, impl: str, tables, masks, lengths, window, write: bool = True) -> torch.Tensor:
+        """One forward of a (B, W) token window over all slots -> (B, W, V)
+        logits; window position i sits at ``lengths + i``. With ``write``
+        the window's K/V rows are scattered into the slots' pages there.
+
+        "kernel" reads the pool through the tables (``verify_step_paged``:
+        the paged decode kernel at W = 1, the window kernel at W > 1 on the
+        card); "gathered" gathers each slot's window into a dense cache and
+        runs ``verify_step`` (the plain program)."""
         pool, model = self.pool, self.model
-        b = tables.shape[0]
+        b, w = window.shape
+        dev = tables.device
+        cols = lengths.long()[:, None] + torch.arange(w, device=dev)[None, :]  # (B, W)
         if impl == "kernel":
             cache = {"pool_k": pool.pool_k, "pool_v": pool.pool_v, "tables": tables, "mask": masks,
                      "index": lengths}
             if pool.quantized:
                 cache.update(pool_k_scale=pool.pool_k_scale, pool_v_scale=pool.pool_v_scale)
-            logits, rows = model.decode_step_paged(tokens[:, None], cache)
+            logits, rows = model.verify_step_paged(window, cache)
             new = {"k": rows["k_rows"], "v": rows["v_rows"]}
             if pool.quantized:
                 new.update(k_scale=rows["k_scale_rows"], v_scale=rows["v_scale_rows"])
+            if w == 1:  # the decoder squeezes a decode tick's window axis
+                new = {name: r[:, :, None] for name, r in new.items()}
         else:
             n_layers = pool.pool_k.shape[0]
             tab = tables.long()
@@ -427,18 +424,22 @@ class PagedGenerationServer:
             cache = {"mask": masks, "index": lengths}
             for name, buf in pool.pools().items():
                 cache[name] = gather_window(buf)
-            logits, new_cache = model.decode_step(tokens[:, None], cache)
-            at = (torch.arange(b, device=tables.device), lengths.long())
-            new = {name: new_cache[name][:, at[0], at[1]] for name in pool.pools()}  # (L, B, ...)
+            logits, new_cache = model.verify_step(window, cache)
+            rows_b = torch.arange(b, device=dev)[:, None]
+            new = {name: new_cache[name][:, rows_b, cols] for name in pool.pools()}  # (L, B, W, ...)
         if write:
-            lens = lengths.long()
-            page_ids = tables.long()[torch.arange(b, device=tables.device), lens // pool.page_size]
-            offsets = lens % pool.page_size
+            page_ids = tables.long()[torch.arange(b, device=dev)[:, None], cols // pool.page_size]
+            offsets = cols % pool.page_size
             # Pool layout (L, P, K, page[, D]): the advanced indices at axes 1
-            # and 3 put the batch axis first, (B, L, K[, D]).
+            # and 3 put the (B, W) axes first, (B, W, L, K[, D]).
             for name, buf in pool.pools().items():
-                buf[:, page_ids, :, offsets] = new[name].transpose(0, 1).to(buf.dtype)
+                buf[:, page_ids, :, offsets] = new[name].movedim(0, 2).to(buf.dtype)
         return logits
+
+    def _run_tick(self, impl: str, tables, masks, lengths, tokens, write: bool = True) -> torch.Tensor:
+        """One decode step over all slots -> (B, V) logits. With ``write``
+        each slot's new K/V row is scattered into its page at its cursor."""
+        return self._run_window(impl, tables, masks, lengths, tokens[:, None], write)[:, 0]
 
     @torch.no_grad()
     def tick_logits(self, impl: Optional[str] = None) -> torch.Tensor:
