@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py                 # the full check, about four minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
+    python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -84,6 +85,8 @@ FLASH_LONG = [dict(b=2, t=2048, n=14, kh=2, d=64), dict(b=2, t=1024, n=28, kh=4,
 # (B, H, W, C, F) per FastViTHD RepMixer stage at 256 px, with launches per step.
 REPMIXER_STAGES = [((BATCH, 64, 64, 96, 384), 2), ((BATCH, 32, 32, 192, 768), 12),
                    ((BATCH, 16, 16, 384, 1536), 24)]
+# Pixel grids that the image's edge cuts (H, W not multiples of 8 or 16).
+REPMIXER_RAGGED = [(3, 12, 20, 96, 384), (2, 20, 12, 192, 768), (2, 12, 20, 384, 1536)]
 
 # FastVLM-0.5B serving on the synthetic stream of scripts/serve.py, at the
 # preset's own 1024 px (256 image tokens): windows of 256 + 64 + 64 = 384
@@ -371,16 +374,34 @@ def _bound(nbytes, flops):
 # ---------------------------------------------------------------------------
 # phases
 
-def phase_build():
+KERNEL_SOURCES = ["flash_attention", "repmixer", "paged_attention", "paged_window"]
+
+
+def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/6] build")
+    log("[1/6] build" + ("" if names == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention", "repmixer", "paged_attention", "paged_window"])
+    logs = _build.build(names)
     for name, text in logs.items():
-        usage = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"  {name}: " + (" | ".join(usage) if usage else "built"))
+        log(f"  {name}: " + (" | ".join(ptxas_usage(text)) or "built"))
     log(f"  built in {time.perf_counter() - t0:.1f} s")
+
+
+def ptxas_usage(text: str) -> list:
+    """One entry per kernel instance of an ``nvcc -Xptxas -v`` log: its
+    mangled name, then its registers and spills."""
+    out, entry = [], None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif entry and ("spill" in ln or "registers" in ln):
+            if "spill" in ln:
+                spill = ln.strip()
+            else:
+                out.append(f"{entry}: {ln.split(':', 1)[-1].strip()}; {spill}")
+                entry = None
+    return out
 
 
 def phase_kernels():
@@ -413,19 +434,7 @@ def phase_kernels():
     q, k, v, mask = flash_inputs(**FLASH_MAIN, dtype=torch.bfloat16)
     check_close("flash bf16 main, streamed instance", flash_attention_streamed(q, k, v, mask, True),
                 flash_attention_reference(q, k, v, mask, True), TOL[("flash", "bf16")])
-    for shape, _ in REPMIXER_STAGES:
-        b, h, w, c, f = shape
-        args = repmixer_inputs(*shape, torch.bfloat16)
-        out = repmixer_block(*args)
-        torch.cuda.synchronize()
-        err = check_close(f"repmixer bf16 {shape}", out, repmixer_block_reference(*args),
-                          TOL[("repmixer", "bf16")])
-        errs["repmixer_block"] = max(errs["repmixer_block"], err)
-        args = repmixer_inputs(2, h, w, c, f, torch.float32)
-        out = repmixer_block(*args)
-        torch.cuda.synchronize()
-        check_close(f"repmixer fp32 {(2, h, w, c, f)}", out, repmixer_block_reference(*args),
-                    TOL[("repmixer", "fp32")])
+    errs["repmixer_block"] = check_repmixer()
     paged_cases = [
         ("paged_attention", "paged bf16 main", PAGED_MAIN, torch.bfloat16, False, False),
         ("paged_attention_int8", "paged int8 main", PAGED_MAIN, torch.bfloat16, True, False),
@@ -474,11 +483,41 @@ def phase_kernels():
             rep = shape["n"] // shape["kh"]
             check_close(f"{what}, empty stored mask", out[1, 0], args[7][1, 0].repeat_interleave(rep, dim=0),
                         TOL[("paged", kind)])
-    # An odd size exercises the ragged edge tiles of the 8x8 pixel grid.
-    args = repmixer_inputs(3, 12, 20, 96, 384, torch.float32)
-    check_close("repmixer fp32 ragged (3, 12, 20, 96, 384)", repmixer_block(*args),
-                repmixer_block_reference(*args), TOL[("repmixer", "fp32")])
     return errs
+
+
+def check_repmixer() -> float:
+    """The RepMixer kernel against its plain version: bf16 at each stage's
+    main-path shape, fp32 at batch 2 of each width, and ragged pixel grids
+    (tiles cut by the image's edge) in both dtypes. Returns the largest bf16
+    error at the main-path shapes."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import repmixer_block, repmixer_block_reference
+
+    worst = 0.0
+    for shape, _ in REPMIXER_STAGES:
+        b, h, w, c, f = shape
+        args = repmixer_inputs(*shape, torch.bfloat16)
+        out = repmixer_block(*args)
+        torch.cuda.synchronize()
+        err = check_close(f"repmixer bf16 {shape}", out, repmixer_block_reference(*args),
+                          TOL[("repmixer", "bf16")])
+        worst = max(worst, err)
+        args = repmixer_inputs(2, h, w, c, f, torch.float32)
+        out = repmixer_block(*args)
+        torch.cuda.synchronize()
+        check_close(f"repmixer fp32 {(2, h, w, c, f)}", out, repmixer_block_reference(*args),
+                    TOL[("repmixer", "fp32")])
+    # Odd sizes exercise the ragged edge tiles of the pixel grid.
+    for shape in REPMIXER_RAGGED:
+        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            args = repmixer_inputs(*shape, dtype)
+            out = repmixer_block(*args)
+            torch.cuda.synchronize()
+            check_close(f"repmixer {kind} ragged {shape}", out, repmixer_block_reference(*args),
+                        TOL[("repmixer", kind)])
+    return worst
 
 
 def policy_inputs():
@@ -847,9 +886,7 @@ def phase_timing(policy, plain, step):
     from vla_fastvlm_tpu_torch.ops.kernels import (
         flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
         paged_attention_decode_reference, paged_attention_window, paged_attention_window_reference,
-        repmixer_block, repmixer_block_reference,
     )
-    from vla_fastvlm_tpu_torch.ops.kernels.repmixer import _dw_weight
 
     log("[6/6] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
@@ -931,7 +968,19 @@ def phase_timing(policy, plain, step):
         log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x{TARGET_LAYERS} per round at 7B")
 
-    # repmixer: per stage, weighted by launches per step into one per-launch mean
+    results["repmixer_block"] = time_repmixer()
+    return results
+
+
+def time_repmixer() -> dict:
+    """Time per launch of the RepMixer kernel and its plain version at each
+    stage's main-path shape, with the bound, and their mean over a policy
+    step's launches."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import repmixer_block, repmixer_block_reference
+    from vla_fastvlm_tpu_torch.ops.kernels.repmixer import _dw_weight
+
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
     launches = sum(n for _, n in REPMIXER_STAGES)
     for shape, n in REPMIXER_STAGES:
@@ -947,17 +996,27 @@ def phase_timing(policy, plain, step):
         total["ops_ms" if by == "operations" else "bytes_ms"] += n * bound
         log(f"  repmixer_block {shape}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bound:.4f} ms "
             f"({by}); x{n} per step")
-    results["repmixer_block"] = dict(
-        ms=total["ms"] / launches, plain_ms=total["plain_ms"] / launches, library_ms=None,
-        bound_ms=total["bound_ms"] / launches,
-        bound_by="operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
-    )
+        # A launch's time is linear in its hidden chunks of 64: the same
+        # input with F = 64 and 128 separates the per-chunk cost (fc1, GELU,
+        # fc2, the weight copies) from the fixed part (the depthwise pair,
+        # the epilogue).
+        f = shape[-1]
+        cut = lambda k: args[:5] + [args[5][:, :k].contiguous(), args[6][:k], args[7][:k].contiguous()] + args[8:]
+        t64, t128 = (time_ms(lambda a=cut(k): repmixer_block(*a), 20) for k in (64, 128))
+        chunk = (ms - t64) / (f // 64 - 1)
+        log(f"    F=64 {t64:.4f} ms, F=128 {t128:.4f} ms: {chunk:.4f} ms a hidden chunk "
+            f"(F=128 predicts {t64 + chunk:.4f}), fixed part {t64 - chunk:.4f} ms = "
+            f"{(t64 - chunk) / ms:.1%} of the launch")
     log(f"  repmixer_block per step: kernel {total['ms']:.3f} ms, plain {total['plain_ms']:.3f} ms, "
         f"bound {total['bound_ms']:.3f} ms over {launches} launches")
     args = repmixer_inputs(16, 16, 16, 384, 1536, torch.float32)
     log(f"  repmixer_block fp32 (16, 16, 16, 384) F 1536: kernel {time_ms(lambda: repmixer_block(*args), 10):.4f} ms, "
         f"plain {time_ms(lambda: repmixer_block_reference(*args), 5):.4f} ms")
-    return results
+    return dict(
+        ms=total["ms"] / launches, plain_ms=total["plain_ms"] / launches, library_ms=None,
+        bound_ms=total["bound_ms"] / launches,
+        bound_by="operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes",
+    )
 
 
 def profile_step(policy, step, out_dir: Path) -> None:
@@ -981,6 +1040,10 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", type=Path, default=None,
                         help="directory for torch.profiler tables of three policy steps and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
+    parser.add_argument("--only", choices=["repmixer"], default=None,
+                        help="build, check and time one kernel and nothing else (repmixer: the "
+                             "RepMixer library, its checks against the plain version, its "
+                             "per-width times)")
     args = parser.parse_args(argv)
 
     import torch
@@ -997,6 +1060,16 @@ def main(argv=None) -> int:
     strict_fp32()  # fp32 plain versions in full fp32: no TF32 in cuDNN or matmuls
 
     t_start = time.perf_counter()
+    if args.only == "repmixer":
+        phase_build(["repmixer"])
+        log("[2/6] RepMixer kernel against its plain version")
+        err = check_repmixer()
+        log("[6/6] RepMixer timing (CUDA graph replay between CUDA events)")
+        r = time_repmixer()
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"repmixer_block": dict(r, max_abs_err=err)}))
+        return 0
     phase_s = {}
 
     def timed(name, fn, *a):

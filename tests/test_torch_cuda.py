@@ -87,7 +87,16 @@ def _rep_args(b, h, w, c, f, dtype, device, seed=0):
     return [a.to(device, dtype) for a in args]
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 16, 96, 384), (1, 12, 20, 192, 768), (1, 12, 20, 384, 1536)])
+REP_SHAPES = [
+    (2, 16, 16, 96, 384), (1, 12, 20, 192, 768), (1, 12, 20, 384, 1536),
+    # ragged pixel grids: tiles cut by the image's edge
+    (3, 12, 20, 96, 384), (2, 20, 28, 192, 768), (1, 36, 44, 192, 768),
+    # batch 2 at each main-path stage shape (256 px)
+    (2, 64, 64, 96, 384), (2, 32, 32, 192, 768), (2, 16, 16, 384, 1536),
+]
+
+
+@pytest.mark.parametrize("shape", REP_SHAPES)
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 1e-1)])
 def test_repmixer_kernel_matches_plain(cuda, shape, dtype, atol):
     args = _rep_args(*shape, dtype, cuda)

@@ -44,11 +44,13 @@
 // pixels, after a barrier), which brings it to 217 KB.
 
 #include "mma_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 #include <cmath>
 #include <cstddef>
 
 using namespace mma_tiles;
+namespace wg = wgmma_tiles;
 
 namespace {
 
@@ -79,19 +81,30 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.0f + (sizeof(T) == 2 ? fast_tanh(u) : tanhf(u)));
 }
 
-// Hidden units per fc chunk, and whether the t3 centre stays in shared memory.
+// Hidden units per fc chunk, whether the t3 centre stays in shared memory,
+// and whether the products run on wgmma (the bf16 instance) with the tiles in
+// its 128-byte swizzle layout, or on the m16n8 tiles of mma_tiles.cuh.
 template <typename T, int C>
 struct Plan {
   static constexpr bool WIDE_FP32 = sizeof(T) == 4 && C >= 384;
   static constexpr int FC = WIDE_FP32 ? 32 : 64;
   static constexpr bool T3_SMEM = !WIDE_FP32;
+  static constexpr bool WG = sizeof(T) == 2;
+  static_assert(!WG || FC == 64, "wgmma tiles: one 128-byte row per hidden chunk");
 };
 
-// Shared-memory layout, shared by the host planner and the kernel.
+// Columns of one warpgroup's half of a w2 chunk in the wgmma layout: C / 2,
+// rounded up to whole 64-column blocks so that each half starts on one.
+__host__ __device__ constexpr int w2_half_cols(int c) { return (c / 2 + 63) / 64 * 64; }
+
+// Shared-memory layout, shared by the host planner and the kernel. With
+// wgmma, t7, the t3 centre and h are 64-row tiles and the w1 / w2 chunks
+// C- / FC-row tiles in the 128-byte swizzle layout (wgmma_tiles.cuh), every
+// one 1024-byte aligned; otherwise rows are padded by PAD elements.
 struct Layout {
   size_t t7, t3c, xs, ring, w1s, w2s, hs, total;
-  __host__ __device__ Layout(int esz, int c, int fc, bool t3_smem) {
-    const size_t tsz = align128((size_t)PIX * (c + PAD) * esz);
+  __host__ __device__ Layout(int esz, int c, int fc, bool t3_smem, bool wg) {
+    const size_t tsz = wg ? (size_t)((c + 63) / 64) * PIX * 128 : align128((size_t)PIX * (c + PAD) * esz);
     t7 = 0;
     t3c = tsz;  // unused without t3_smem
     const size_t uni = (t3_smem ? 2 : 1) * tsz;  // phase 1 (depthwise) and phase 2 (fc) share the rest
@@ -99,16 +112,29 @@ struct Layout {
     ring = xs + 2 * align128((size_t)IN_SIDE * IN_SIDE * CC * esz);
     const size_t phase1 = ring + align128((size_t)RING * RING * CC * esz);
     w1s = uni;
-    w2s = w1s + align128((size_t)c * (fc + PAD) * esz);
-    hs = w2s + align128((size_t)fc * (c + PAD) * esz);
-    const size_t phase2 = hs + align128((size_t)PIX * (fc + PAD) * esz);
+    if (wg) {
+      w2s = w1s + (size_t)c * 128;
+      hs = w2s + 2 * (size_t)w2_half_cols(c) * fc * 2;
+    } else {
+      w2s = w1s + align128((size_t)c * (fc + PAD) * esz);
+      hs = w2s + align128((size_t)fc * (c + PAD) * esz);
+    }
+    const size_t phase2 = hs + (wg ? (size_t)PIX * 128 : align128((size_t)PIX * (fc + PAD) * esz));
     total = phase1 > phase2 ? phase1 : phase2;
   }
 };
 
 template <typename T, int C>
 __host__ __device__ Layout plan_layout() {
-  return Layout(sizeof(T), C, Plan<T, C>::FC, Plan<T, C>::T3_SMEM);
+  return Layout(sizeof(T), C, Plan<T, C>::FC, Plan<T, C>::T3_SMEM, Plan<T, C>::WG);
+}
+
+// Element (r, c) of a 64-row activation tile (t7, the t3 centre, h): in the
+// wgmma layout, or row-major with row stride ld.
+template <bool WG, typename T>
+__device__ __forceinline__ T* tile_at(T* base, int r, int c, int ld) {
+  if constexpr (WG) return reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(base) + wg::sw128_offset(r, c, PIX));
+  return base + r * ld + c;
 }
 
 // Start copying the haloed 16x16 input tile of channels [c0, c0 + CC) into
@@ -125,24 +151,69 @@ __device__ __forceinline__ void stage_input(T* dst, const T* xi, int H, int W, i
   }
 }
 
-// Stage w1[:, f0 : f0 + FC] (C rows of FC) into dst with row stride FC + PAD.
-template <typename T, int C, int FC>
+// Stage w1[:, f0 : f0 + FC] (C rows of FC) into dst: with wgmma one
+// 128-byte swizzled row per input channel, else row stride FC + PAD.
+template <typename T, int C, int FC, bool WG>
 __device__ __forceinline__ void stage_w1(T* dst, const T* w1, int F, int f0) {
   constexpr int VEC = 16 / sizeof(T), PER_ROW = FC / VEC;
   for (int i = threadIdx.x; i < C * PER_ROW; i += THREADS) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    cp_async16(dst + r * (FC + PAD) + c, w1 + (size_t)r * F + f0 + c);
+    T* to = WG ? reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(dst) + wg::sw128_offset(r, c, C))
+               : dst + r * (FC + PAD) + c;
+    cp_async16(to, w1 + (size_t)r * F + f0 + c);
   }
 }
 
-// Stage w2[f0 : f0 + FC, :] (FC rows of C) into dst with row stride C + PAD.
-template <typename T, int C, int FC>
+// Stage w2[f0 : f0 + FC, :] (FC rows of C) into dst: with wgmma as two
+// swizzled halves of w2_half_cols(C) columns, one per warpgroup, else row
+// stride C + PAD.
+template <typename T, int C, int FC, bool WG>
 __device__ __forceinline__ void stage_w2(T* dst, const T* w2, int f0) {
   constexpr int VEC = 16 / sizeof(T), PER_ROW = C / VEC;
   for (int i = threadIdx.x; i < FC * PER_ROW; i += THREADS) {
     const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
-    cp_async16(dst + r * (C + PAD) + c, w2 + (size_t)(f0 + r) * C + c);
+    T* to;
+    if constexpr (WG) {
+      const int half = c / (C / 2), pc = half * w2_half_cols(C) + c % (C / 2);
+      to = reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(dst) + wg::sw128_offset(r, pc, FC));
+    } else {
+      to = dst + r * (C + PAD) + c;
+    }
+    cp_async16(to, w2 + (size_t)(f0 + r) * C + c);
   }
+}
+
+// fc1 on wgmma: acc (64 x FC / 2, warpgroup wgi's half of the chunk's
+// columns) = t7 (64 x C) . w1 chunk.
+template <int C, int FC>
+__device__ __forceinline__ void fc1_wgmma(float (&acc)[FC / 16][4], const void* t7, const void* w1s, int wgi) {
+  const uint64_t a = wg::opaque(wg::desc(t7, 16, 1024));
+  const uint64_t b = wg::opaque(wg::desc(static_cast<const unsigned char*>(w1s) + wgi * FC, C * 128, 1024));
+  wg::fence_operand(acc);
+  wg::fence();
+#pragma unroll
+  for (int k0 = 0; k0 < C; k0 += 16)  // FC / 2 bf16 columns of w1s start at byte wgi * FC
+    wg::mma_async<FC / 2>(acc, wg::advance(a, (k0 / 64) * PIX * 128 + (k0 % 64) * 2),
+                          wg::advance(b, k0 * 128), 1);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_operand(acc);
+}
+
+// fc2 on wgmma: acc (64 x C / 2, warpgroup wgi's half of y) += h (64 x FC) . w2 chunk.
+template <int C, int FC>
+__device__ __forceinline__ void fc2_wgmma(float (&acc)[C / 16][4], const void* hs, const void* w2s, int wgi) {
+  const uint64_t a = wg::opaque(wg::desc(hs, 16, 1024));
+  const uint64_t b = wg::opaque(
+      wg::desc(static_cast<const unsigned char*>(w2s) + wgi * w2_half_cols(C) * FC * 2, FC * 128, 1024));
+  wg::fence_operand(acc);
+  wg::fence();
+#pragma unroll
+  for (int k0 = 0; k0 < FC; k0 += 16)
+    wg::mma_async<C / 2>(acc, wg::advance(a, k0 * 2), wg::advance(b, k0 * 128), 1);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_operand(acc);
 }
 
 // Blocks an SM should hold: the y tile of C = 384 takes every register a
@@ -159,10 +230,11 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
                 int tiles_w) {
   constexpr int FC = Plan<T, C>::FC;
   constexpr bool T3_SMEM = Plan<T, C>::T3_SMEM;
-  constexpr int LDT = C + PAD;      // t7 / t3c / w2s row stride
-  constexpr int LDH = FC + PAD;     // w1s / hs row stride
+  constexpr bool WG = Plan<T, C>::WG;
+  constexpr int LDT = C + PAD;      // t7 / t3c / w2s row stride (without wgmma)
+  constexpr int LDH = FC + PAD;     // w1s / hs row stride (without wgmma)
   constexpr int NJ2 = C / 16;       // 8-column tiles of y per warp (half of C)
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];
   const Layout L = plan_layout<T, C>();
   T* t7 = reinterpret_cast<T*>(smem + L.t7);
   T* t3c = reinterpret_cast<T*>(smem + L.t3c);
@@ -245,40 +317,49 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
         if (ry >= 3 && ry < 3 + TILE) {
           const T t3 = ring[(ry * RING + px + 3) * CC + ch];
           if (T3_SMEM) {
-            t3c[((ry - 3) * TILE + px) * LDT + c0 + ch] = t3;
+            *tile_at<WG>(t3c, (ry - 3) * TILE + px, c0 + ch, LDT) = t3;
           } else if (oy + ry - 3 < H && ox + px < W) {
             oi[((size_t)(oy + ry - 3) * W + ox + px) * C + c0 + ch] = t3;
           }
         }
       }
 #pragma unroll
-      for (int py = 0; py < TILE; ++py) t7[(py * TILE + px) * LDT + c0 + ch] = from_f<T>(acc[py]);
+      for (int py = 0; py < TILE; ++py) *tile_at<WG>(t7, py * TILE + px, c0 + ch, LDT) = from_f<T>(acc[py]);
     }
   }
   __syncthreads();  // phase 2 reuses the input tiles' and ring's memory; t3 in out is visible
 
   // ---- phase 2: fc1 -> GELU -> fc2 over hidden chunks, y in registers ------
-  const int m0 = (warp & 3) * 16;        // this warp's 16 pixel rows
-  const int n1 = (warp >> 2) * (FC / 2);  // its FC / 2 columns of a hidden chunk
-  const int n2 = (warp >> 2) * (C / 2);   // its C / 2 columns of y
+  // Warpgroup wgi = warp / 4 owns half of each product's columns; warp w of
+  // it 16 pixel rows. With wgmma the warpgroup issues the 64-row products,
+  // with the same register layout as the m16n8 tiles of the other instance.
+  const int wgi = warp >> 2;
+  const int m0 = (warp & 3) * 16;  // this warp's 16 pixel rows
+  const int n1 = wgi * (FC / 2);   // its FC / 2 columns of a hidden chunk
+  const int n2 = wgi * (C / 2);    // its C / 2 columns of y
   float y[NJ2][4];
 #pragma unroll
   for (int j = 0; j < NJ2; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.0f;
 
-  stage_w1<T, C, FC>(w1s, w1, F, 0);
+  stage_w1<T, C, FC, WG>(w1s, w1, F, 0);
   cp_async_commit();
   for (int f0 = 0; f0 < F; f0 += FC) {
-    stage_w2<T, C, FC>(w2s, w2, f0);
+    stage_w2<T, C, FC, WG>(w2s, w2, f0);
     cp_async_commit();
     cp_async_wait<1>();  // this chunk's w1 has landed
+    if constexpr (WG) wg::fence_async_smem();
     __syncthreads();
 
     float hacc[FC / 16][4];
 #pragma unroll
     for (int j = 0; j < FC / 16; ++j) hacc[j][0] = hacc[j][1] = hacc[j][2] = hacc[j][3] = 0.0f;
+    if constexpr (WG) {
+      fc1_wgmma<C, FC>(hacc, t7, w1s, wgi);
+    } else {
 #pragma unroll 4
-    for (int k0 = 0; k0 < C; k0 += 16)
-      mma_k16_kn<FC / 16>(hacc, t7 + m0 * LDT + k0, LDT, w1s + k0 * LDH + n1, LDH);
+      for (int k0 = 0; k0 < C; k0 += 16)
+        mma_k16_kn<FC / 16>(hacc, t7 + m0 * LDT + k0, LDT, w1s + k0 * LDH + n1, LDH);
+    }
 #pragma unroll
     for (int j = 0; j < FC / 16; ++j) {
       const int col = n1 + j * 8 + 2 * t;
@@ -287,22 +368,28 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
       for (int half = 0; half < 2; ++half) {
         const float h0 = gelu_tanh<T>(round_to<T>(hacc[j][2 * half] + bb0));
         const float h1 = gelu_tanh<T>(round_to<T>(hacc[j][2 * half + 1] + bb1));
-        *reinterpret_cast<pair_t<T>*>(hs + (m0 + g + 8 * half) * LDH + col) = pack<T>(h0, h1);
+        *reinterpret_cast<pair_t<T>*>(tile_at<WG>(hs, m0 + g + 8 * half, col, LDH)) = pack<T>(h0, h1);
       }
     }
+    if constexpr (WG) wg::fence_async_smem();
     __syncthreads();  // hs complete; every warp is done reading w1s
 
     if (f0 + FC < F) {
-      stage_w1<T, C, FC>(w1s, w1, F, f0 + FC);
+      stage_w1<T, C, FC, WG>(w1s, w1, F, f0 + FC);
       cp_async_commit();
       cp_async_wait<1>();  // this chunk's w2 has landed
     } else {
       cp_async_wait<0>();
     }
+    if constexpr (WG) wg::fence_async_smem();
     __syncthreads();
+    if constexpr (WG) {
+      fc2_wgmma<C, FC>(y, hs, w2s, wgi);
+    } else {
 #pragma unroll
-    for (int k0 = 0; k0 < FC; k0 += 16)
-      mma_k16_kn<NJ2>(y, hs + m0 * LDH + k0, LDH, w2s + k0 * LDT + n2, LDT);
+      for (int k0 = 0; k0 < FC; k0 += 16)
+        mma_k16_kn<NJ2>(y, hs + m0 * LDH + k0, LDH, w2s + k0 * LDT + n2, LDT);
+    }
     __syncthreads();  // before the next chunk overwrites w2s and hs
   }
 
@@ -317,7 +404,7 @@ repmixer_kernel(const T* __restrict__ x, const T* __restrict__ w3, const T* __re
       const int p = m0 + g + 8 * half;
       const int gy = oy + p / TILE, gx = ox + p % TILE;
       if (gy < H && gx < W) {
-        const T* t3 = T3_SMEM ? t3c + p * LDT + col : oi + ((size_t)gy * W + gx) * C + col;
+        const T* t3 = T3_SMEM ? tile_at<WG>(t3c, p, col, LDT) : oi + ((size_t)gy * W + gx) * C + col;
         const float2 r = unpack(*reinterpret_cast<const pair_t<T>*>(t3));
         const float v0 = r.x + round_to<T>(round_to<T>(y[j][2 * half] + bb0) * g0);
         const float v1 = r.y + round_to<T>(round_to<T>(y[j][2 * half + 1] + bb1) * g1);
