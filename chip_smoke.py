@@ -16,7 +16,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    tight tolerance: flash at the policy step's shapes (right-padded masks,
    fully padded rows), at head_dim 128 (the 7B decoder's shape) and at
    S = 2048 / 1024 (the streamed instance); RepMixer per stage, fp32 up to
-   C = 384; paged decode attention at the serving shape in bf16 and over
+   C = 384, and ragged pixel grids at each width in both dtypes; paged decode attention at the serving shape in bf16 and over
    int8 pools, at head_dim 128, and in fp32 with trash pages and an empty
    stored mask; the verify window kernel (W > 1) in bf16 and over int8
    pools at the 7B verify shape and with the 0.5B heads, and in fp32 at
@@ -54,7 +54,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
-   least time the card could take for the same work.
+   least time the card could take for the same work; for RepMixer each
+   width's time split into a part per hidden chunk and a fixed part.
+
+``--only repmixer`` runs phase 1 for the RepMixer source alone, the RepMixer
+checks of phase 2 and the RepMixer timing of phase 6, then prints the card
+line and a JSON line of the kernel's numbers.
 
 Prints the card's name and power limit, a JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -374,13 +379,13 @@ def _bound(nbytes, flops):
 # ---------------------------------------------------------------------------
 # phases
 
-KERNEL_SOURCES = ["flash_attention", "repmixer", "paged_attention", "paged_window"]
+KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_window")
 
 
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/6] build" + ("" if names == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/6] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -410,7 +415,6 @@ def phase_kernels():
     from vla_fastvlm_tpu_torch.ops.kernels import (
         flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
         paged_attention_decode_reference, paged_attention_window, paged_attention_window_reference,
-        repmixer_block, repmixer_block_reference,
     )
 
     log("[2/6] kernels against their plain versions")
@@ -1061,7 +1065,7 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     if args.only == "repmixer":
-        phase_build(["repmixer"])
+        phase_build(("repmixer",))
         log("[2/6] RepMixer kernel against its plain version")
         err = check_repmixer()
         log("[6/6] RepMixer timing (CUDA graph replay between CUDA events)")
