@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py                 # the full check, about four minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
+    python3 chip_smoke.py --only paged    # the two paged-attention kernels alone: build, checks, times (about a minute)
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -20,7 +21,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8 pools, at head_dim 128, and in fp32 with trash pages and an empty
    stored mask; the verify window kernel (W > 1) in bf16 and over int8
    pools at the 7B verify shape and with the 0.5B heads, and in fp32 at
-   W = 2, 5 and 9 with an empty stored mask and inactive slots.
+   W = 2, 5 and 9 with an empty stored mask and inactive slots; then both
+   paged kernels with the stored window forced into 1, 2 and the most
+   parts (one tile each), in fp32, bf16 and over int8 pools, at W = 1, 2, 5
+   and 9, with an empty stored mask, inactive slots and one slot whose
+   tile 1 is masked whole (an all-masked part), against the plain version
+   and against the split twin ``paged_attention_split_reference``.
 3. policy: FastVLA-0.5B at batch 128, 256 px, ``tokenizer_max_length`` 64,
    bf16, full depth, random weights from a seed, driven through
    ``FastVLAPolicy.forward``; outputs (128, 14) and finite; launch counts of
@@ -49,7 +55,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    28 x rounds, RepMixer = 76 x admissions: the target's tower and the
    draft's); kernel and gathered verify logits from one admitted state
    agree; greedy agreement with the plain paged server on the same target
-   (printed). Then FastVLM-0.5B as its own draft on 16 requests: at least
+   (printed), and for each request the first position where the two
+   differ, with the target's top-2 logit gap there (recomputed on the common
+   prefix by the dense cache path) set against the kernel-vs-gathered logit
+   difference. Then FastVLM-0.5B as its own draft on 16 requests: at least
    2.0 tokens per active slot and round.
 6. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
@@ -59,7 +68,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 ``--only repmixer`` runs phase 1 for the RepMixer source alone, the RepMixer
 checks of phase 2 and the RepMixer timing of phase 6, then prints the card
-line and a JSON line of the kernel's numbers.
+line and a JSON line of the kernel's numbers. ``--only paged`` does the same
+for the two paged-attention sources: their checks of phase 2, then at each
+of the 8 paged shapes of phase 6 the wrapper call, the kernel's launch alone
+(mask and tables already int32), the plain version, the bound, and the
+kernel alone at 1, 2, 3 and 6 parts.
 
 Prints the card's name and power limit, a JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -230,7 +243,7 @@ def flash_inputs(b, t, n, kh, d, dtype, seed=0):
     return q, k, v, mask
 
 
-def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False, w=None):
+def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False, w=None, hole=False):
     """A decode tick's paged attention (``w`` None: q (B, N, D), new rows
     (B, K, D)) at the serving windows (24 pages of 16): slot i holds 256
     image + 4..64 prompt positions (the rest of the 64-wide prompt dead),
@@ -242,7 +255,8 @@ def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False, w=None):
     masked, as a rejected suffix of an earlier round would. One slot in 16
     is inactive (one-hot mask on the trash page, length 1, as the servers
     run them); table entries past a slot's pages are the trash page; with
-    ``empty_slot`` slot 1 has an empty stored mask. Pools N(0, 1), or their
+    ``empty_slot`` slot 1 has an empty stored mask; with ``hole`` slot 2's
+    positions 64..127 (tile 1) are masked whole. Pools N(0, 1), or their
     int8 quantization with scales; int8 new rows arrive dequant-roundtripped."""
     import torch
 
@@ -276,6 +290,8 @@ def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False, w=None):
             continue
         mask[i, :N_IMG + plen] = True
         mask[i, prefill:length] = True
+        if hole and i == 2:
+            mask[i, 64:128] = False
     scales = {}
     if int8:
         (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
@@ -354,7 +370,7 @@ def repmixer_bound_ms(args, out):
 def paged_bound_ms(args, scales, out):
     """Bytes: the distinct pages holding a valid position, K and V, plus q,
     out, the new rows, the int32 mask and tables, and for int8 pools the
-    two (B, K, S) float32 scale windows. Operations: 4 D per (query row,
+    K and V scales of the pages reached. Operations: 4 D per (query row,
     valid stored position) and per (query row, new column at or before its
     own): with W new rows a slot's rows see 1 .. W of them."""
     q, pk, pv, tables, mask, lengths, kn, vn = args
@@ -365,7 +381,7 @@ def paged_bound_ms(args, scales, out):
     nbytes = 2 * reached * pk[0].numel() * pk.element_size()
     nbytes += sum(x.numel() * x.element_size() for x in (q, kn, vn, out)) + 4 * (mask.numel() + tables.numel())
     if scales:
-        nbytes += 2 * 4 * b * pk.shape[1] * mask.shape[1]
+        nbytes += 2 * reached * pk.shape[1] * page * 4
     flops = 4 * d * n * (w * int(mask.sum()) + b * w * (w + 1) // 2)
     return _bound(nbytes, flops)
 
@@ -412,10 +428,7 @@ def ptxas_usage(text: str) -> list:
 def phase_kernels():
     import torch
 
-    from vla_fastvlm_tpu_torch.ops.kernels import (
-        flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
-        paged_attention_decode_reference, paged_attention_window, paged_attention_window_reference,
-    )
+    from vla_fastvlm_tpu_torch.ops.kernels import flash_attention, flash_attention_reference, flash_attention_streamed
 
     log("[2/6] kernels against their plain versions")
     errs = {"flash_attention": 0.0, "repmixer_block": 0.0}
@@ -439,54 +452,100 @@ def phase_kernels():
     check_close("flash bf16 main, streamed instance", flash_attention_streamed(q, k, v, mask, True),
                 flash_attention_reference(q, k, v, mask, True), TOL[("flash", "bf16")])
     errs["repmixer_block"] = check_repmixer()
-    paged_cases = [
-        ("paged_attention", "paged bf16 main", PAGED_MAIN, torch.bfloat16, False, False),
-        ("paged_attention_int8", "paged int8 main", PAGED_MAIN, torch.bfloat16, True, False),
-        (None, "paged bf16 d128", PAGED_7B, torch.bfloat16, False, False),
-        (None, "paged int8 d128", PAGED_7B, torch.bfloat16, True, False),
-        (None, "paged fp32 d64", dict(PAGED_MAIN, b=17), torch.float32, False, True),
-        (None, "paged fp32 int8 d64", dict(PAGED_MAIN, b=17), torch.float32, True, True),
-        (None, "paged fp32 d128", dict(PAGED_7B, b=3), torch.float32, False, True),
-    ]
-    for name, what, shape, dtype, int8, empty in paged_cases:
-        args, scales = paged_inputs(**shape, dtype=dtype, int8=int8, empty_slot=empty)
-        out = paged_attention_decode(*args, **scales)
-        torch.cuda.synchronize()
-        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
-        err = check_close(what, out, paged_attention_decode_reference(*args, **scales), TOL[("paged", kind)])
-        if name:
-            errs[name] = err
-        if empty:  # slot 1's stored mask is empty: its rows are its new V row
-            rep = shape["n"] // shape["kh"]
-            check_close(f"{what}, empty stored mask", out[1], args[7][1].repeat_interleave(rep, dim=0),
-                        TOL[("paged", kind)])
+    errs.update(check_paged())
+    return errs
+
+
+# Kernel against plain version at the default split plan: (name in the JSON
+# line, label, shape, dtype, int8 pools, edge slots). Edge slots: an empty
+# stored mask (slot 1), trash entries and inactive slots.
+PAGED_CHECKS = [
+    ("paged_attention", "paged bf16 main", PAGED_MAIN, "bf16", False, False),
+    ("paged_attention_int8", "paged int8 main", PAGED_MAIN, "bf16", True, False),
+    (None, "paged bf16 d128", PAGED_7B, "bf16", False, False),
+    (None, "paged int8 d128", PAGED_7B, "bf16", True, False),
+    (None, "paged fp32 d64", dict(PAGED_MAIN, b=17), "fp32", False, True),
+    (None, "paged fp32 int8 d64", dict(PAGED_MAIN, b=17), "fp32", True, True),
+    (None, "paged fp32 d128", dict(PAGED_7B, b=3), "fp32", False, True),
     # The verify window kernel (W > 1): bf16 and int8 pools at the 7B verify
     # shape (the main path's) and with the 0.5B heads at 64 slots; fp32 at a
-    # small batch with an empty stored mask, inactive slots, trash entries,
-    # W = 2, 5 and 9.
-    window_cases = [
-        ("paged_attention_window", "window bf16 7B", WINDOW_7B, torch.bfloat16, False, False),
-        ("paged_attention_window_int8", "window int8 7B", WINDOW_7B, torch.bfloat16, True, False),
-        (None, "window bf16 0.5B heads", WINDOW_MAIN, torch.bfloat16, False, False),
-        (None, "window int8 0.5B heads", WINDOW_MAIN, torch.bfloat16, True, False),
-        (None, "window fp32 W=2 d64", dict(WINDOW_MAIN, b=5, w=2), torch.float32, False, True),
-        (None, "window fp32 W=9 d64", dict(WINDOW_MAIN, b=5, w=9), torch.float32, False, True),
-        (None, "window fp32 int8 W=5 d64", dict(WINDOW_MAIN, b=5), torch.float32, True, True),
-        (None, "window fp32 W=5 d128", dict(WINDOW_7B, b=5), torch.float32, False, True),
-        (None, "window fp32 int8 W=9 d128", dict(WINDOW_7B, b=5, w=9), torch.float32, True, True),
-    ]
-    for name, what, shape, dtype, int8, edge in window_cases:
-        args, scales = paged_inputs(**shape, dtype=dtype, int8=int8, empty_slot=edge)
-        out = paged_attention_window(*args, **scales)
+    # small batch, W = 2, 5 and 9.
+    ("paged_attention_window", "window bf16 7B", WINDOW_7B, "bf16", False, False),
+    ("paged_attention_window_int8", "window int8 7B", WINDOW_7B, "bf16", True, False),
+    (None, "window bf16 0.5B heads", WINDOW_MAIN, "bf16", False, False),
+    (None, "window int8 0.5B heads", WINDOW_MAIN, "bf16", True, False),
+    (None, "window fp32 W=2 d64", dict(WINDOW_MAIN, b=5, w=2), "fp32", False, True),
+    (None, "window fp32 W=9 d64", dict(WINDOW_MAIN, b=5, w=9), "fp32", False, True),
+    (None, "window fp32 int8 W=5 d64", dict(WINDOW_MAIN, b=5), "fp32", True, True),
+    (None, "window fp32 W=5 d128", dict(WINDOW_7B, b=5), "fp32", False, True),
+    (None, "window fp32 int8 W=9 d128", dict(WINDOW_7B, b=5, w=9), "fp32", True, True),
+]
+# Forced split counts: (label, shape) at 9 slots, each in fp32, bf16 and
+# over int8 pools, with 1, 2 and the most parts.
+SPLIT_CHECKS = [("W=1 d64", dict(PAGED_MAIN, b=9)), ("W=1 d128", dict(PAGED_7B, b=9)),
+                ("W=2 d64", dict(WINDOW_MAIN, b=9, w=2)), ("W=5 d64", dict(WINDOW_MAIN, b=9)),
+                ("W=5 d128", dict(WINDOW_7B, b=9)), ("W=9 d64", dict(WINDOW_MAIN, b=9, w=9))]
+
+
+def paged_fns(window: bool):
+    from vla_fastvlm_tpu_torch.ops.kernels import (
+        paged_attention_decode, paged_attention_decode_reference, paged_attention_window,
+        paged_attention_window_reference,
+    )
+
+    if window:
+        return paged_attention_window, paged_attention_window_reference
+    return paged_attention_decode, paged_attention_decode_reference
+
+
+def check_empty_slot(what, out, args, shape, kind):
+    """Slot 1's stored mask is empty: its (first window position's) rows are
+    its (first) new V row."""
+    rep = shape["n"] // shape["kh"]
+    first_out, first_v = (out[1], args[7][1]) if out.ndim == 3 else (out[1, 0], args[7][1, 0])
+    check_close(f"{what}, empty stored mask", first_out, first_v.repeat_interleave(rep, dim=0), TOL[("paged", kind)])
+
+
+def check_paged() -> dict:
+    """Both paged kernels against their plain versions (see PAGED_CHECKS),
+    then at forced split counts (SPLIT_CHECKS) also against the split twin.
+    Returns the bf16 errors at the main-path shapes."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
+
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    errs = {}
+    for name, what, shape, kind, int8, edge in PAGED_CHECKS:
+        kernel, plain = paged_fns("w" in shape)
+        args, scales = paged_inputs(**shape, dtype=dtypes[kind], int8=int8, empty_slot=edge)
+        out = kernel(*args, **scales)
         torch.cuda.synchronize()
-        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
-        err = check_close(what, out, paged_attention_window_reference(*args, **scales), TOL[("paged", kind)])
+        err = check_close(what, out, plain(*args, **scales), TOL[("paged", kind)])
         if name:
             errs[name] = err
-        if edge:  # slot 1's stored mask is empty: its window position 0 is its first new V row
-            rep = shape["n"] // shape["kh"]
-            check_close(f"{what}, empty stored mask", out[1, 0], args[7][1, 0].repeat_interleave(rep, dim=0),
-                        TOL[("paged", kind)])
+        if edge:
+            check_empty_slot(what, out, args, shape, kind)
+    if not hasattr(pa, "split_plan"):
+        log("  (no split_plan in this tree: the forced split counts are not checked)")
+        return errs
+    for label, shape in SPLIT_CHECKS:
+        _, plain = paged_fns("w" in shape)
+        for kind, int8 in (("fp32", False), ("bf16", False), ("bf16", True)):
+            args, scales = paged_inputs(**shape, dtype=dtypes[kind], int8=int8, empty_slot=True, hole=True)
+            tiles = -(-args[4].shape[1] // pa.TILE)
+            ref = plain(*args, **scales)
+            for splits in sorted({1, 2, tiles}):
+                what = f"{label} {kind}{' int8' if int8 else ''} splits={splits}"
+                out = pa._launch(*args[:5], *args[6:], scales.get("pool_k_scale"), scales.get("pool_v_scale"),
+                                 shape["d"] ** -0.5, splits=splits)
+                torch.cuda.synchronize()
+                check_close(what, out, ref, TOL[("paged", kind)])
+                twin = pa.paged_attention_split_reference(*args, **scales, splits=splits)
+                check_close(f"{what} vs split twin", out, twin, TOL[("paged", kind)])
+                check_empty_slot(what, out, args, shape, kind)
+    if any(int(c.abs().sum()) for c in pa._COUNTERS.values()):
+        fail("paged kernels left a ticket counter other than 0")
     return errs
 
 
@@ -805,6 +864,58 @@ def new_spec_server(target, draft, impl):
                                             decode_impl=impl, **SPEC)
 
 
+def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: float, name: str) -> None:
+    """Fault or near-tie: for each request, the first position where the
+    speculative server's greedy tokens and the plain paged server's differ,
+    and there the target's logits recomputed on the common prefix by another
+    program, the dense cache path (``prefill`` of the request, then
+    ``decode_step`` teacher-forced with the common tokens, 8 requests at a
+    time): the top-2 gap and the gap between the two servers' tokens, set
+    against ``logit_err``, the largest |kernel - gathered| verify logit
+    difference of one admitted state."""
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.models.qwen2 import init_kv_cache
+
+    first = {}
+    for rid in sorted(spec_out):
+        diff = [i for i, (x, y) in enumerate(zip(spec_out[rid], plain_out[rid])) if x != y]
+        if diff:
+            first[rid] = diff[0]
+    rows = []
+    div = sorted(first)
+    for c in range(0, len(div), 8):
+        chunk = div[c:c + 8]
+        ids, mask, images = (np.concatenate([reqs[rid][j] for rid in chunk]) for j in range(3))
+        steps = max(first[rid] for rid in chunk) + 1
+        with torch.no_grad():
+            cache = init_kv_cache(target.cfg.text, len(chunk), N_IMG + ids.shape[1] + steps, device="cuda")
+            logits, _, cache, _, _ = target.prefill(
+                torch.from_numpy(images).cuda(), torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(), cache)
+            for j in range(steps):
+                for i, rid in enumerate(chunk):
+                    if first[rid] == j:
+                        row = logits[i].float()
+                        top = row.topk(2).values
+                        a, b = spec_out[rid][j], plain_out[rid][j]
+                        rows.append(dict(request=rid, position=j, top2_gap=float(top[0] - top[1]),
+                                         token_gap=abs(float(row[a] - row[b])), dense_argmax=int(row.argmax()),
+                                         spec_token=int(a), plain_token=int(b)))
+                if j + 1 < steps:
+                    tok = torch.tensor([[plain_out[rid][j]] for rid in chunk], dtype=torch.int32, device="cuda")
+                    logits, cache = target.decode_step(tok, cache)
+    for r in rows:
+        log(f"  {name} vs plain, request {r['request']}: first differs at {r['position']}, top-2 gap "
+            f"{r['top2_gap']:.4f}, gap between the two tokens {r['token_gap']:.4f} (dense path picks "
+            f"{r['dense_argmax']}; {r['spec_token']} / {r['plain_token']})")
+    within = sum(r["token_gap"] <= logit_err for r in rows)
+    summary = dict(requests=len(spec_out), diverged=len(rows), within_logit_err=within, logit_err=logit_err,
+                   max_token_gap=max((r["token_gap"] for r in rows), default=None),
+                   median_top2_gap=statistics.median([r["top2_gap"] for r in rows]) if rows else None)
+    log(f"  {name}: {json.dumps(summary)}")
+
+
 def phase_speculative(draft_self, profile_dir: Path | None = None):
     import torch
 
@@ -830,8 +941,9 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     kernel_logits, gathered_logits = server.verify_logits("kernel").float(), server.verify_logits("gathered").float()
     rel = float((kernel_logits - gathered_logits).norm() / gathered_logits.norm())
     agree = float((kernel_logits.argmax(-1) == gathered_logits.argmax(-1)).float().mean())
+    logit_err = float((kernel_logits - gathered_logits).abs().max())
     log(f"  kernel vs gathered verify logits from one admitted state: rel_l2={rel:.3e} "
-        f"(limit {SERVE_LOGITS_REL_L2:g}), same argmax in {agree:.3f} of window rows")
+        f"(limit {SERVE_LOGITS_REL_L2:g}), max |difference| {logit_err:.4f}, same argmax in {agree:.3f} of window rows")
     if not rel <= SERVE_LOGITS_REL_L2:
         fail(f"kernel verify differs from the gathered verify: rel_l2={rel:.3e}")
     del server
@@ -868,6 +980,8 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
         log(f"  greedy tokens identical between {name} and the plain paged server: "
             f"{same_tokens(outputs[name], plain_out):.4f}")
     summaries["plain_7b"] = plain_summary
+    for name in ("spec_kernel", "spec_gathered"):
+        divergence_report(target, reqs, outputs[name], plain_out, logit_err, name)
     del plain, target, draft, target_int8
     torch.cuda.empty_cache()
 
@@ -887,10 +1001,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
 def phase_timing(policy, plain, step):
     import torch
 
-    from vla_fastvlm_tpu_torch.ops.kernels import (
-        flash_attention, flash_attention_reference, flash_attention_streamed, paged_attention_decode,
-        paged_attention_decode_reference, paged_attention_window, paged_attention_window_reference,
-    )
+    from vla_fastvlm_tpu_torch.ops.kernels import flash_attention, flash_attention_reference, flash_attention_streamed
 
     log("[6/6] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
@@ -943,36 +1054,83 @@ def phase_timing(policy, plain, step):
             f"plain {time_ms(lambda: flash_attention_reference(q, k, v, mask, True), 3):.4f} ms, "
             f"bound {bound:.4f} ms ({by})")
 
-    # paged decode attention: one launch per layer and tick at the serving shape
-    for name, shape, int8 in (("paged_attention", PAGED_MAIN, False), ("paged_attention_int8", PAGED_MAIN, True),
-                              ("paged_attention d128", PAGED_7B, False), ("paged_attention_int8 d128", PAGED_7B, True)):
-        args, scales = paged_inputs(**shape, dtype=torch.bfloat16, int8=int8)
-        out = paged_attention_decode(*args, **scales)
-        bound, by = paged_bound_ms(args, scales, out)
-        r = dict(ms=time_ms(lambda: paged_attention_decode(*args, **scales), 50),
-                 plain_ms=time_ms(lambda: paged_attention_decode_reference(*args, **scales), 20),
-                 library_ms=None, bound_ms=bound, bound_by=by)
-        results[name] = r
-        log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x{DECODER_LAYERS} per tick")
-
-    # verify window (W = k + 1): one launch per target layer and round; the
-    # 7B verify shape is the main path's, the 0.5B heads' shape is logged.
-    for name, shape, int8 in (("paged_attention_window", WINDOW_7B, False),
-                              ("paged_attention_window_int8", WINDOW_7B, True),
-                              ("paged_attention_window 0.5B heads", WINDOW_MAIN, False),
-                              ("paged_attention_window_int8 0.5B heads", WINDOW_MAIN, True)):
-        args, scales = paged_inputs(**shape, dtype=torch.bfloat16, int8=int8)
-        out = paged_attention_window(*args, **scales)
-        bound, by = paged_bound_ms(args, scales, out)
-        r = dict(ms=time_ms(lambda: paged_attention_window(*args, **scales), 50),
-                 plain_ms=time_ms(lambda: paged_attention_window_reference(*args, **scales), 20),
-                 library_ms=None, bound_ms=bound, bound_by=by)
-        results[name] = r
-        log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
-            f"plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x{TARGET_LAYERS} per round at 7B")
-
+    results.update(time_paged(sweep=False))
     results["repmixer_block"] = time_repmixer()
+    return results
+
+
+# The 8 paged shapes timed, bf16 queries: (name, shape, int8 pools). The
+# decode tick's (one launch per layer and tick) at the 0.5B serving shape and
+# with the 7B decoder's heads; the verify window's (one launch per target
+# layer and round) at the 7B verify shape, the main path's, and with the
+# 0.5B heads.
+PAGED_TIMED = [("paged_attention", PAGED_MAIN, False), ("paged_attention_int8", PAGED_MAIN, True),
+               ("paged_attention d128", PAGED_7B, False), ("paged_attention_int8 d128", PAGED_7B, True),
+               ("paged_attention_window", WINDOW_7B, False), ("paged_attention_window_int8", WINDOW_7B, True),
+               ("paged_attention_window 0.5B heads", WINDOW_MAIN, False),
+               ("paged_attention_window_int8 0.5B heads", WINDOW_MAIN, True)]
+SWEEP_SPLITS = (1, 2, 3, 6)
+
+
+def kernel_alone(args, scales, splits=None):
+    """The paged kernel's launch alone: mask and tables already int32, so
+    the wrapper converts nothing. A launcher that takes gathered (B, K, S)
+    int8 scale windows (the kernels before the split design, which have no
+    ``split_plan``) gets them gathered beforehand."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
+
+    q, pk, pv, tables, mask, _, kn, vn = args
+    t32, m32 = tables.to(torch.int32).contiguous(), mask.to(torch.int32).contiguous()
+    ks, vs = scales.get("pool_k_scale"), scales.get("pool_v_scale")
+    scale = q.shape[-1] ** -0.5
+    if hasattr(pa, "split_plan"):
+        return lambda: pa._launch(q, pk, pv, t32, m32, kn, vn, ks, vs, scale, splits=splits)
+    windows = {} if ks is None else {id(ks): pa.scale_window(ks, t32), id(vs): pa.scale_window(vs, t32)}
+
+    def call():
+        gather = pa.scale_window
+        pa.scale_window = lambda pool, _tables: windows[id(pool)]
+        try:
+            return pa._launch(q, pk, pv, t32, m32, kn, vn, ks, vs, scale)
+        finally:
+            pa.scale_window = gather
+
+    return call
+
+
+def time_paged(sweep: bool) -> dict:
+    """At each of PAGED_TIMED's shapes: the wrapper call (inputs as
+    ``paged_inputs`` makes them: a bool mask), the kernel's launch alone
+    (``ms``), the plain version and the bound; with ``sweep`` also the
+    kernel alone at each of SWEEP_SPLITS parts the window has tiles for."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
+
+    results = {}
+    for name, shape, int8 in PAGED_TIMED:
+        args, scales = paged_inputs(**shape, dtype=torch.bfloat16, int8=int8)
+        wrapper, plain = paged_fns("w" in shape)
+        out = wrapper(*args, **scales)
+        bound, by = paged_bound_ms(args, scales, out)
+        r = dict(ms=time_ms(kernel_alone(args, scales), 50), wrapper_ms=time_ms(lambda: wrapper(*args, **scales), 50),
+                 plain_ms=time_ms(lambda: plain(*args, **scales), 20), library_ms=None, bound_ms=bound, bound_by=by)
+        extra = ""
+        if hasattr(pa, "split_plan"):
+            b, p_slot = args[3].shape
+            r["splits"] = pa.split_plan(b, shape["kh"], p_slot, args[1].shape[2], shape.get("w", 1))
+            extra = f", {r['splits']} parts"
+            if sweep:
+                tiles = -(-args[4].shape[1] // pa.TILE)
+                r["ms_by_splits"] = {s: time_ms(kernel_alone(args, scales, s), 50) for s in SWEEP_SPLITS if s <= tiles}
+                extra += ", by parts " + ", ".join(f"{s}: {t:.4f}" for s, t in r["ms_by_splits"].items())
+        results[name] = r
+        per = (f"x{TARGET_LAYERS} per round at 7B" if "w" in shape
+               else f"x{TARGET_LAYERS} per 7B tick" if shape["d"] == 128 else f"x{DECODER_LAYERS} per 0.5B tick")
+        log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
+            f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}){extra}; {per}")
     return results
 
 
@@ -1044,10 +1202,11 @@ def main(argv=None) -> int:
     parser.add_argument("--profile", type=Path, default=None,
                         help="directory for torch.profiler tables of three policy steps and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
-    parser.add_argument("--only", choices=["repmixer"], default=None,
-                        help="build, check and time one kernel and nothing else (repmixer: the "
-                             "RepMixer library, its checks against the plain version, its "
-                             "per-width times)")
+    parser.add_argument("--only", choices=["repmixer", "paged"], default=None,
+                        help="build, check and time one kernel family and nothing else (repmixer: "
+                             "the RepMixer library, its checks against the plain version, its "
+                             "per-width times; paged: the two paged-attention libraries, their "
+                             "checks, their times at the 8 paged shapes and by part count)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1073,6 +1232,18 @@ def main(argv=None) -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         log(json.dumps({"repmixer_block": dict(r, max_abs_err=err)}))
+        return 0
+    if args.only == "paged":
+        phase_build(("paged_attention", "paged_window"))
+        log("[2/6] paged-attention kernels against their plain versions")
+        errs = check_paged()
+        log("[6/6] paged-attention timing (CUDA graph replay between CUDA events)")
+        r = time_paged(sweep=True)
+        for name in errs:
+            r[name]["max_abs_err"] = errs[name]
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"paged": r}))
         return 0
     phase_s = {}
 
@@ -1132,6 +1303,7 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("wrapper_ms", "splits") if k in t},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

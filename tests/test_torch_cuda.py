@@ -159,12 +159,12 @@ def test_paged_kernel_matches_plain(cuda, d, int8, dtype, atol):
     torch.testing.assert_close(out[0].float(), args[7][0].float().repeat_interleave(7, dim=0), atol=atol, rtol=atol)
 
 
-def _window_inputs(b, w, n, kh, d, dtype, int8, device, seed=0):
+def _window_inputs(b, w, n, kh, d, dtype, int8, device, seed=0, p_slot=6):
     """``_paged_inputs``' slots with a W-token window at each cursor; pool
     rows at and past the cursor hold random values (a rejected suffix)."""
     from vla_fastvlm_tpu_torch.ops.quant import quantize_kv
 
-    args, scales = _paged_inputs(b, n, kh, d, dtype, int8, device, seed=seed, room=w)
+    args, scales = _paged_inputs(b, n, kh, d, dtype, int8, device, seed=seed, room=w, p_slot=p_slot)
     g = torch.Generator(device="cpu").manual_seed(seed + 1)
     q, kn, vn = (torch.randn(*shape, generator=g) for shape in ((b, w, n, d), (b, w, kh, d), (b, w, kh, d)))
     if int8:
@@ -189,6 +189,34 @@ def test_paged_window_kernel_matches_plain(cuda, w, d, int8, dtype, atol):
     # inactive slots (empty stored mask): window position 0 is its own new V row
     torch.testing.assert_close(out[0, 0].float(), args[7][0, 0].float().repeat_interleave(7, dim=0),
                                atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("w", [1, 5])
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_paged_kernels_at_forced_split_counts(cuda, w, splits, int8, dtype, atol):
+    """Both paged kernels with the stored window (4 tiles of 64) cut into 1, 2
+    and 4 parts, slot 1 with tile 1 masked whole (an all-masked split at 4):
+    one launch, the plain version's result and the split twin's, and every
+    ticket counter back at 0."""
+    from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
+
+    if w == 1:
+        args, scales = _paged_inputs(9, 14, 2, 64, dtype, int8, cuda, p_slot=16)
+    else:
+        args, scales = _window_inputs(9, w, 14, 2, 64, dtype, int8, cuda, p_slot=16)
+    args[4][1, 64:128] = False
+    reset_launch_counts()
+    out = pa._launch(*args[:5], *args[6:], scales.get("pool_k_scale"), scales.get("pool_v_scale"), 64 ** -0.5,
+                     splits=splits)
+    torch.cuda.synchronize()
+    assert sum(launch_counts().values()) == 1
+    plain = (paged_attention_decode_reference if w == 1 else paged_attention_window_reference)(*args, **scales)
+    torch.testing.assert_close(out.float(), plain.float(), atol=atol, rtol=atol)
+    twin = pa.paged_attention_split_reference(*args, **scales, splits=splits)
+    torch.testing.assert_close(out.float(), twin.float(), atol=atol, rtol=atol)
+    assert all(int(c.abs().sum()) == 0 for c in pa._COUNTERS.values())
 
 
 def test_paged_attention_window_on_the_card_launches_the_kernel(cuda):

@@ -9,6 +9,12 @@
   speculative verify window) against JAX ``paged_attention(impl="xla")`` and
   ``paged_attention_window(..., interpret=True)``, GQA 4/2 and 6/2, head_dim
   64 and 128, float and int8 pools, W 2 and 5, within 1e-5.
+- ``split_plan`` (the kernels' split of the stored window, from shapes
+  alone) and ``paged_attention_split_reference`` (the plain twin of the
+  kernels' split-and-merge arithmetic) against JAX
+  ``paged_attention_window(..., interpret=True)`` at W = 1 and 5, with 1, 2
+  and the most splits, a split whose positions are all masked, the empty
+  stored mask, inactive slots and int8 pools.
 - ``models``: ``prefill`` + ``decode_step`` and ``decode_step_paged`` logits
   of the tiny FastVLM, float and int8 caches, with the JAX weights carried
   over by the bridge.
@@ -42,7 +48,17 @@ from vla_fastvlm_tpu_torch.ops.kernels import (
     paged_attention_window,
     reset_launch_counts,
 )
-from vla_fastvlm_tpu_torch.ops.kernels.paged_attention import check_kernel_shapes, scale_window
+from vla_fastvlm_tpu_torch.ops.kernels.paged_attention import (
+    BLOCKS_PER_SM,
+    MAX_SPLITS,
+    SMS,
+    TILE,
+    check_kernel_shapes,
+    paged_attention_split_reference,
+    scale_window,
+    split_plan,
+    split_ranges,
+)
 
 from _torch_parity import jax_param_shapes, random_params, t
 
@@ -311,6 +327,141 @@ class TestPagedWindowPlainVersion:
             check_kernel_shapes(q, pk, pv, tables, mask, kn[:, :4], vn, None, None)
         with pytest.raises(ValueError, match="W <= 9"):  # W = 1 takes the decode kernel's layout
             check_kernel_shapes(q[:, :1], pk, pv, tables, mask, kn[:, :1], vn[:, :1], None, None)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' split of the stored window and its merge
+
+# (B, K, P_slot, page, W): the serving shapes (0.5B and 7B decode ticks, the
+# 7B verify round and the 0.5B heads' window) and this file's test shapes.
+PLAN_SHAPES = [(64, 2, 24, 16, 1), (16, 4, 24, 16, 1), (17, 4, 23, 16, 5), (65, 2, 23, 16, 5),
+               (3, 2, 3, 16, 1), (4, 2, 16, 16, 5), (1, 1, 512, 64, 1), (2, 2, 5, 4, 2)]
+
+
+class TestSplitPlan:
+    @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+    def test_plan_bounds_and_one_wave(self, shape):
+        b, kh, p_slot, page, w = shape
+        tiles = -(-p_slot * page // TILE)
+        splits = split_plan(b, kh, p_slot, page, w)
+        assert isinstance(splits, int) and 1 <= splits <= min(tiles, MAX_SPLITS)
+        wave = SMS * BLOCKS_PER_SM[w == 1]
+        # the launch fits one wave, or nothing smaller than one split exists
+        assert b * kh * (splits + 1) <= wave or splits == 1
+        # the most splits that do: the next whole-tile count would not fit
+        more = [s for s in (-(-tiles // per) for per in range(1, tiles + 1)) if s > splits]
+        if more and min(more) <= MAX_SPLITS:
+            assert b * kh * (min(more) + 1) > wave
+
+    def test_plan_at_the_serving_shapes(self):
+        assert split_plan(64, 2, 24, 16, 1) == 3  # 0.5B decode tick: 3 parts of 2 tiles, 512 blocks
+        assert split_plan(16, 4, 24, 16, 1) == 6  # 7B heads: one tile a part, 448 blocks
+        assert split_plan(17, 4, 23, 16, 5) == 3  # 7B verify window: 2 tiles a part, 272 blocks
+
+    @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
+    def test_every_tile_covered_once(self, shape):
+        b, kh, p_slot, page, w = shape
+        s_max = p_slot * page
+        tiles = -(-s_max // TILE)
+        for splits in sorted({1, 2, split_plan(b, kh, p_slot, page, w), min(tiles, MAX_SPLITS)}):
+            ranges = split_ranges(s_max, splits)
+            assert len(ranges) == splits
+            covered = [t for s0, s1 in ranges for t in range(s0, s1, TILE)]
+            assert covered == list(range(0, s_max, TILE))
+            assert all((s0 % TILE == 0 or s0 == s_max) and s0 <= s1 for s0, s1 in ranges)
+        # the plan leaves no split empty
+        assert all(s1 > s0 for s0, s1 in split_ranges(s_max, split_plan(b, kh, p_slot, page, w)))
+
+    def test_plan_reads_shapes_only(self):
+        import inspect
+
+        assert list(inspect.signature(split_plan).parameters) == ["b", "kh", "p_slot", "page", "w"]
+        assert split_plan(64, 2, 24, 16, 1) == split_plan(64, 2, 24, 16)
+
+
+def _setup_split(w, n=4, kv=2, d=64, page=16, p_slot=16, seed=0):
+    """Four tiles of 64 a slot. Slot 0: ragged through tile 3 with a pad hole;
+    slot 1: tiles 0 and 2 only (tile 1 masked whole: with one tile a split,
+    that split is all masked); slot 2: inactive (one-hot mask on the trash
+    page, as the servers run them); slot 3: 40 positions (every split past
+    the first all masked, its pages trash); slot 4: an empty stored mask.
+    Pool rows past each slot's valid positions hold random values."""
+    rng = np.random.default_rng(seed)
+    b, s_max, p_total = 5, p_slot * page, 5 * p_slot + 1
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, kn, vn = f(b, w, n, d), f(b, w, kv, d), f(b, w, kv, d)
+    pk, pv = f(p_total, kv, page, d), f(p_total, kv, page, d)
+    tables = np.zeros((b, p_slot), np.int32)
+    perm = rng.permutation(p_total - 1) + 1
+    mask = np.zeros((b, s_max), bool)
+    mask[0, :201] = True
+    mask[0, 150:170] = False
+    mask[1, :64] = True
+    mask[1, 128:181] = True
+    mask[2, 0] = True
+    mask[3, :40] = True
+    for i, used in ((0, 14), (1, 13), (3, 3), (4, 2)):
+        tables[i, :used] = perm[i * p_slot: i * p_slot + used]
+    lengths = np.array([201, 181, 1, 40, 0], np.int32)
+    return q, pk, pv, tables, mask, lengths, kn, vn
+
+
+_JAX_SPLIT = {}
+
+
+def _jax_split(w, int8):
+    """The case and JAX's interpret-mode kernel on it, once per (W, pools)."""
+    key = (w, int8)
+    if key not in _JAX_SPLIT:
+        args = _setup_split(w, seed=20 + w)
+        scales = None
+        if int8:
+            args, scales = _quantized(args)
+        kw = {} if scales is None else dict(pool_k_scale=jnp.asarray(scales[0]), pool_v_scale=jnp.asarray(scales[1]))
+        q, pk, pv, tables, mask, _, kn, vn = (jnp.asarray(a) for a in args)
+        interp = jpaged.paged_attention_window(q, pk, pv, tables, mask, kn, vn, interpret=True, **kw)
+        _JAX_SPLIT[key] = (args, scales, np.asarray(interp))
+    return _JAX_SPLIT[key]
+
+
+class TestSplitReference:
+    @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
+    @pytest.mark.parametrize("splits", [1, 2, "max"])
+    @pytest.mark.parametrize("w", [1, 5])
+    def test_matches_jax_interpret_kernel(self, w, splits, int8):
+        args, scales, interp = _jax_split(w, int8)
+        kw = {} if scales is None else dict(pool_k_scale=t(scales[0]), pool_v_scale=t(scales[1]))
+        q, pk, pv, tables, mask, lengths, kn, vn = [t(a) for a in args]
+        if w == 1:  # the decode kernel's layout
+            q, kn, vn = q[:, 0], kn[:, 0], vn[:, 0]
+        n_splits = -(-mask.shape[1] // TILE) if splits == "max" else splits
+        out = paged_attention_split_reference(q, pk, pv, tables, mask, lengths, kn, vn, splits=n_splits, **kw)
+        out = out.numpy() if w > 1 else out[:, None].numpy()
+        assert np.isfinite(out).all()
+        tol = ATOL if w == 1 else WINDOW_ATOL
+        np.testing.assert_allclose(out, interp, atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("w", [1, 5])
+    def test_empty_stored_mask_is_the_new_rows(self, w):
+        """Slot 4 stores nothing: every split is the neutral part, with weight 0,
+        so window position 0 is exactly its new V row."""
+        args = [t(a) for a in _setup_split(w, seed=30)]
+        q, pk, pv, tables, mask, lengths, kn, vn = args
+        if w == 1:
+            q, kn, vn = q[:, 0], kn[:, 0], vn[:, 0]
+        for splits in (1, 2, 4):
+            out = paged_attention_split_reference(q, pk, pv, tables, mask, lengths, kn, vn, splits=splits)
+            first = out[4] if w == 1 else out[4, 0]
+            v0 = vn[4] if w == 1 else vn[4, 0]
+            np.testing.assert_allclose(first.numpy(), np.repeat(v0.numpy(), 2, axis=0), atol=1e-6, rtol=1e-6)
+
+    def test_split_count_changes_only_rounding_order(self):
+        """fp32: any split count gives the gathered plain version's result."""
+        args = [t(a) for a in _setup_split(5, seed=31)]
+        ref = paged_attention(*args, impl="xla").numpy()
+        for splits in (1, 2, 3, 4, 7):
+            out = paged_attention_split_reference(*args, splits=splits).numpy()
+            np.testing.assert_allclose(out, ref, atol=WINDOW_ATOL, rtol=WINDOW_ATOL)
 
 
 # ---------------------------------------------------------------------------

@@ -15,45 +15,52 @@
 //     pools); the new column's share stays fp32;
 //   - int8 pools: pages convert int8 -> float exactly; the per-(position, KV
 //     head) K scales multiply the scores and the V scales the probabilities.
-//     The scale windows (B, K, S_max) are gathered outside the kernel, as in
-//     the Pallas launcher, and k_new / v_new arrive dequant-roundtripped.
+//     The kernel reads the scales through the page table from the
+//     (P_total, K, page) float32 scale pools; k_new / v_new arrive
+//     dequant-roundtripped.
 //
-// The TPU kernel stages a slot's whole window and runs one softmax; this one
-// walks the window in tiles with an online softmax, so the probabilities are
-// rounded relative to the running maximum and normalized at the end. The
-// function is the same; summation order and the rounding points of P differ
-// by a per-row factor.
+// The TPU kernel stages a slot's whole window and runs one softmax. Here the
+// stored window is split across blocks (paged_split.cuh): each split runs an
+// online softmax over its tiles and rounds its probabilities relative to its
+// own running maximum; the parts are merged in a fixed order and normalised
+// at the end. The function is the same; summation order and the rounding
+// points of P differ by a per-row factor.
 //
 // Bound on this card: bytes. A decode tick reads every valid page of every
 // slot once per layer and does 4 * D FLOP per (query row, position): at the
 // serving shape (64 slots, 14 heads over 2 KV heads, D = 64, windows of 24
-// pages of 16) that is about 10 MB against 0.04 GFLOP a launch, ~3 us at
-// 3.35 TB/s. Design: one block of 4 warps per (slot, KV head), 128 blocks at
-// that shape against 132 SMs. The block reads its own page ids from the table
-// (the TPU's scalar prefetch) and walks the window 64 positions at a time:
-// the tile's K/V pages are staged in shared memory (a page whose mask is all
-// 0 is not read, a tile with no valid position is skipped), each warp takes
-// query rows warp, warp + 4, ... of the KV head's rep rows with one position
-// per lane for Q.K and one slice of D per lane for P.V. Nothing is pipelined
-// and S is not split across blocks; both are later work.
+// pages of 16) about 10 MB against 0.04 GFLOP a launch, ~3.2 us at
+// 3.35 TB/s. What held the one-block-per-(slot, KV head) design at 13x that
+// bound was a serial chain, not bandwidth: 128 blocks on 132 SMs, each
+// walking 6 tiles one after another with synchronous loads. Design: a
+// (B, K, splits + 1) grid, splits from the shapes alone
+// (ops/kernels/paged_attention.py::split_plan: 3 parts of 2 tiles at the
+// 0.5B serving shape, 6 of one tile with the 7B heads); a block reads its
+// tile's mask and page ids in one round trip (the query rows' cp.async in
+// flight beside it) and the valid pages' K / V rows by cp.async in the next
+// (a page with no valid position is not read, a tile with none is skipped).
+// Warp w owns 16 of the tile's positions: for Q.K each lane takes one
+// position and half of D for every query row of the KV head, the halves
+// summed by a shuffle, so a K row converts once; the block's running maximum
+// comes from the warps' maxima through shared memory; for P.V each lane owns
+// D / 32 columns over the warp's 16 positions, and the warps' sums meet in
+// shared memory at the end of the split. The arithmetic runs on CUDA cores
+// and is what a block mostly waits on once its pages have landed (the
+// instructions, not the bytes). Block z == splits writes the new column's
+// part (m = q.k_new * scale, l = 1, o = v_new in fp32); the block with the
+// last ticket merges the parts.
 
-#include "mma_tiles.cuh"
+#include "paged_split.cuh"
 
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
+#include <algorithm>
 
 using namespace mma_tiles;
+using namespace paged_split;
 
 namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
-constexpr int TP = 64;           // window positions per tile (whole pages)
-constexpr int ROW_PAD = 16;      // bytes of padding per staged row against bank conflicts
-constexpr float MASKED = -1e30f;
-
-__host__ __device__ constexpr size_t align16(size_t x) { return (x + 15) & ~size_t(15); }
 
 // Eight consecutive pool elements (16-byte aligned for bf16/fp32, 8 for int8) as floats.
 __device__ __forceinline__ void load8(const bf16* p, float (&f)[8]) {
@@ -73,300 +80,329 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
 }
 __device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[i] = (float)(int8_t)((u.x >> (8 * i)) & 0xff);
-    f[4 + i] = (float)(int8_t)((u.y >> (8 * i)) & 0xff);
-  }
+  int8x4_to_float(u.x, f);
+  int8x4_to_float(u.y, f + 4);
 }
 
-__device__ __forceinline__ float elem(const bf16* p, int i) { return __bfloat162float(p[i]); }
-__device__ __forceinline__ float elem(const float* p, int i) { return p[i]; }
-__device__ __forceinline__ float elem(const int8_t* p, int i) { return (float)p[i]; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
-// Shared-memory layout, shared by the host launcher and the kernel.
+// DPL consecutive pool elements (D / 32 per lane: 2 or 4) as floats.
+template <int DPL>
+__device__ __forceinline__ void load_cols(const bf16* p, float (&f)[DPL]) {
+  if constexpr (DPL == 2) {
+    const float2 v = unpack(*reinterpret_cast<const uint32_t*>(p));
+    f[0] = v.x;
+    f[1] = v.y;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = unpack(u.x), b = unpack(u.y);
+    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
+  }
+}
+template <int DPL>
+__device__ __forceinline__ void load_cols(const float* p, float (&f)[DPL]) {
+#pragma unroll
+  for (int e = 0; e < DPL; ++e) f[e] = p[e];
+}
+template <int DPL>
+__device__ __forceinline__ void load_cols(const int8_t* p, float (&f)[DPL]) {
+  if constexpr (DPL == 4) {
+    int8x4_to_float(*reinterpret_cast<const uint32_t*>(p), f);
+  } else {
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) f[e] = (float)p[e];
+  }
+}
+
+// Shared-memory layout, shared by the host launcher and the kernel: the
+// staged tile (K, V rows of the pool dtype), the query rows raw and as
+// floats, each warp's rounded probabilities, each warp's tile maxima, and
+// the tile's mask, page ids and scales. The split's closing sum across warps
+// and the merge reuse the start (the tile is no longer needed then).
 struct Layout {
-  size_t ks, vs, qs, ps, mk, sc, total;
+  size_t ks, vs, qraw, qf, pw, red, meta, total;
   int ld;  // staged row stride in bytes
-  __host__ __device__ Layout(int pool_esz, int d, int rep, int rpw) {
-    ld = d * pool_esz + ROW_PAD;
+  __host__ __device__ Layout(int esz, int pool_esz, int d, int rep, int rep_max) {
+    ld = d * pool_esz + 16;
     ks = 0;
-    vs = align16((size_t)TP * ld);
-    qs = vs + align16((size_t)TP * ld);
-    ps = qs + align16((size_t)rep * d * sizeof(float));
-    mk = ps + align16((size_t)WARPS * rpw * TP * sizeof(float));
-    sc = mk + align16((size_t)2 * TP * sizeof(int));          // mask, then page ids of the tile
-    total = sc + align16((size_t)2 * TP * sizeof(float));      // K scales, V scales (int8 pools)
+    vs = align128((size_t)TP * ld);
+    qraw = vs + align128((size_t)TP * ld);
+    qf = qraw + align128((size_t)rep * d * esz);
+    pw = qf + align128((size_t)rep * d * sizeof(float));
+    red = pw + align128((size_t)WARPS * rep_max * 16 * sizeof(float));
+    meta = red + align128((size_t)WARPS * rep_max * sizeof(float));
+    total = meta + TileSmem::meta_bytes();
   }
 };
 
 // T: query / output / value dtype; P: pool element (T, or int8_t with scales).
-// RPW: query rows per warp (rep <= 4 * RPW; instantiated for rep <= 8, which
-// covers the 0.5B / 1.5B / 7B decoders' 7, 6 and 7).
-template <typename T, typename P, int D, int RPW>
+// REP: query rows a KV head, at most (instantiated for 4 and 8; 8 covers the
+// 0.5B / 1.5B / 7B decoders' 7, 6 and 7).
+template <typename T, typename P, int D, int REP>
 __global__ void __launch_bounds__(THREADS)
 paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const P* __restrict__ pool_v,
                     const int* __restrict__ tables, const int* __restrict__ mask,
                     const T* __restrict__ k_new, const T* __restrict__ v_new,
-                    const float* __restrict__ kscale, const float* __restrict__ vscale,
-                    T* __restrict__ out, int N, int KH, int page, int P_slot, float scale) {
+                    const float* __restrict__ ksc_pool, const float* __restrict__ vsc_pool,
+                    T* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
+                    int* __restrict__ counters, int N, int KH, int page, int P_slot, int splits, float scale) {
   constexpr bool INT8 = sizeof(P) == 1;
   constexpr int DPL = D / 32;  // output columns per lane
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int rep = N / KH;
-  const int S = P_slot * page;
-  const Layout L(sizeof(P), D, rep, RPW);
-  unsigned char* ks = smem + L.ks;
-  unsigned char* vs = smem + L.vs;
-  float* qs = reinterpret_cast<float*>(smem + L.qs);
-  float* ps = reinterpret_cast<float*>(smem + L.ps);
-  int* mk = reinterpret_cast<int*>(smem + L.mk);
-  int* pid = mk + TP;  // physical page of each page of the tile, -1 when not read
-  float* kss = reinterpret_cast<float*>(smem + L.sc);
-  float* vss = kss + TP;
-
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int b = blockIdx.x, kvh = blockIdx.y, z = blockIdx.z;
+  const int rep = N / KH, S = P_slot * page, bk = b * KH + kvh;
+  const Parts ws{ws_o, ws_ml, splits + 1, rep};
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int* table = tables + (size_t)b * P_slot;
-  const int* mrow = mask + (size_t)b * S;
-
-  // This KV head's rep query rows, as floats.
   const T* qb = q + ((size_t)b * N + (size_t)kvh * rep) * D;
-  for (int i = tid; i < rep * D; i += THREADS) qs[i] = to_f(qb[i]);
+  float* po = ws.o_of(bk, z, D);
+  float* pml = ws.ml_of(bk, z);
+  mark(MARK_START);
 
-  float m_run[RPW], l_run[RPW], o[RPW][DPL];
+  if (z == splits) {
+    // The new token's column as its own part: its share stays fp32.
+    const size_t nb = ((size_t)b * KH + kvh) * D + lane * DPL;
+    float kn[DPL], vn[DPL];
 #pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) o[i][e] = 0.0f;
-  }
-
-  const int pages_per_tile = page < TP ? TP / page : 1;
-  constexpr int CHUNK = 16 / sizeof(P) < 8 ? 16 / sizeof(P) : 8;  // elements per staging copy
-  const int chunks_per_row = D / CHUNK;
-  float* my_ps = ps + (size_t)warp * RPW * TP;
-
-  for (int t0 = 0; t0 < S; t0 += TP) {
-    const int n_pos = min(TP, S - t0);
-    // 1. mask of the tile; which of its pages hold a valid position
-    for (int i = tid; i < TP; i += THREADS) mk[i] = i < n_pos ? mrow[t0 + i] : 0;
-    __syncthreads();
-    int valid_page = 0;
-    if (tid < pages_per_tile) {
-      const int first = tid * page;
-      for (int i = first; i < first + page && i < n_pos; ++i) valid_page |= mk[i] != 0;
-      pid[tid] = valid_page ? table[(t0 + first) / page] : -1;
+    for (int e = 0; e < DPL; ++e) {
+      kn[e] = to_f(k_new[nb + e]);
+      vn[e] = to_f(v_new[nb + e]);
     }
-    if (!__syncthreads_or(valid_page)) continue;  // nothing valid in this tile
+    for (int r = warp; r < rep; r += WARPS) {
+      float part = 0.0f;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) part = fmaf(to_f(qb[r * D + lane * DPL + e]), kn[e], part);
+      const float l_new = warp_sum(part) * scale;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) po[r * D + lane * DPL + e] = vn[e];
+      if (lane == 0) {
+        pml[2 * r] = l_new;
+        pml[2 * r + 1] = 1.0f;
+      }
+    }
+  } else {
+    const Layout L(sizeof(T), sizeof(P), D, rep, REP);
+    T* qraw = reinterpret_cast<T*>(smem + L.qraw);
+    float* qf = reinterpret_cast<float*>(smem + L.qf);
+    float* pw = reinterpret_cast<float*>(smem + L.pw) + warp * REP * 16;
+    float* red = reinterpret_cast<float*>(smem + L.red);
+    int* meta = reinterpret_cast<int*>(smem + L.meta);
+    const TileSmem sm{smem + L.ks, smem + L.vs, L.ld, meta, meta + TP,
+                      reinterpret_cast<float*>(meta + 2 * TP), reinterpret_cast<float*>(meta + 3 * TP)};
+    const int* table = tables + (size_t)b * P_slot;
+    const int* mrow = mask + (size_t)b * S;
 
-    // 2. stage the valid pages' K/V rows (zeros for the others) and the scales
-    for (int i = tid; i < TP * chunks_per_row; i += THREADS) {
-      const int r = i / chunks_per_row, c = (i % chunks_per_row) * CHUNK;
-      const int pg = pid[r / page];
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (r < n_pos && pg >= 0) {
-        const size_t off = (((size_t)pg * KH + kvh) * page + (t0 + r) % page) * D + c;
-        if (CHUNK * sizeof(P) == 16) {
-          kv = *reinterpret_cast<const uint4*>(pool_k + off);
-          vv = *reinterpret_cast<const uint4*>(pool_v + off);
-        } else {  // int8: 8 bytes
-          const uint2 k2 = *reinterpret_cast<const uint2*>(pool_k + off);
-          const uint2 v2 = *reinterpret_cast<const uint2*>(pool_v + off);
-          kv = make_uint4(k2.x, k2.y, 0u, 0u);
-          vv = make_uint4(v2.x, v2.y, 0u, 0u);
+    // This KV head's rep query rows, by cp.async in flight beside the first tile's mask.
+    for (int i = tid; i < rep * D * (int)sizeof(T) / 16; i += THREADS)
+      cp_async16(reinterpret_cast<unsigned char*>(qraw) + i * 16, reinterpret_cast<const unsigned char*>(qb) + i * 16);
+    cp_async_commit();
+
+    // Warp w owns tile positions 16 w .. 16 w + 15: lane (pl, half) takes
+    // position 16 w + pl and half of D for Q.K, and D / 32 columns for P.V.
+    // The running maximum is the block's (every thread holds it); l and o
+    // are this warp's, summed across warps at the end.
+    const int pl = lane & 15, half = lane >> 4, s = 16 * warp + pl;
+    float m_run[REP], l_run[REP], o[REP][DPL];
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      m_run[r] = -INFINITY;
+      l_run[r] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) o[r][e] = 0.0f;
+    }
+
+    bool q_ready = false;
+    int s0, s1;
+    split_range(S, splits, z, s0, s1);
+    walk<P, D>(sm, pool_k, pool_v, ksc_pool, vsc_pool, table, mrow, S, s0, s1, KH, kvh, page, [&](int n_pos) {
+      if (!q_ready) {  // the query rows as floats, once
+        for (int i = tid; i < rep * D; i += THREADS) qf[i] = to_f(qraw[i]);
+        __syncthreads();
+        q_ready = true;
+      }
+
+      // Q.K over this lane's half of D, then the halves summed
+      float x[REP];  // Q.K, then the logits
+#pragma unroll
+      for (int r = 0; r < REP; ++r) x[r] = 0.0f;
+      const P* krow = reinterpret_cast<const P*>(sm.k + (size_t)s * L.ld) + half * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; c += 8) {
+        float kf[8];
+        load8(krow + c, kf);
+#pragma unroll
+        for (int r = 0; r < REP; ++r) {
+          if (r >= rep) break;
+          float qv[8];
+          load8(qf + r * D + half * (D / 2) + c, qv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) x[r] = fmaf(qv[e], kf[e], x[r]);
         }
       }
-      unsigned char* kd = ks + (size_t)r * L.ld + c * sizeof(P);
-      unsigned char* vd = vs + (size_t)r * L.ld + c * sizeof(P);
-      if (CHUNK * sizeof(P) == 16) {
-        *reinterpret_cast<uint4*>(kd) = kv;
-        *reinterpret_cast<uint4*>(vd) = vv;
-      } else {
-        *reinterpret_cast<uint2*>(kd) = make_uint2(kv.x, kv.y);
-        *reinterpret_cast<uint2*>(vd) = make_uint2(vv.x, vv.y);
+      const bool in_tile = s < n_pos, valid = in_tile && sm.mk[s] != 0;
+      const float kscl = INT8 && in_tile ? sm.kss[s] : 1.0f;
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        const float dot = x[r] + __shfl_xor_sync(0xffffffffu, x[r], 16);
+        x[r] = in_tile ? (valid ? dot * scale * kscl : MASKED) : -INFINITY;
+        float mx = x[r];
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        if (lane == 0 && r < rep) red[warp * REP + r] = mx;
       }
-    }
-    if (INT8) {
-      const size_t base = ((size_t)b * KH + kvh) * S + t0;
-      for (int i = tid; i < TP; i += THREADS) {
-        kss[i] = i < n_pos ? kscale[base + i] : 0.0f;
-        vss[i] = i < n_pos ? vscale[base + i] : 0.0f;
+      __syncthreads();
+
+      // online softmax: the block's tile maximum, rounded probabilities of this warp's positions
+      const float vscl = INT8 && in_tile ? sm.vss[s] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < REP; ++r) {
+        if (r >= rep) break;
+        float m_new = m_run[r];
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) m_new = fmaxf(m_new, red[w * REP + r]);
+        const float alpha = expf(m_run[r] - m_new);
+        m_run[r] = m_new;
+        const float p = expf(x[r] - m_new);
+        l_run[r] = l_run[r] * alpha + (half == 0 ? p : 0.0f);
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) o[r][e] *= alpha;
+        if (half == 0) pw[r * 16 + pl] = round_to<T>(INT8 ? p * vscl : p);
       }
+      __syncwarp();
+
+      // P.V over this warp's 16 positions: lane owns columns lane * DPL .. + DPL
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        float2 p2[REP];
+#pragma unroll
+        for (int r = 0; r < REP; ++r)
+          if (r < rep) p2[r] = *reinterpret_cast<const float2*>(pw + r * 16 + j);
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const P* vrow = reinterpret_cast<const P*>(sm.v + (size_t)(16 * warp + j + jj) * L.ld) + lane * DPL;
+          float vf[DPL];
+          load_cols<DPL>(vrow, vf);
+#pragma unroll
+          for (int r = 0; r < REP; ++r) {
+            if (r >= rep) break;
+            const float pv = jj == 0 ? p2[r].x : p2[r].y;
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) o[r][e] = fmaf(pv, vf[e], o[r][e]);
+          }
+        }
+      }
+    });
+    cp_async_wait<0>();  // the query rows, when no tile was staged
+
+    // this split's part (neutral when no tile held a valid position): the
+    // warps' l and o summed in warp order through shared memory (the tile's)
+    float* red_o = reinterpret_cast<float*>(smem);
+    float* red_l = red_o + WARPS * REP * D;
+#pragma unroll
+    for (int r = 0; r < REP; ++r) {
+      if (r >= rep) break;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) red_o[(warp * REP + r) * D + lane * DPL + e] = o[r][e];
+      const float l = warp_sum(l_run[r]);
+      if (lane == 0) red_l[warp * REP + r] = l;
     }
     __syncthreads();
-
-    // 3. logits of this warp's rows at positions lane and lane + 32
-    float acc[RPW][2];
+    for (int i = tid; i < rep * D; i += THREADS) {
+      const int r = i / D;
+      float sum = 0.0f;
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) acc[i][0] = acc[i][1] = 0.0f;
-#pragma unroll 2
-    for (int d0 = 0; d0 < D; d0 += 8) {
-      float kf[2][8];
-      load8(reinterpret_cast<const P*>(ks + (size_t)lane * L.ld) + d0, kf[0]);
-      load8(reinterpret_cast<const P*>(ks + (size_t)(lane + 32) * L.ld) + d0, kf[1]);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const int r = warp + WARPS * i;
-        if (r >= rep) break;
-        const float4 qa = *reinterpret_cast<const float4*>(qs + r * D + d0);
-        const float4 qb4 = *reinterpret_cast<const float4*>(qs + r * D + d0 + 4);
-        const float qf[8] = {qa.x, qa.y, qa.z, qa.w, qb4.x, qb4.y, qb4.z, qb4.w};
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[i][j] = fmaf(qf[e], kf[j][e], acc[i][j]);
-      }
+      for (int w = 0; w < WARPS; ++w) sum += red_o[(w * REP + r) * D + i % D];
+      po[i] = sum;
     }
-
-    // 4. online softmax per row; rounded probabilities to shared memory
+    // Every thread holds each row's m; thread r writes row r's (m, l).
 #pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      const int r = warp + WARPS * i;
-      if (r >= rep) break;
-      float x[2];
+    for (int r = 0; r < REP; ++r)
+      if (tid == r && r < rep) {
+        float l = 0.0f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int s = lane + 32 * j;
-        float v = acc[i][j] * scale;
-        if (INT8) v *= kss[s];
-        x[j] = s < n_pos ? (mk[s] != 0 ? v : MASKED) : -INFINITY;
+        for (int w = 0; w < WARPS; ++w) l += red_l[w * REP + r];
+        pml[2 * r] = m_run[r];
+        pml[2 * r + 1] = l;
       }
-      const float m_new = fmaxf(m_run[i], warp_max(fmaxf(x[0], x[1])));
-      const float alpha = expf(m_run[i] - m_new);
-      float p[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) p[j] = expf(x[j] - m_new);
-      l_run[i] = l_run[i] * alpha + warp_sum(p[0] + p[1]);
-      m_run[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) o[i][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int s = lane + 32 * j;
-        const float pv = INT8 ? p[j] * vss[s] : p[j];
-        my_ps[i * TP + s] = round_to<T>(pv);
-      }
-    }
-    __syncwarp();
-
-    // 5. P.V: lane owns columns lane * DPL .. + DPL
-    for (int s = 0; s < n_pos; ++s) {
-      const P* vrow = reinterpret_cast<const P*>(vs + (size_t)s * L.ld) + lane * DPL;
-      float vf[DPL];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) vf[e] = elem(vrow, e);
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        if (warp + WARPS * i >= rep) break;
-        const float pv = my_ps[i * TP + s];
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) o[i][e] = fmaf(pv, vf[e], o[i][e]);
-      }
-    }
-    __syncthreads();  // before the next tile overwrites the staged pages and the mask
   }
 
-  // 6. the new token's column, then normalize and store
-  const size_t nb = ((size_t)b * KH + kvh) * D + lane * DPL;
-  float kn[DPL], vn[DPL];
-#pragma unroll
-  for (int e = 0; e < DPL; ++e) {
-    kn[e] = to_f(k_new[nb + e]);
-    vn[e] = to_f(v_new[nb + e]);
-  }
-#pragma unroll
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp + WARPS * i;
-    if (r >= rep) break;
-    float part = 0.0f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) part = fmaf(qs[r * D + lane * DPL + e], kn[e], part);
-    const float l_new = warp_sum(part) * scale;
-    const float m_fin = fmaxf(m_run[i], l_new);
-    const float alpha = expf(m_run[i] - m_fin);
-    const float p_new = expf(l_new - m_fin);
-    const float inv = 1.0f / (l_run[i] * alpha + p_new);
-    T* dst = out + ((size_t)b * N + (size_t)kvh * rep + r) * D + lane * DPL;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) dst[e] = from_f<T>(o[i][e] * alpha * inv + (p_new * inv) * vn[e]);
-  }
+  if (!last_ticket(counters + bk, splits + 1)) return;
+  merge_parts<T, D, (D + 63) / 64>(ws, bk, out, b, kvh, 1, N, rep, smem);
 }
 
-template <typename T, typename P, int D, int RPW>
-int launch(const void* q, const void* pk, const void* pv, const void* tables, const void* mask,
-           const void* kn, const void* vn, const void* ksc, const void* vsc, void* out, int B, int N,
-           int KH, int page, int P_slot, float scale, cudaStream_t stream) {
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t smem = Layout(sizeof(P), D, N / KH, RPW).total;
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, P, D, RPW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <typename T, typename P, int D, int REP>
+int launch(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
+           const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
+           int B, int N, int KH, int page, int P_slot, int splits, float scale, int dev, cudaStream_t stream) {
+  static size_t allowed[MAX_DEVICES] = {};
+  const size_t smem = std::max(Layout(sizeof(T), sizeof(P), D, N / KH, REP).total, merge_smem(splits + 1, N / KH, D));
+  const cudaError_t err = allow_smem(paged_decode_kernel<T, P, D, REP>, allowed, dev, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KH);
-  paged_decode_kernel<T, P, D, RPW><<<grid, THREADS, smem, stream>>>(
+  dim3 grid(B, KH, splits + 1);
+  paged_decode_kernel<T, P, D, REP><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(pk), static_cast<const P*>(pv),
       static_cast<const int*>(tables), static_cast<const int*>(mask), static_cast<const T*>(kn),
       static_cast<const T*>(vn), static_cast<const float*>(ksc), static_cast<const float*>(vsc),
-      static_cast<T*>(out), N, KH, page, P_slot, scale);
+      static_cast<T*>(out), static_cast<float*>(ws_o), static_cast<float*>(ws_ml), static_cast<int*>(counters),
+      N, KH, page, P_slot, splits, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename P, int D>
-int by_rep(const void* q, const void* pk, const void* pv, const void* tables, const void* mask,
-           const void* kn, const void* vn, const void* ksc, const void* vsc, void* out, int B, int N,
-           int KH, int page, int P_slot, float scale, cudaStream_t st) {
+int by_rep(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
+           const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
+           int B, int N, int KH, int page, int P_slot, int splits, float scale, int dev, cudaStream_t st) {
   const int rep = N / KH;
-  if (rep <= WARPS) return launch<T, P, D, 1>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, B, N, KH, page, P_slot, scale, st);
-  if (rep <= 2 * WARPS) return launch<T, P, D, 2>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, B, N, KH, page, P_slot, scale, st);
+  if (rep <= 4)
+    return launch<T, P, D, 4>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH,
+                              page, P_slot, splits, scale, dev, st);
+  if (rep <= 8)
+    return launch<T, P, D, 8>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH,
+                              page, P_slot, splits, scale, dev, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, typename P>
-int by_dim(const void* q, const void* pk, const void* pv, const void* tables, const void* mask,
-           const void* kn, const void* vn, const void* ksc, const void* vsc, void* out, int B, int N,
-           int KH, int D, int page, int P_slot, float scale, cudaStream_t st) {
-  if (D == 64) return by_rep<T, P, 64>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, B, N, KH, page, P_slot, scale, st);
-  if (D == 128) return by_rep<T, P, 128>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, B, N, KH, page, P_slot, scale, st);
+int by_dim(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
+           const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
+           int B, int N, int KH, int D, int page, int P_slot, int splits, float scale, int dev, cudaStream_t st) {
+  if (D == 64)
+    return by_rep<T, P, 64>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH, page,
+                            P_slot, splits, scale, dev, st);
+  if (D == 128)
+    return by_rep<T, P, 128>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH, page,
+                             P_slot, splits, scale, dev, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new, out; and the pools unless
-// int8_pool, when the pools are int8 and kscale / vscale are (B, K, P_slot *
-// page) float32 windows). page: a power of two up to 64. Returns a cudaError_t
-// value (0 = launched).
-extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void* pool_v,
-                                   const void* tables, const void* mask, const void* k_new,
-                                   const void* v_new, const void* kscale, const void* vscale,
-                                   void* out, int B, int N, int KH, int D, int page, int P_slot,
-                                   float scale, int dtype, int int8_pool, void* stream) {
+// int8_pool, when the pools are int8 and kscale / vscale are their
+// (P_total, K, page) float32 scale pools). page: a power of two up to 64.
+// splits: 1 .. MAX_SPLITS parts of the stored window. ws_o / ws_ml: float32
+// workspaces of B * K * (splits + 1) * (N / K) * D and * 2 elements;
+// counters: B * K int32, zero before the first launch and left zero by every
+// launch. device: the CUDA device of the tensors. Returns a cudaError_t value
+// (0 = launched).
+extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void* pool_v, const void* tables,
+                                   const void* mask, const void* k_new, const void* v_new, const void* kscale,
+                                   const void* vscale, void* out, void* ws_o, void* ws_ml, void* counters, int B,
+                                   int N, int KH, int D, int page, int P_slot, int splits, float scale, int dtype,
+                                   int int8_pool, int device, void* stream) {
   if (B <= 0 || KH <= 0 || N % KH != 0 || P_slot <= 0 || KH > 65535 || page <= 0 || page > TP ||
-      (page & (page - 1)) != 0)
+      (page & (page - 1)) != 0 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && !int8_pool)
-    return by_dim<bf16, bf16>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, N, KH, D, page, P_slot, scale, st);
-  if (dtype == 1 && int8_pool)
-    return by_dim<bf16, int8_t>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, N, KH, D, page, P_slot, scale, st);
-  if (dtype == 0 && !int8_pool)
-    return by_dim<float, float>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, N, KH, D, page, P_slot, scale, st);
-  if (dtype == 0 && int8_pool)
-    return by_dim<float, int8_t>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, N, KH, D, page, P_slot, scale, st);
+#define PAGED_ARGS q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, ws_o, ws_ml, counters, B, N, \
+                   KH, D, page, P_slot, splits, scale, device, st
+  if (dtype == 1 && !int8_pool) return by_dim<bf16, bf16>(PAGED_ARGS);
+  if (dtype == 1 && int8_pool) return by_dim<bf16, int8_t>(PAGED_ARGS);
+  if (dtype == 0 && !int8_pool) return by_dim<float, float>(PAGED_ARGS);
+  if (dtype == 0 && int8_pool) return by_dim<float, int8_t>(PAGED_ARGS);
+#undef PAGED_ARGS
   return (int)cudaErrorInvalidValue;
 }

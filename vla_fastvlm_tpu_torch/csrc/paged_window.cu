@@ -22,69 +22,76 @@
 //     W > 1 (`(eb / denom).astype(v_new.dtype)`); fp32 accumulation;
 //   - int8 pools: pages convert int8 -> float exactly; the per-(position, KV
 //     head) K scales multiply the scores and the V scales the probabilities
-//     before rounding. The scale windows (B, K, S_max) are gathered outside
-//     the kernel, and k_new / v_new arrive dequant-roundtripped.
+//     before rounding. The kernel reads the scales through the page table
+//     from the (P_total, K, page) float32 scale pools; k_new / v_new arrive
+//     dequant-roundtripped.
 //
-// As in the W = 1 kernel (paged_attention.cu) the window is walked in tiles
-// with an online softmax instead of staged whole, so probabilities are
-// rounded relative to the running maximum and normalized at the end; the
-// function is the same, summation order and the rounding points of P differ
-// by a per-row factor.
+// As in the W = 1 kernel (paged_attention.cu) the stored window is split
+// across blocks and merged in the same launch (paged_split.cuh): each split
+// runs an online softmax over its tiles and rounds its probabilities
+// relative to its own running maximum, and the window's W columns are one
+// more part, rounded relative to their own maximum; the parts are merged in
+// a fixed order and normalised at the end. The function is the same;
+// summation order and the rounding points of P differ by a per-row factor.
 //
 // Bound on this card: bytes. A verify reads every valid page of every slot
 // once per layer; at the 7B verify shape (16 slots + 1, 28 heads over 4 KV
-// heads, D = 128, W = 5, windows of 24 pages of 16) that is ~13 MB against
-// ~0.2 GFLOP a launch. Design: the W = 1 kernel's grid and walk (one block per
-// (slot, KV head), 64 stored positions a tile, pages with no valid position
-// not read, tiles with none skipped), but a block now carries W * rep query
-// rows (35 at k = 4 for both 0.5B and 7B), too many for one position per
-// lane. So each warp owns 16 of them as an mma.sync m16n8k16 tile, with the
-// FlashAttention-2 register layout of flash_attention.cu: Q fragments, logits,
-// probabilities and the output accumulator stay in registers, K/V of the tile
-// are staged in shared memory once and read by every warp. A block has
-// ceil(W * rep / 16) warps (3 at 35 rows); the window's W rows are the walk's
-// last tile, 16 columns wide. Nothing is pipelined and S is not split across
-// blocks; both are later work. The fp32 instance runs the same code with
-// CUDA-core products (mma_tiles.cuh).
+// heads, D = 128, W = 5, windows of 23 pages of 16) that is ~13 MB against
+// ~0.2 GFLOP a launch, ~3.4 us at 3.35 TB/s. The one-block-per-(slot, KV
+// head) design sat at 14x that: 68 blocks, each walking 6 tiles with
+// synchronous loads. Design: a (B, K, splits + 1) grid, splits from the
+// shapes alone (ops/kernels/paged_attention.py::split_plan: 3 parts of 2
+// tiles at the 7B verify shape, 272 blocks, one wave at 3 blocks an SM); a
+// block carries the KV head's W * rep query rows (35 at k = 4 for both 0.5B
+// and 7B), ceil(W * rep / 16) warps, each owning 16 of them as an mma.sync
+// m16n8k16 tile with the FlashAttention-2 register layout of
+// flash_attention.cu: Q fragments, logits, probabilities and the output
+// accumulator stay in registers. A split block reads its tile's mask and
+// page ids in one round trip and the valid pages' K / V rows by cp.async in
+// the next (int8 pages land raw and convert exactly to the query dtype in
+// shared memory), and every warp reads the staged tile. Block z == splits
+// stages the window's W rows (a 16-column tile) and attends them
+// slot-causally. The merge stages the parts' o in shared memory by cp.async
+// (paged_split.cuh), so a 7-part merge of 35 x 128 rows costs two round
+// trips. The fp32 instance runs the same code with CUDA-core products
+// (mma_tiles.cuh).
 
-#include "mma_tiles.cuh"
+#include "paged_split.cuh"
 
-#include <cmath>
-#include <cstddef>
-#include <cstdint>
+#include <algorithm>
 
 using namespace mma_tiles;
+using namespace paged_split;
 
 namespace {
 
-constexpr int TP = 64;        // stored positions per tile (whole pages)
-constexpr int WIN = 16;       // window columns of the last tile (W <= WIN)
+constexpr int WIN = 16;       // window columns of the new-column part (W <= WIN)
 constexpr int PAD = 8;        // row padding (elements) against bank conflicts
 constexpr int MAX_WARPS = 5;  // 16-row tiles per block: W * rep <= 80
-constexpr float MASKED = -1e30f;
 
-__host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// Shared-memory layout, shared by the host launcher and the kernel.
+// Shared-memory layout, shared by the host launcher and the kernel: the tile
+// the warps read, as T (ks, vs at the start; cp.async fills it directly for
+// pools of the query dtype), for int8 pools the raw rows that convert into
+// it, and the tile's mask, page ids and scales. The merge reuses the start.
 struct Layout {
-  size_t ks, vs, mk, sc, total;
-  __host__ __device__ Layout(int esz, int d) {
-    ks = 0;
-    vs = align128((size_t)TP * (d + PAD) * esz);
-    mk = vs + align128((size_t)TP * (d + PAD) * esz);
-    sc = mk + align128((size_t)2 * TP * sizeof(int));         // mask, then page ids of the tile
-    total = sc + align128((size_t)2 * TP * sizeof(float));     // K scales, V scales (int8 pools)
+  size_t raw_k, raw_v, meta, total;
+  int ld;  // bytes a staged row
+  __host__ __device__ Layout(int esz, int d, bool int8) {
+    const size_t tile = align128((size_t)TP * (d + PAD) * esz);
+    ld = int8 ? d + 16 : (d + PAD) * esz;
+    const size_t raw = int8 ? align128((size_t)TP * ld) : 0;
+    raw_k = 2 * tile;
+    raw_v = raw_k + raw;
+    meta = raw_v + raw;
+    total = meta + TileSmem::meta_bytes();
   }
 };
 
 // Eight consecutive int8 pool elements (8-byte aligned) as floats.
 __device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[i] = (float)(int8_t)((u.x >> (8 * i)) & 0xff);
-    f[4 + i] = (float)(int8_t)((u.y >> (8 * i)) & 0xff);
-  }
+  int8x4_to_float(u.x, f);
+  int8x4_to_float(u.y, f + 4);
 }
 
 __device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
@@ -98,27 +105,6 @@ __device__ __forceinline__ void store8(bf16* p, const float (&f)[8]) {
 __device__ __forceinline__ void store8(float* p, const float (&f)[8]) {
   reinterpret_cast<float4*>(p)[0] = make_float4(f[0], f[1], f[2], f[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
-
-// Eight elements of a pool (or window) row into shared memory as T; zeros
-// where not valid (nothing is read). int8 converts exactly.
-template <typename T, typename P>
-__device__ __forceinline__ void stage8(T* dst, const P* src, bool valid) {
-  if constexpr (sizeof(P) == sizeof(T)) {
-    constexpr int N16 = 8 * sizeof(T) / 16;  // 16-byte words: 1 for bf16, 2 for fp32
-#pragma unroll
-    for (int i = 0; i < N16; ++i)
-      reinterpret_cast<uint4*>(dst)[i] = valid ? reinterpret_cast<const uint4*>(src)[i] : make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    float f[8];
-    if (valid) {
-      load8(src, f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = 0.0f;
-    }
-    store8(dst, f);
-  }
 }
 
 // One warp's 16 query rows of one (slot, KV head): block rows row_lo = row0 + g
@@ -256,18 +242,20 @@ struct WinTile {
     }
   }
 
-  // out = o / l for this thread's two rows (those below R)
-  __device__ __forceinline__ void store(T* out, int b, int kvh, int R, int W, int N, int rep) const {
+  // This warp's part: o, and (m, l) of each of its rows below R.
+  __device__ __forceinline__ void write_part(float* po, float* pml, int R) const {
     const int t = (threadIdx.x & 31) & 3;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r == 0 ? row_lo : row_hi;
       if (row >= R) continue;
-      const float inv = 1.0f / l_run[r];
-      T* dst = const_cast<T*>(row_ptr(out, b, kvh, row, W, N, rep));
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<pair_t<T>*>(dst + j * 8 + 2 * t) = pack<T>(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+        *reinterpret_cast<float2*>(po + (size_t)row * D + j * 8 + 2 * t) = make_float2(o[j][2 * r], o[j][2 * r + 1]);
+      if (t == 0) {
+        pml[2 * row] = m_run[r];
+        pml[2 * row + 1] = l_run[r];
+      }
     }
   }
 };
@@ -278,135 +266,134 @@ __global__ void __launch_bounds__(MAX_WARPS * 32)
 paged_window_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const P* __restrict__ pool_v,
                     const int* __restrict__ tables, const int* __restrict__ mask,
                     const T* __restrict__ k_new, const T* __restrict__ v_new,
-                    const float* __restrict__ kscale, const float* __restrict__ vscale,
-                    T* __restrict__ out, int W, int N, int KH, int page, int P_slot, float scale) {
+                    const float* __restrict__ ksc_pool, const float* __restrict__ vsc_pool,
+                    T* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
+                    int* __restrict__ counters, int W, int N, int KH, int page, int P_slot, int splits,
+                    float scale) {
   constexpr bool INT8 = sizeof(P) == 1;
   constexpr int LD = D + PAD;
-  constexpr int CPR = D / 8;  // 8-element chunks per staged row
+  constexpr int CH = D * (int)sizeof(T) / 16;  // 16-byte chunks of a T row
   extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L(sizeof(T), D);
-  T* ks = reinterpret_cast<T*>(smem + L.ks);
-  T* vs = reinterpret_cast<T*>(smem + L.vs);
-  int* mk = reinterpret_cast<int*>(smem + L.mk);
-  int* pid = mk + TP;  // physical page of each page of the tile, -1 when not read
-  float* kss = reinterpret_cast<float*>(smem + L.sc);
-  float* vss = kss + TP;
+  const Layout L(sizeof(T), D, INT8);
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + TP * LD;
 
-  const int b = blockIdx.x, kvh = blockIdx.y;
-  const int rep = N / KH, R = W * rep, S = P_slot * page;
+  const int b = blockIdx.x, kvh = blockIdx.y, z = blockIdx.z;
+  const int rep = N / KH, R = W * rep, S = P_slot * page, bk = b * KH + kvh;
+  const Parts ws{ws_o, ws_ml, splits + 1, R};
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int* table = tables + (size_t)b * P_slot;
-  const int* mrow = mask + (size_t)b * S;
+  mark(MARK_START);
 
   // One warp per 16 block rows: blockDim.x = 32 * ceil(R / 16).
   WinTile<T, D> tile;
   tile.load(q, b, kvh, (tid >> 5) * 16, R, W, N, rep);
 
-  const int pages_per_tile = page < TP ? TP / page : 1;
-  for (int t0 = 0; t0 < S; t0 += TP) {
-    const int n_pos = min(TP, S - t0);
-    // 1. mask of the tile; which of its pages hold a valid position
-    for (int i = tid; i < TP; i += nthreads) mk[i] = i < n_pos ? mrow[t0 + i] : 0;
+  if (z == splits) {
+    // The window's W rows as their own part, slot-causal.
+    for (int i = tid; i < WIN * CH; i += nthreads) {
+      const int r = i / CH, c = i % CH;
+      const bool valid = r < W;
+      const size_t off = valid ? (((size_t)b * W + r) * KH + kvh) * D : 0;
+      cp_async16_zfill(reinterpret_cast<unsigned char*>(ks + r * LD) + c * 16,
+                       reinterpret_cast<const unsigned char*>(k_new + off) + c * 16, valid);
+      cp_async16_zfill(reinterpret_cast<unsigned char*>(vs + r * LD) + c * 16,
+                       reinterpret_cast<const unsigned char*>(v_new + off) + c * 16, valid);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
-    int any = 0;
-    for (int pp = tid; pp < pages_per_tile; pp += nthreads) {
-      const int first = pp * page;
-      int valid_page = 0;
-      for (int i = first; i < first + page && i < n_pos; ++i) valid_page |= mk[i] != 0;
-      pid[pp] = valid_page ? table[(t0 + first) / page] : -1;
-      any |= valid_page;
-    }
-    if (!__syncthreads_or(any)) continue;  // nothing valid in this tile
-
-    // 2. stage the valid pages' K/V rows as T (zeros for the others) and the scales
-    for (int i = tid; i < TP * CPR; i += nthreads) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const int pg = pid[r / page];
-      const bool valid = r < n_pos && pg >= 0;
-      const size_t off = valid ? (((size_t)pg * KH + kvh) * page + r % page) * D + c : 0;
-      stage8<T, P>(ks + r * LD + c, pool_k + off, valid);
-      stage8<T, P>(vs + r * LD + c, pool_v + off, valid);
-    }
-    if (INT8) {
-      const size_t base = ((size_t)b * KH + kvh) * S + t0;
-      for (int i = tid; i < TP; i += nthreads) {
-        kss[i] = i < n_pos ? kscale[base + i] : 0.0f;
-        vss[i] = i < n_pos ? vscale[base + i] : 0.0f;
+    tile.template attend<WIN / 8, true, false>(ks, vs, W, nullptr, nullptr, nullptr, rep, scale);
+  } else {
+    int* meta = reinterpret_cast<int*>(smem + L.meta);
+    const TileSmem sm{INT8 ? smem + L.raw_k : smem, INT8 ? smem + L.raw_v : reinterpret_cast<unsigned char*>(vs),
+                      L.ld, meta, meta + TP, reinterpret_cast<float*>(meta + 2 * TP),
+                      reinterpret_cast<float*>(meta + 3 * TP)};
+    const int* table = tables + (size_t)b * P_slot;
+    const int* mrow = mask + (size_t)b * S;
+    int s0, s1;
+    split_range(S, splits, z, s0, s1);
+    walk<P, D>(sm, pool_k, pool_v, ksc_pool, vsc_pool, table, mrow, S, s0, s1, KH, kvh, page, [&](int n_pos) {
+      if (INT8) {  // raw int8 rows -> T rows, exact
+        for (int i = tid; i < TP * (D / 8); i += nthreads) {
+          const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+          float f[8];
+          load8(reinterpret_cast<const int8_t*>(sm.k + r * sm.ld) + c, f);
+          store8(ks + r * LD + c, f);
+          load8(reinterpret_cast<const int8_t*>(sm.v + r * sm.ld) + c, f);
+          store8(vs + r * LD + c, f);
+        }
+        __syncthreads();
       }
-    }
-    __syncthreads();
-    tile.template attend<TP / 8, false, INT8>(ks, vs, n_pos, mk, kss, vss, rep, scale);
-    __syncthreads();  // before the next tile overwrites the staged pages and the mask
+      tile.template attend<TP / 8, false, INT8>(ks, vs, n_pos, sm.mk, sm.kss, sm.vss, rep, scale);
+    });
   }
 
-  // 3. the window's W rows as the last tile, slot-causal
-  for (int i = tid; i < WIN * CPR; i += nthreads) {
-    const int r = i / CPR, c = (i % CPR) * 8;
-    const bool valid = r < W;
-    const size_t off = valid ? (((size_t)b * W + r) * KH + kvh) * D + c : 0;
-    stage8<T, T>(ks + r * LD + c, k_new + off, valid);
-    stage8<T, T>(vs + r * LD + c, v_new + off, valid);
-  }
-  __syncthreads();
-  tile.template attend<WIN / 8, true, false>(ks, vs, W, nullptr, nullptr, nullptr, rep, scale);
-  tile.store(out, b, kvh, R, W, N, rep);
+  tile.write_part(ws.o_of(bk, z, D), ws.ml_of(bk, z), R);
+  if (!last_ticket(counters + bk, splits + 1)) return;
+  merge_parts<T, D, D / 8>(ws, bk, out, b, kvh, W, N, rep, smem);
 }
 
 template <typename T, typename P, int D>
-int launch(const void* q, const void* pk, const void* pv, const void* tables, const void* mask,
-           const void* kn, const void* vn, const void* ksc, const void* vsc, void* out, int B, int W, int N,
-           int KH, int page, int P_slot, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
+           const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
+           int B, int W, int N, int KH, int page, int P_slot, int splits, float scale, int dev,
+           cudaStream_t stream) {
+  static size_t allowed[MAX_DEVICES] = {};
   const int warps = (W * (N / KH) + 15) / 16;
   if (warps > MAX_WARPS) return (int)cudaErrorInvalidValue;
-  int dev = 0, max_smem = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t smem = Layout(sizeof(T), D).total;
-  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(paged_window_kernel<T, P, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = std::max(Layout(sizeof(T), D, sizeof(P) == 1).total, merge_smem(splits + 1, W * (N / KH), D));
+  const cudaError_t err = allow_smem(paged_window_kernel<T, P, D>, allowed, dev, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KH);
+  dim3 grid(B, KH, splits + 1);
   paged_window_kernel<T, P, D><<<grid, 32 * warps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(pk), static_cast<const P*>(pv),
       static_cast<const int*>(tables), static_cast<const int*>(mask), static_cast<const T*>(kn),
       static_cast<const T*>(vn), static_cast<const float*>(ksc), static_cast<const float*>(vsc),
-      static_cast<T*>(out), W, N, KH, page, P_slot, scale);
+      static_cast<T*>(out), static_cast<float*>(ws_o), static_cast<float*>(ws_ml), static_cast<int*>(counters),
+      W, N, KH, page, P_slot, splits, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename P>
-int by_dim(const void* q, const void* pk, const void* pv, const void* tables, const void* mask,
-           const void* kn, const void* vn, const void* ksc, const void* vsc, void* out, int B, int W, int N,
-           int KH, int D, int page, int P_slot, float scale, cudaStream_t st) {
-  if (D == 64) return launch<T, P, 64>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, B, W, N, KH, page, P_slot, scale, st);
-  if (D == 128) return launch<T, P, 128>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, B, W, N, KH, page, P_slot, scale, st);
+int by_dim(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
+           const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
+           int B, int W, int N, int KH, int D, int page, int P_slot, int splits, float scale, int dev,
+           cudaStream_t st) {
+  if (D == 64)
+    return launch<T, P, 64>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, W, N, KH,
+                            page, P_slot, splits, scale, dev, st);
+  if (D == 128)
+    return launch<T, P, 128>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, W, N, KH,
+                             page, P_slot, splits, scale, dev, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new, out; and the pools unless
-// int8_pool, when the pools are int8 and kscale / vscale are (B, K, P_slot *
-// page) float32 windows). W: 1 .. 16 window positions with W * N / K <= 80
-// query rows per KV head. page: a power of two up to 64. Returns a cudaError_t
-// value (0 = launched).
-extern "C" int paged_window_fwd(const void* q, const void* pool_k, const void* pool_v,
-                                const void* tables, const void* mask, const void* k_new,
-                                const void* v_new, const void* kscale, const void* vscale,
-                                void* out, int B, int W, int N, int KH, int D, int page, int P_slot,
-                                float scale, int dtype, int int8_pool, void* stream) {
+// int8_pool, when the pools are int8 and kscale / vscale are their
+// (P_total, K, page) float32 scale pools). W: 1 .. 16 window positions with
+// W * N / K <= 80 query rows per KV head. page: a power of two up to 64.
+// splits: 1 .. MAX_SPLITS parts of the stored window. ws_o / ws_ml: float32
+// workspaces of B * K * (splits + 1) * W * (N / K) * D and * 2 elements;
+// counters: B * K int32, zero before the first launch and left zero by every
+// launch. device: the CUDA device of the tensors. Returns a cudaError_t value
+// (0 = launched).
+extern "C" int paged_window_fwd(const void* q, const void* pool_k, const void* pool_v, const void* tables,
+                                const void* mask, const void* k_new, const void* v_new, const void* kscale,
+                                const void* vscale, void* out, void* ws_o, void* ws_ml, void* counters, int B, int W,
+                                int N, int KH, int D, int page, int P_slot, int splits, float scale, int dtype,
+                                int int8_pool, int device, void* stream) {
   if (B <= 0 || W <= 0 || W > WIN || KH <= 0 || N % KH != 0 || P_slot <= 0 || KH > 65535 || page <= 0 ||
-      page > TP || (page & (page - 1)) != 0)
+      page > TP || (page & (page - 1)) != 0 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && !int8_pool)
-    return by_dim<bf16, bf16>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, W, N, KH, D, page, P_slot, scale, st);
-  if (dtype == 1 && int8_pool)
-    return by_dim<bf16, int8_t>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, W, N, KH, D, page, P_slot, scale, st);
-  if (dtype == 0 && !int8_pool)
-    return by_dim<float, float>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, W, N, KH, D, page, P_slot, scale, st);
-  if (dtype == 0 && int8_pool)
-    return by_dim<float, int8_t>(q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, B, W, N, KH, D, page, P_slot, scale, st);
+#define WINDOW_ARGS q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, ws_o, ws_ml, counters, B, W, \
+                    N, KH, D, page, P_slot, splits, scale, device, st
+  if (dtype == 1 && !int8_pool) return by_dim<bf16, bf16>(WINDOW_ARGS);
+  if (dtype == 1 && int8_pool) return by_dim<bf16, int8_t>(WINDOW_ARGS);
+  if (dtype == 0 && !int8_pool) return by_dim<float, float>(WINDOW_ARGS);
+  if (dtype == 0 && int8_pool) return by_dim<float, int8_t>(WINDOW_ARGS);
+#undef WINDOW_ARGS
   return (int)cudaErrorInvalidValue;
 }

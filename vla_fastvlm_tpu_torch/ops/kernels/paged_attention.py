@@ -21,6 +21,11 @@ what bounds it and how the design answers that: ``csrc/paged_attention.cu``
   the query dtype or int8, head_dim 64 or 128, N / K <= 8, page a power of
   two up to 64) or raises; on a CPU tensor each runs its plain version, the
   W-token gather path ``ops.attention.paged_attention_gathered``.
+- Both kernels split each slot's stored window across blocks and merge the
+  parts inside the same launch (``csrc/paged_split.cuh``): one launch a call,
+  int8 scales read through the page table, no host sync. ``split_plan`` fixes
+  the number of parts from the shapes alone; ``paged_attention_split_reference``
+  is the plain twin of that split-and-merge arithmetic, for tests and checks.
 - ``lengths`` (B,) is each slot's write cursor. The kernels do not read it:
   like the Pallas kernel they rely on the server's invariant that
   ``kv_mask`` marks only positions below the cursor. The plain version
@@ -42,6 +47,43 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_REP = 8  # query heads per KV head the kernels are instantiated for
 MAX_PAGE = 64
 MAX_WINDOW = 9  # verify window positions (k <= 8 draft tokens)
+TILE = 64  # stored positions a kernel tile (csrc/paged_split.cuh TP)
+MAX_SPLITS = 32  # stored-window parts a (slot, KV head) (csrc/paged_split.cuh)
+# One wave of blocks on an H100 SXM: 132 SMs, each holding 4 blocks of the
+# W = 1 kernel (128 threads, up to 128 registers) or 3 of the window kernel
+# (up to 160 threads, 168-181 registers at head_dim 128).
+SMS = 132
+BLOCKS_PER_SM = {True: 4, False: 3}
+MASKED = -1e30
+
+
+def split_plan(b: int, kh: int, p_slot: int, page: int, w: int = 1) -> int:
+    """Parts of the stored window each (slot, KV head) is split into, from the
+    shapes alone (never the mask, so a CUDA graph can replay the launch):
+    the most splits of whole 64-position tiles whose launch, ``b * kh *
+    (splits + 1)`` blocks with the new columns' part, still runs in one wave
+    (a second wave waits for the first); at least 1, at most ``MAX_SPLITS``.
+    At the serving shapes: 3 parts of 2 tiles for the 0.5B decode tick (512
+    blocks), 6 of one tile with the 7B heads (448), 3 of 2 for the 7B verify
+    window (272)."""
+    tiles = -(-p_slot * page // TILE)
+    wave = SMS * BLOCKS_PER_SM[w == 1]
+    best = 1
+    for per in range(tiles, 0, -1):
+        splits = -(-tiles // per)
+        if splits > MAX_SPLITS or b * kh * (splits + 1) > wave:
+            break
+        best = splits
+    return best
+
+
+def split_ranges(s_max: int, splits: int) -> list:
+    """The stored positions [s0, s1) of each split: ceil(tiles / splits)
+    whole tiles a split from position 0, as the kernels cut them (a forced
+    count above the tiles leaves the last splits empty)."""
+    tiles = -(-s_max // TILE)
+    per = -(-tiles // splits)
+    return [(min(s_max, z * per * TILE), min(s_max, (z + 1) * per * TILE)) for z in range(splits)]
 
 
 def paged_attention_decode_reference(
@@ -57,6 +99,89 @@ def paged_attention_decode_reference(
 
 # The window kernel's plain version: the W-token gather path itself.
 paged_attention_window_reference = paged_attention_gathered
+
+
+def paged_attention_split_reference(
+    q, pool_k, pool_v, tables, kv_mask, lengths, k_new, v_new,
+    pool_k_scale=None, pool_v_scale=None, scale: Optional[float] = None, *, splits: Optional[int] = None,
+) -> torch.Tensor:
+    """The kernels' split-and-merge arithmetic in plain torch (q (B, N, D) or
+    (B, W, N, D)), for tests and on-card checks; the main path never runs it.
+
+    Each split of ``split_ranges`` walks its 64-position tiles with an online
+    softmax, skips a tile with no valid position, and rounds its
+    probabilities (times the V scales of int8 pools) to the value dtype
+    relative to its own running maximum; a split with no valid position is
+    the neutral part (-inf, 0, 0). The new column(s) form one more part: at
+    W = 1 (m, l, o) = (q.k_new * scale, 1, v_new) with its share in fp32; at
+    W > 1 the slot-causal window columns, rounded like the stored ones. The
+    parts merge in order under their common maximum. ``lengths`` is not
+    read, as in the kernels."""
+    del lengths
+    window = q.ndim == 4
+    qw, kn, vn = (q, k_new, v_new) if window else (q[:, None], k_new[:, None], v_new[:, None])
+    b, w, n, d = qw.shape
+    _, kh, page, _ = pool_k.shape
+    rep, p_slot = n // kh, tables.shape[1]
+    rows, s_max = w * rep, p_slot * page
+    if scale is None:
+        scale = d ** -0.5
+    if splits is None:
+        splits = split_plan(b, kh, p_slot, page, w)
+    quantized = pool_k.dtype == torch.int8
+    tl = tables.long()
+
+    def window_of(pool):  # (P, K, page, D) -> (B, K, S, D) float
+        return pool[tl].permute(0, 2, 1, 3, 4).reshape(b, kh, s_max, d).float()
+
+    k_win, v_win = window_of(pool_k), window_of(pool_v)
+    qg = qw.float().reshape(b, w, kh, rep, d).permute(0, 2, 1, 3, 4).reshape(b, kh, rows, d)
+    logits = torch.einsum("bkrd,bksd->bkrs", qg, k_win) * scale
+    if quantized:
+        k_sc, v_sc = scale_window(pool_k_scale, tables), scale_window(pool_v_scale, tables)
+        logits = logits * k_sc[:, :, None, :]
+    valid = kv_mask.bool()
+    logits = torch.where(valid[:, None, None, :], logits, torch.full_like(logits, MASKED))
+    round_p = lambda p: p.to(q.dtype).float()
+
+    parts = []
+    for s0, s1 in split_ranges(s_max, splits):
+        m = torch.full((b, kh, rows), -float("inf"), device=q.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros(b, kh, rows, d, device=q.device)
+        for t0 in range(s0, s1, TILE):
+            t1 = min(t0 + TILE, s_max)
+            hit = valid[:, t0:t1].any(-1)[:, None, None]
+            x = logits[..., t0:t1]
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[..., None])
+            pv = p * v_sc[:, :, None, t0:t1] if quantized else p
+            o_new = o * alpha[..., None] + round_p(pv) @ v_win[:, :, t0:t1]
+            l_new = l * alpha + p.sum(-1)
+            m, l, o = torch.where(hit, m_new, m), torch.where(hit, l_new, l), torch.where(hit[..., None], o_new, o)
+        parts.append((m, l, o))
+
+    kw, vw = (x.float().permute(0, 2, 1, 3) for x in (kn, vn))  # (B, K, W, D)
+    l_win = torch.einsum("bkrd,bkwd->bkrw", qg, kw) * scale
+    if w == 1:
+        parts.append((l_win[..., 0], torch.ones_like(l_win[..., 0]), vw.expand(b, kh, rows, d)))
+    else:
+        causal = torch.arange(w, device=q.device)[None, :] <= (torch.arange(rows, device=q.device) // rep)[:, None]
+        l_win = torch.where(causal, l_win, torch.full_like(l_win, MASKED))
+        m_w = l_win.amax(-1)
+        p = torch.exp(l_win - m_w[..., None])
+        parts.append((m_w, p.sum(-1), round_p(p) @ vw))
+
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    total_l, total_o = torch.zeros_like(m_all), torch.zeros(b, kh, rows, d, device=q.device)
+    for m, l, o in parts:
+        wt = torch.exp(m - m_all)
+        total_l = total_l + wt * l
+        total_o = total_o + wt[..., None] * o
+    out = total_o * (1.0 / total_l)[..., None]
+    out = out.reshape(b, kh, w, rep, d).permute(0, 2, 1, 3, 4).reshape(b, w, n, d).to(q.dtype)
+    return out if window else out[:, 0]
 
 
 def check_kernel_shapes(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k_scale, pool_v_scale) -> None:
@@ -81,6 +206,8 @@ def check_kernel_shapes(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k
         raise ValueError("int8 pools need both scale pools, and only int8 pools take them")
     if d not in (64, 128):
         raise ValueError(f"paged kernel takes head_dim 64 or 128, got {d}")
+    if q.numel() >= 2 ** 31:
+        raise ValueError(f"paged kernel indexes its output with 32-bit offsets; q has {q.numel()} elements")
     if n % kh or n // kh > MAX_REP:
         raise ValueError(f"paged kernel takes N a multiple of K with N / K <= {MAX_REP}, got N={n} K={kh}")
     if page > MAX_PAGE or page & (page - 1):
@@ -100,6 +227,8 @@ def check_kernel_shapes(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k
         for name, x in (("pool_k_scale", pool_k_scale), ("pool_v_scale", pool_v_scale)):
             if tuple(x.shape) != tuple(pool_k.shape[:3]):
                 raise ValueError(f"{name} must be (P, K, page) = {tuple(pool_k.shape[:3])}, got {tuple(x.shape)}")
+            if x.dtype != torch.float32 or not x.is_contiguous() or x.device != q.device:
+                raise ValueError(f"{name} must be a contiguous float32 tensor on {q.device}")
     for name, x in (("q", q), ("pool_k", pool_k), ("pool_v", pool_v), ("k_new", k_new), ("v_new", v_new)):
         if not x.is_contiguous():
             raise ValueError(f"paged kernel takes contiguous tensors; {name} is not")
@@ -112,43 +241,65 @@ def check_kernel_shapes(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k
 
 
 def scale_window(scale_pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
-    """(P_total, K, page) scales -> each slot's (B, K, S_max) float32 window,
-    gathered outside the kernel as the Pallas launcher does."""
+    """(P_total, K, page) scales -> each slot's (B, K, S_max) float32 window
+    (the Pallas launcher's gather; the CUDA kernels read the scale pools
+    through the page table themselves)."""
     b, p_slot = tables.shape
     _, kh, page = scale_pool.shape
     g = scale_pool[tables.long()]  # (B, P_slot, K, page)
     return g.permute(0, 2, 1, 3).reshape(b, kh, p_slot * page).float().contiguous()
 
 
-def _launch(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k_scale, pool_v_scale, scale) -> torch.Tensor:
-    """Launch the decode kernel (q (B, N, D)) or the window kernel (q (B, W, N, D))."""
+# Per (device, kernel): (slot, KV head) ticket counters, zeroed once here and
+# left zero by every launch, so no launch has to clear them.
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, symbol: str, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get((device, symbol))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[(device, symbol)] = buf
+    return buf
+
+
+def _launch(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k_scale, pool_v_scale, scale,
+            splits: Optional[int] = None) -> torch.Tensor:
+    """Launch the decode kernel (q (B, N, D)) or the window kernel (q (B, W, N, D)).
+
+    ``splits`` forces the number of stored-window parts (tests and on-card
+    checks); by default ``split_plan``. Nothing here waits on the device."""
     check_kernel_shapes(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k_scale, pool_v_scale)
     b, n, d = q.shape[0], q.shape[-2], q.shape[-1]
+    w = q.shape[1] if q.ndim == 4 else 1
     _, kh, page, _ = pool_k.shape
     p_slot = tables.shape[1]
+    if splits is None:
+        splits = split_plan(b, kh, p_slot, page, w)
+    if not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"paged kernels take 1 <= splits <= {MAX_SPLITS}, got {splits}")
     quantized = pool_k.dtype == torch.int8
     tables_i = tables.to(torch.int32).contiguous()
     mask_i = kv_mask.to(torch.int32).contiguous()
-    if quantized:
-        ksc, vsc = scale_window(pool_k_scale, tables), scale_window(pool_v_scale, tables)
-        scale_ptrs = (ksc.data_ptr(), vsc.data_ptr())
-    else:
-        scale_ptrs = (None, None)
+    scale_ptrs = (pool_k_scale.data_ptr(), pool_v_scale.data_ptr()) if quantized else (None, None)
     out = torch.empty_like(q)
+    parts, rows = splits + 1, w * (n // kh)
+    ws = torch.empty(b * kh * parts * rows * (d + 2), dtype=torch.float32, device=q.device)
+    ws_ml = ws.data_ptr() + 4 * b * kh * parts * rows * d
     if q.ndim == 3:
         symbol, wrapper, shape = "paged_attention_fwd", paged_attention_decode, (b, n, kh, d, page, p_slot)
-        fn = _build.launcher("paged_attention", symbol, 10,
-                             [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
     else:
-        symbol, wrapper, shape = "paged_window_fwd", paged_attention_window, (b, q.shape[1], n, kh, d, page, p_slot)
-        fn = _build.launcher("paged_window", symbol, 10,
-                             [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int])
+        symbol, wrapper, shape = "paged_window_fwd", paged_attention_window, (b, w, n, kh, d, page, p_slot)
+    fn = _build.launcher(symbol.rsplit("_", 1)[0], symbol, 13,
+                         [ctypes.c_int] * (len(shape) + 1) + [ctypes.c_float] + [ctypes.c_int] * 3)
+    counters = _counters(q.device, symbol, b * kh)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables_i.data_ptr(), mask_i.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(), *scale_ptrs, out.data_ptr(),
-            *shape, float(scale), _DTYPES[q.dtype], int(quantized), stream,
+            k_new.data_ptr(), v_new.data_ptr(), *scale_ptrs, out.data_ptr(), ws.data_ptr(), ws_ml,
+            counters.data_ptr(), *shape, splits, float(scale), _DTYPES[q.dtype], int(quantized), q.device.index,
+            stream,
         )
     _build.check(status, symbol)
     wrapper.launches += 1
