@@ -70,9 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 checks of phase 2 and the RepMixer timing of phase 6, then prints the card
 line and a JSON line of the kernel's numbers. ``--only paged`` does the same
 for the two paged-attention sources: their checks of phase 2, then at each
-of the 8 paged shapes of phase 6 the wrapper call, the kernel's launch alone
-(mask and tables already int32), the plain version, the bound, and the
-kernel alone at 1, 2, 3 and 6 parts.
+of the 8 paged shapes of phase 6 the wrapper call (``ms``), the kernel's
+launch alone (``kernel_ms``: mask and tables already int32), the plain
+version, the bound, the planned parts, the launch alone with the L2 emptied
+first, and the launch alone at 1, 2, 3 and 6 parts.
 
 Prints the card's name and power limit, a JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -526,9 +527,6 @@ def check_paged() -> dict:
             errs[name] = err
         if edge:
             check_empty_slot(what, out, args, shape, kind)
-    if not hasattr(pa, "split_plan"):
-        log("  (no split_plan in this tree: the forced split counts are not checked)")
-        return errs
     for label, shape in SPLIT_CHECKS:
         _, plain = paged_fns("w" in shape)
         for kind, int8 in (("fp32", False), ("bf16", False), ("bf16", True)):
@@ -1074,9 +1072,7 @@ SWEEP_SPLITS = (1, 2, 3, 6)
 
 def kernel_alone(args, scales, splits=None):
     """The paged kernel's launch alone: mask and tables already int32, so
-    the wrapper converts nothing. A launcher that takes gathered (B, K, S)
-    int8 scale windows (the kernels before the split design, which have no
-    ``split_plan``) gets them gathered beforehand."""
+    the wrapper converts nothing."""
     import torch
 
     from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
@@ -1084,27 +1080,32 @@ def kernel_alone(args, scales, splits=None):
     q, pk, pv, tables, mask, _, kn, vn = args
     t32, m32 = tables.to(torch.int32).contiguous(), mask.to(torch.int32).contiguous()
     ks, vs = scales.get("pool_k_scale"), scales.get("pool_v_scale")
-    scale = q.shape[-1] ** -0.5
-    if hasattr(pa, "split_plan"):
-        return lambda: pa._launch(q, pk, pv, t32, m32, kn, vn, ks, vs, scale, splits=splits)
-    windows = {} if ks is None else {id(ks): pa.scale_window(ks, t32), id(vs): pa.scale_window(vs, t32)}
+    return lambda: pa._launch(q, pk, pv, t32, m32, kn, vn, ks, vs, q.shape[-1] ** -0.5, splits=splits)
 
-    def call():
-        gather = pa.scale_window
-        pa.scale_window = lambda pool, _tables: windows[id(pool)]
-        try:
-            return pa._launch(q, pk, pv, t32, m32, kn, vn, ks, vs, scale)
-        finally:
-            pa.scale_window = gather
 
-    return call
+def time_cold_ms(fn, iters: int) -> float:
+    """Device time of one call of ``fn`` with the L2 emptied before it: a
+    graph of ``iters`` (flush, call) pairs less one of ``iters`` flushes,
+    each flush a write of twice the L2."""
+    import torch
+
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    flush = torch.empty(2 * l2 // 4, dtype=torch.int32, device="cuda")
+
+    def both():
+        flush.zero_()
+        fn()
+
+    return time_ms(both, iters) - time_ms(flush.zero_, iters)
 
 
 def time_paged(sweep: bool) -> dict:
-    """At each of PAGED_TIMED's shapes: the wrapper call (inputs as
+    """At each of PAGED_TIMED's shapes: the wrapper call (``ms``; inputs as
     ``paged_inputs`` makes them: a bool mask), the kernel's launch alone
-    (``ms``), the plain version and the bound; with ``sweep`` also the
-    kernel alone at each of SWEEP_SPLITS parts the window has tiles for."""
+    (``kernel_ms``), the plain version, the bound and the planned parts;
+    with ``sweep`` also the launch alone with the L2 emptied first
+    (``cold_ms``) and at each of SWEEP_SPLITS parts the window has tiles
+    for."""
     import torch
 
     from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
@@ -1115,22 +1116,22 @@ def time_paged(sweep: bool) -> dict:
         wrapper, plain = paged_fns("w" in shape)
         out = wrapper(*args, **scales)
         bound, by = paged_bound_ms(args, scales, out)
-        r = dict(ms=time_ms(kernel_alone(args, scales), 50), wrapper_ms=time_ms(lambda: wrapper(*args, **scales), 50),
-                 plain_ms=time_ms(lambda: plain(*args, **scales), 20), library_ms=None, bound_ms=bound, bound_by=by)
-        extra = ""
-        if hasattr(pa, "split_plan"):
-            b, p_slot = args[3].shape
-            r["splits"] = pa.split_plan(b, shape["kh"], p_slot, args[1].shape[2], shape.get("w", 1))
-            extra = f", {r['splits']} parts"
-            if sweep:
-                tiles = -(-args[4].shape[1] // pa.TILE)
-                r["ms_by_splits"] = {s: time_ms(kernel_alone(args, scales, s), 50) for s in SWEEP_SPLITS if s <= tiles}
-                extra += ", by parts " + ", ".join(f"{s}: {t:.4f}" for s, t in r["ms_by_splits"].items())
+        r = dict(ms=time_ms(lambda: wrapper(*args, **scales), 50), kernel_ms=time_ms(kernel_alone(args, scales), 50),
+                 plain_ms=time_ms(lambda: plain(*args, **scales), 20), library_ms=None, bound_ms=bound, bound_by=by,
+                 splits=pa.planned_splits(args[0], args[1], args[3]), wave=pa.instance_wave(args[0], args[1]))
+        extra = f", {r['splits']} parts (one wave: {r['wave']} blocks)"
+        if sweep:
+            r["cold_ms"] = time_cold_ms(kernel_alone(args, scales), 20)
+            tiles = -(-args[4].shape[1] // pa.TILE)
+            r["ms_by_splits"] = {s: time_ms(kernel_alone(args, scales, s), 50) for s in SWEEP_SPLITS if s <= tiles}
+            extra += f", cold L2 {r['cold_ms']:.4f} ms, by parts " + ", ".join(
+                f"{s}: {t:.4f}" for s, t in r["ms_by_splits"].items())
         results[name] = r
         per = (f"x{TARGET_LAYERS} per round at 7B" if "w" in shape
                else f"x{TARGET_LAYERS} per 7B tick" if shape["d"] == 128 else f"x{DECODER_LAYERS} per 0.5B tick")
-        log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: kernel {r['ms']:.4f} ms, "
-            f"wrapper {r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}){extra}; {per}")
+        log(f"  {name} q{tuple(args[0].shape)} pool{tuple(args[1].shape)} {args[1].dtype}: wrapper {r['ms']:.4f} ms, "
+            f"kernel alone {r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
+            f"{extra}; {per}")
     return results
 
 
@@ -1303,7 +1304,7 @@ def main(argv=None) -> int:
             "launches": launches, "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("wrapper_ms", "splits") if k in t},
+            **{k: t[k] for k in ("kernel_ms", "splits") if k in t},
         })
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card_line())

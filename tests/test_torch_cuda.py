@@ -219,6 +219,61 @@ def test_paged_kernels_at_forced_split_counts(cuda, w, splits, int8, dtype, atol
     assert all(int(c.abs().sum()) == 0 for c in pa._COUNTERS.values())
 
 
+# (B, W, N, K, D, int8 pools, P_slot, parts): the serving shapes, with the
+# part counts that measured fastest of 1, 2, 3 and 6 on an H100 80GB HBM3
+# (chip_smoke.py --only paged). The int8 7B verify instance holds 4 blocks an
+# SM and the bf16 one 2, so the two take 6 and 3 parts.
+H100_PLANS = [(64, 1, 14, 2, 64, False, 24, 3), (64, 1, 14, 2, 64, True, 24, 3),
+              (16, 1, 28, 4, 128, False, 24, 6), (16, 1, 28, 4, 128, True, 24, 6),
+              (17, 5, 28, 4, 128, False, 23, 3), (17, 5, 28, 4, 128, True, 23, 6),
+              (65, 5, 14, 2, 64, False, 23, 3), (65, 5, 14, 2, 64, True, 23, 3)]
+
+
+@pytest.mark.parametrize("plan", H100_PLANS, ids=str)
+def test_paged_split_plan_on_an_h100(cuda, plan):
+    """The launch's plan reads the instance's occupancy on the card and picks
+    the serving shapes' fastest part counts."""
+    from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
+
+    if "H100" not in torch.cuda.get_device_name(cuda):
+        pytest.skip("part counts measured on an H100")
+    b, w, n, kh, d, int8, p_slot, parts = plan
+    q = torch.empty((b, w, n, d) if w > 1 else (b, n, d), dtype=torch.bfloat16, device=cuda)
+    pool_k = torch.empty(b * p_slot + 1, kh, 16, d, dtype=torch.int8 if int8 else torch.bfloat16, device=cuda)
+    tables = torch.zeros(b, p_slot, dtype=torch.int32, device=cuda)
+    wave = pa.instance_wave(q, pool_k)
+    assert wave % torch.cuda.get_device_properties(cuda).multi_processor_count == 0
+    assert pa.planned_splits(q, pool_k, tables) == parts
+
+
+def test_paged_counters_regrow_under_a_captured_graph(cuda):
+    """A CUDA graph that captured the decode kernel replays to the same result
+    after a larger batch has made the kernel's ticket counters grow: the old
+    buffer is kept, and every counter is back at 0."""
+    from vla_fastvlm_tpu_torch.ops.kernels import paged_attention as pa
+
+    args, _ = _paged_inputs(9, 14, 2, 64, torch.float32, False, cuda)
+    ref = paged_attention_decode_reference(*args)
+    paged_attention_decode(*args)  # the counters exist before the capture
+    torch.cuda.synchronize()
+    key = next(k for k in pa._COUNTERS if k[1] == "paged_attention_fwd")
+    old = pa._COUNTERS[key]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = paged_attention_decode(*args)
+    big, _ = _paged_inputs(old.numel() // 2 + 1, 2, 2, 64, torch.float32, False, cuda, p_slot=1)
+    paged_attention_decode(*big)
+    torch.cuda.synchronize()
+    assert pa._COUNTERS[key] is not old and any(r is old for r in pa._RETIRED)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    assert all(int(c.abs().sum()) == 0 for c in [*pa._COUNTERS.values(), *pa._RETIRED])
+
+
 def test_paged_attention_window_on_the_card_launches_the_kernel(cuda):
     """``paged_attention`` at W > 1 on a CUDA tensor is the window kernel;
     ``impl="xla"`` is the only way to the plain version."""

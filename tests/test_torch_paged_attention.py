@@ -9,8 +9,8 @@
   speculative verify window) against JAX ``paged_attention(impl="xla")`` and
   ``paged_attention_window(..., interpret=True)``, GQA 4/2 and 6/2, head_dim
   64 and 128, float and int8 pools, W 2 and 5, within 1e-5.
-- ``split_plan`` (the kernels' split of the stored window, from shapes
-  alone) and ``paged_attention_split_reference`` (the plain twin of the
+- ``split_plan`` (the kernels' split of the stored window, from the shapes
+  and the blocks the kernel instance runs at once) and ``paged_attention_split_reference`` (the plain twin of the
   kernels' split-and-merge arithmetic) against JAX
   ``paged_attention_window(..., interpret=True)`` at W = 1 and 5, with 1, 2
   and the most splits, a split whose positions are all masked, the empty
@@ -49,9 +49,7 @@ from vla_fastvlm_tpu_torch.ops.kernels import (
     reset_launch_counts,
 )
 from vla_fastvlm_tpu_torch.ops.kernels.paged_attention import (
-    BLOCKS_PER_SM,
     MAX_SPLITS,
-    SMS,
     TILE,
     check_kernel_shapes,
     paged_attention_split_reference,
@@ -336,6 +334,21 @@ class TestPagedWindowPlainVersion:
 # 7B verify round and the 0.5B heads' window) and this file's test shapes.
 PLAN_SHAPES = [(64, 2, 24, 16, 1), (16, 4, 24, 16, 1), (17, 4, 23, 16, 5), (65, 2, 23, 16, 5),
                (3, 2, 3, 16, 1), (4, 2, 16, 16, 5), (1, 1, 512, 64, 1), (2, 2, 5, 4, 2)]
+# Waves (blocks the card runs at once) of 2 to 5 blocks an SM on an H100
+# SXM's 132 SMs, and a small card's.
+WAVES = [132 * 2, 132 * 3, 132 * 4, 132 * 5, 16]
+# (B, K, P_slot, page, W, wave, parts) at the serving shapes, with the waves
+# the occupancy calculator reports on an H100 80GB HBM3 for the instance
+# each shape launches (chip_smoke.py --only paged prints them), and the part
+# counts that measured fastest there of 1, 2, 3 and 6.
+SERVING_PLANS = [
+    (64, 2, 24, 16, 1, 132 * 5, 3),  # 0.5B decode tick, bf16 pools: 96 registers, 5 blocks an SM
+    (64, 2, 24, 16, 1, 132 * 4, 3),  # the same over int8 pools: 112 registers
+    (16, 4, 24, 16, 1, 132 * 4, 6),  # 7B heads decode, bf16 and int8: one tile a part
+    (17, 4, 23, 16, 5, 132 * 2, 3),  # 7B verify window, bf16: 181 registers, 2 blocks an SM
+    (17, 4, 23, 16, 5, 132 * 4, 6),  # the same over int8 pools: 168 registers, 4 blocks an SM
+    (65, 2, 23, 16, 5, 132 * 5, 3),  # 0.5B heads window, bf16 and int8
+]
 
 
 class TestSplitPlan:
@@ -343,40 +356,44 @@ class TestSplitPlan:
     def test_plan_bounds_and_one_wave(self, shape):
         b, kh, p_slot, page, w = shape
         tiles = -(-p_slot * page // TILE)
-        splits = split_plan(b, kh, p_slot, page, w)
-        assert isinstance(splits, int) and 1 <= splits <= min(tiles, MAX_SPLITS)
-        wave = SMS * BLOCKS_PER_SM[w == 1]
-        # the launch fits one wave, or nothing smaller than one split exists
-        assert b * kh * (splits + 1) <= wave or splits == 1
-        # the most splits that do: the next whole-tile count would not fit
-        more = [s for s in (-(-tiles // per) for per in range(1, tiles + 1)) if s > splits]
-        if more and min(more) <= MAX_SPLITS:
-            assert b * kh * (min(more) + 1) > wave
+        for wave in WAVES:
+            splits = split_plan(b, kh, p_slot, page, w, wave=wave)
+            assert isinstance(splits, int) and 1 <= splits <= min(tiles, MAX_SPLITS)
+            # the split blocks fit one wave, or nothing smaller than one split exists
+            assert b * kh * splits <= wave or splits == 1
+            # the most splits that do: the next whole-tile count would not fit
+            more = [s for s in (-(-tiles // per) for per in range(1, tiles + 1)) if s > splits]
+            if more and min(more) <= MAX_SPLITS:
+                assert b * kh * min(more) > wave
 
-    def test_plan_at_the_serving_shapes(self):
-        assert split_plan(64, 2, 24, 16, 1) == 3  # 0.5B decode tick: 3 parts of 2 tiles, 512 blocks
-        assert split_plan(16, 4, 24, 16, 1) == 6  # 7B heads: one tile a part, 448 blocks
-        assert split_plan(17, 4, 23, 16, 5) == 3  # 7B verify window: 2 tiles a part, 272 blocks
+    @pytest.mark.parametrize("plan", SERVING_PLANS, ids=str)
+    def test_plan_at_the_serving_shapes(self, plan):
+        *shape, wave, parts = plan
+        assert split_plan(*shape, wave=wave) == parts
 
     @pytest.mark.parametrize("shape", PLAN_SHAPES, ids=str)
     def test_every_tile_covered_once(self, shape):
         b, kh, p_slot, page, w = shape
         s_max = p_slot * page
         tiles = -(-s_max // TILE)
-        for splits in sorted({1, 2, split_plan(b, kh, p_slot, page, w), min(tiles, MAX_SPLITS)}):
+        planned = {split_plan(b, kh, p_slot, page, w, wave=wave) for wave in WAVES}
+        for splits in sorted({1, 2, min(tiles, MAX_SPLITS)} | planned):
             ranges = split_ranges(s_max, splits)
             assert len(ranges) == splits
             covered = [t for s0, s1 in ranges for t in range(s0, s1, TILE)]
             assert covered == list(range(0, s_max, TILE))
             assert all((s0 % TILE == 0 or s0 == s_max) and s0 <= s1 for s0, s1 in ranges)
         # the plan leaves no split empty
-        assert all(s1 > s0 for s0, s1 in split_ranges(s_max, split_plan(b, kh, p_slot, page, w)))
+        for splits in planned:
+            assert all(s1 > s0 for s0, s1 in split_ranges(s_max, splits))
 
     def test_plan_reads_shapes_only(self):
         import inspect
 
-        assert list(inspect.signature(split_plan).parameters) == ["b", "kh", "p_slot", "page", "w"]
-        assert split_plan(64, 2, 24, 16, 1) == split_plan(64, 2, 24, 16)
+        params = inspect.signature(split_plan).parameters
+        assert list(params) == ["b", "kh", "p_slot", "page", "w", "wave"]
+        assert params["wave"].kind is inspect.Parameter.KEYWORD_ONLY
+        assert split_plan(64, 2, 24, 16, 1, wave=528) == split_plan(64, 2, 24, 16, wave=528)
 
 
 def _setup_split(w, n=4, kv=2, d=64, page=16, p_slot=16, seed=0):

@@ -33,8 +33,9 @@
 // 3.35 TB/s. What held the one-block-per-(slot, KV head) design at 13x that
 // bound was a serial chain, not bandwidth: 128 blocks on 132 SMs, each
 // walking 6 tiles one after another with synchronous loads. Design: a
-// (B, K, splits + 1) grid, splits from the shapes alone
-// (ops/kernels/paged_attention.py::split_plan: 3 parts of 2 tiles at the
+// (B, K, splits + 1) grid, splits from the shapes and the blocks an SM holds
+// of the instance (ops/kernels/paged_attention.py::split_plan, the
+// occupancy from paged_attention_blocks_per_sm: 3 parts of 2 tiles at the
 // 0.5B serving shape, 6 of one tile with the 7B heads); a block reads its
 // tile's mask and page ids in one round trip (the query rows' cp.async in
 // flight beside it) and the valid pages' K / V rows by cp.async in the next
@@ -149,7 +150,8 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const
                     const T* __restrict__ k_new, const T* __restrict__ v_new,
                     const float* __restrict__ ksc_pool, const float* __restrict__ vsc_pool,
                     T* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
-                    int* __restrict__ counters, int N, int KH, int page, int P_slot, int splits, float scale) {
+                    int* __restrict__ counters, int N, int KH, int page, int P_slot, int splits, int gs,
+                    float scale) {
   constexpr bool INT8 = sizeof(P) == 1;
   constexpr int DPL = D / 32;  // output columns per lane
   extern __shared__ __align__(128) unsigned char smem[];
@@ -160,7 +162,6 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const
   const T* qb = q + ((size_t)b * N + (size_t)kvh * rep) * D;
   float* po = ws.o_of(bk, z, D);
   float* pml = ws.ml_of(bk, z);
-  mark(MARK_START);
 
   if (z == splits) {
     // The new token's column as its own part: its share stays fp32.
@@ -330,51 +331,75 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const
   }
 
   if (!last_ticket(counters + bk, splits + 1)) return;
-  merge_parts<T, D, (D + 63) / 64>(ws, bk, out, b, kvh, 1, N, rep, smem);
+  merge_parts<T, D, (D + 63) / 64>(ws, bk, out, b, kvh, 1, N, rep, gs, smem);
 }
 
+// Launch one call, or with `blocks` set only report the blocks an SM holds
+// (split_plan's wave on the host).
 template <typename T, typename P, int D, int REP>
 int launch(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
            const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
-           int B, int N, int KH, int page, int P_slot, int splits, float scale, int dev, cudaStream_t stream) {
-  static size_t allowed[MAX_DEVICES] = {};
-  const size_t smem = std::max(Layout(sizeof(T), sizeof(P), D, N / KH, REP).total, merge_smem(splits + 1, N / KH, D));
-  const cudaError_t err = allow_smem(paged_decode_kernel<T, P, D, REP>, allowed, dev, smem);
+           int B, int N, int KH, int page, int P_slot, int splits, float scale, int dev, cudaStream_t stream,
+           int* blocks) {
+  static InstanceState st = {};
+  const auto kernel = paged_decode_kernel<T, P, D, REP>;
+  const int rep = N / KH, parts = splits + 1;
+  const size_t walk = Layout(sizeof(T), sizeof(P), D, rep, REP).total;
+  int per_sm = 0;
+  cudaError_t err = blocks_per_sm(kernel, st, dev, rep, THREADS, walk, &per_sm);
+  if (err != cudaSuccess || blocks != nullptr) {
+    if (blocks != nullptr) *blocks = per_sm;
+    return (int)err;
+  }
+  const int gs = stage_parts(parts, rep, D, per_sm, dev);
+  const size_t smem = std::max(walk, merge_smem(parts, rep, D, gs));
+  err = allow_smem(kernel, st, dev, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KH, splits + 1);
-  paged_decode_kernel<T, P, D, REP><<<grid, THREADS, smem, stream>>>(
+  dim3 grid(B, KH, parts);
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(pk), static_cast<const P*>(pv),
       static_cast<const int*>(tables), static_cast<const int*>(mask), static_cast<const T*>(kn),
       static_cast<const T*>(vn), static_cast<const float*>(ksc), static_cast<const float*>(vsc),
       static_cast<T*>(out), static_cast<float*>(ws_o), static_cast<float*>(ws_ml), static_cast<int*>(counters),
-      N, KH, page, P_slot, splits, scale);
+      N, KH, page, P_slot, splits, gs, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, typename P, int D>
 int by_rep(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
            const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
-           int B, int N, int KH, int page, int P_slot, int splits, float scale, int dev, cudaStream_t st) {
+           int B, int N, int KH, int page, int P_slot, int splits, float scale, int dev, cudaStream_t st,
+           int* blocks) {
   const int rep = N / KH;
   if (rep <= 4)
     return launch<T, P, D, 4>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH,
-                              page, P_slot, splits, scale, dev, st);
+                              page, P_slot, splits, scale, dev, st, blocks);
   if (rep <= 8)
     return launch<T, P, D, 8>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH,
-                              page, P_slot, splits, scale, dev, st);
+                              page, P_slot, splits, scale, dev, st, blocks);
   return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, typename P>
 int by_dim(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
            const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
-           int B, int N, int KH, int D, int page, int P_slot, int splits, float scale, int dev, cudaStream_t st) {
+           int B, int N, int KH, int D, int page, int P_slot, int splits, float scale, int dev, cudaStream_t st,
+           int* blocks) {
   if (D == 64)
     return by_rep<T, P, 64>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH, page,
-                            P_slot, splits, scale, dev, st);
+                            P_slot, splits, scale, dev, st, blocks);
   if (D == 128)
     return by_rep<T, P, 128>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, N, KH, page,
-                             P_slot, splits, scale, dev, st);
+                             P_slot, splits, scale, dev, st, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename... A>
+int by_dtype(int dtype, int int8_pool, A... a) {
+  if (dtype == 1 && !int8_pool) return by_dim<bf16, bf16>(a...);
+  if (dtype == 1 && int8_pool) return by_dim<bf16, int8_t>(a...);
+  if (dtype == 0 && !int8_pool) return by_dim<float, float>(a...);
+  if (dtype == 0 && int8_pool) return by_dim<float, int8_t>(a...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -396,13 +421,18 @@ extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void
   if (B <= 0 || KH <= 0 || N % KH != 0 || P_slot <= 0 || KH > 65535 || page <= 0 || page > TP ||
       (page & (page - 1)) != 0 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PAGED_ARGS q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, ws_o, ws_ml, counters, B, N, \
-                   KH, D, page, P_slot, splits, scale, device, st
-  if (dtype == 1 && !int8_pool) return by_dim<bf16, bf16>(PAGED_ARGS);
-  if (dtype == 1 && int8_pool) return by_dim<bf16, int8_t>(PAGED_ARGS);
-  if (dtype == 0 && !int8_pool) return by_dim<float, float>(PAGED_ARGS);
-  if (dtype == 0 && int8_pool) return by_dim<float, int8_t>(PAGED_ARGS);
-#undef PAGED_ARGS
-  return (int)cudaErrorInvalidValue;
+  return by_dtype(dtype, int8_pool, q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, ws_o, ws_ml,
+                  counters, B, N, KH, D, page, P_slot, splits, scale, device, static_cast<cudaStream_t>(stream),
+                  static_cast<int*>(nullptr));
+}
+
+// The blocks of one SM the instance for (N, K, D, dtype, int8_pool) holds on
+// `device`, written to *blocks. Returns a cudaError_t value.
+extern "C" int paged_attention_blocks_per_sm(int N, int KH, int D, int dtype, int int8_pool, int device,
+                                             int* blocks) {
+  if (KH <= 0 || N % KH != 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+  const void* none = nullptr;
+  return by_dtype(dtype, int8_pool, none, none, none, none, none, none, none, none, none, (void*)nullptr,
+                  (void*)nullptr, (void*)nullptr, (void*)nullptr, 1, N, KH, D, TP, 1, 1, 1.0f, device,
+                  (cudaStream_t)nullptr, blocks);
 }

@@ -5,7 +5,9 @@
 // walks its share of slot b's stored window: tiles of TP = 64 positions,
 // ceil(tiles / splits) of them a split, the first split starting at 0
 // (split_range; the host's ops/kernels/paged_attention.py::split_plan picks
-// `splits` from the shapes alone). Block z == splits attends the new
+// `splits` from the shapes and the blocks an SM holds of the instance, which
+// blocks_per_sm reads from the occupancy calculator once per device and
+// stage_parts keeps through the merge). Block z == splits attends the new
 // column(s), k_new / v_new, so they form one more partial. Each block writes
 // its fp32 partial for the KV head's R query rows -- the maximum m of its
 // logits, the sum l of exp(logit - m) and the unnormalised o = sum of
@@ -39,23 +41,6 @@ constexpr int MAX_SPLITS = 32;   // stored-window parts a (slot, KV head); one m
 constexpr float MASKED = -1e30f;
 
 __host__ __device__ constexpr size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-// Phase marks for scripts/paged_probe.py. Built with PAGED_TIMELINE, thread 0
-// of each block writes the global timer (ns) at each phase of its run to
-// paged_timeline[block * 8 + phase]; in every other build the marks are empty.
-enum Mark { MARK_START, MARK_STAGED, MARK_LANDED, MARK_COMPUTED, MARK_WRITTEN, MARK_TICKET, MARK_MERGED };
-#ifdef PAGED_TIMELINE
-__device__ unsigned long long* paged_timeline;
-extern "C" int paged_set_timeline(void* p) { return (int)cudaMemcpyToSymbol(paged_timeline, &p, sizeof(p)); }
-__device__ __forceinline__ void mark(Mark m) {
-  if (threadIdx.x != 0 || paged_timeline == nullptr) return;
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  paged_timeline[(((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 8 + m] = t;
-}
-#else
-__device__ __forceinline__ void mark(Mark) {}
-#endif
 
 // Positions [s0, s1) of split z: ceil(tiles / splits) whole tiles a split.
 __device__ __forceinline__ void split_range(int S, int splits, int z, int& s0, int& s1) {
@@ -152,13 +137,10 @@ __device__ __forceinline__ void walk(const TileSmem& sm, const P* __restrict__ p
     const int n_pos = min(TP, S - t0);
     if (!stage_tile<P, D>(sm, pool_k, pool_v, ksc_pool, vsc_pool, table, mrow, t0, n_pos, KH, kvh, page))
       continue;  // nothing valid in this tile
-    mark(MARK_STAGED);
     cp_async_wait<0>();
     __syncthreads();
-    mark(MARK_LANDED);
     compute(n_pos);
     __syncthreads();  // before the next tile overwrites the staged pages and the mask
-    mark(MARK_COMPUTED);
   }
 }
 
@@ -181,11 +163,9 @@ struct Parts {
 __device__ __forceinline__ bool last_ticket(int* counter, int parts) {
   __shared__ int last;
   __syncthreads();
-  mark(MARK_WRITTEN);
   if (threadIdx.x == 0) {
     __threadfence();  // cumulative: the block's part, ordered by the barrier, is visible before the ticket
     const int ticket = atomicAdd(counter, 1);
-    mark(MARK_TICKET);
     last = ticket == parts - 1;
     if (last) {
       *counter = 0;
@@ -208,34 +188,29 @@ __device__ __forceinline__ void store4<bf16>(bf16* dst, float4 v) {
 }
 
 // Shared memory of the merge: each part's (m -> weight) and l, each row's
-// 1 / L and output offset, then a stage for the parts' o, as many parts at a time as
-// MERGE_STAGE_BYTES hold (at least one).
+// 1 / L and output offset, then a stage for the parts' o, `gs` parts at a
+// time (stage_parts picks gs on the host).
 constexpr size_t MERGE_STAGE_BYTES = 72 * 1024;
 
 __host__ __device__ inline size_t merge_bytes(int parts, int R) {
   return align128((size_t)(2 * parts + 2) * R * sizeof(float));
 }
-__host__ __device__ inline int merge_batch(int parts, int R, int D) {
-  const int fit = (int)(MERGE_STAGE_BYTES / ((size_t)R * D * sizeof(float)));
-  return fit < 1 ? 1 : fit < parts ? fit : parts;
-}
-__host__ __device__ inline size_t merge_smem(int parts, int R, int D) {
-  return merge_bytes(parts, R) + (size_t)merge_batch(parts, R, D) * R * D * sizeof(float);
+__host__ __device__ inline size_t merge_smem(int parts, int R, int D, int gs) {
+  return merge_bytes(parts, R) + (size_t)gs * R * D * sizeof(float);
 }
 
 // The last block of (slot b, KV head kvh): merge its parts in part order and
 // store out = O / L for the KV head's R = W * rep rows (row i = w * rep + r is
 // query head kvh * rep + r at window position w; out is (B, W, N, D)).
-// `sm` holds merge_smem(parts, R, D) bytes. E: 4-column chunks a thread, at
-// least ceil(R * D / 4 / blockDim.x). The first batch of parts' o is in
+// `sm` holds merge_smem(parts, R, D, gs) bytes. E: 4-column chunks a thread,
+// at least ceil(R * D / 4 / blockDim.x). The first batch of gs parts' o is in
 // flight by cp.async beside the one round trip for every (m, l); each
 // further batch takes one more.
 template <typename T, int D, int E>
 __device__ __forceinline__ void merge_parts(const Parts& ws, int bk, T* __restrict__ out, int b, int kvh, int W,
-                                            int N, int rep, unsigned char* sm) {
+                                            int N, int rep, int gs, unsigned char* sm) {
   constexpr int C4 = D / 4;
   const int tid = threadIdx.x, nthreads = blockDim.x, R = ws.R, parts = ws.parts, PR = parts * R;
-  const int gs = merge_batch(parts, R, D);
   float* wm = reinterpret_cast<float*>(sm);  // (parts, R): m, then the part's weight
   float* wl = wm + PR;                       // (parts, R): l
   float* winv = wl + PR;                     // (R,): 1 / L
@@ -317,28 +292,81 @@ __device__ __forceinline__ void merge_parts(const Parts& ws, int bk, T* __restri
       store4<T>(dst, make_float4(acc[e].x * inv, acc[e].y * inv, acc[e].z * inv, acc[e].w * inv));
     }
   }
-  mark(MARK_MERGED);
 }
 
-// Per device and kernel instance: the shared memory a block may opt in to,
-// read once, and the size the instance was last allowed, so a launch calls
-// cudaFuncSetAttribute only when it needs more than before.
+// Host side. Per device: the shared memory a block may opt in to, an SM's
+// shared memory and what the runtime reserves a block, read once.
 constexpr int MAX_DEVICES = 64;
 
-inline int smem_optin(int dev) {
-  static int cached[MAX_DEVICES] = {};
-  if (dev < 0 || dev >= MAX_DEVICES) return 0;
-  if (cached[dev] == 0) cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return cached[dev];
+struct DeviceSmem {
+  int optin, per_sm, reserved;
+};
+
+inline const DeviceSmem* device_smem(int dev) {
+  static DeviceSmem cached[MAX_DEVICES] = {};
+  if (dev < 0 || dev >= MAX_DEVICES) return nullptr;
+  DeviceSmem& c = cached[dev];
+  if (c.optin == 0) {
+    cudaDeviceGetAttribute(&c.per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&c.reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    cudaDeviceGetAttribute(&c.optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  return &c;
 }
 
+// Per kernel instance and device: the dynamic shared memory the instance was
+// last allowed (a launch calls cudaFuncSetAttribute only when it needs more),
+// and the blocks an SM holds for each launch variant (the decode kernel's
+// query rows a KV head, the window kernel's warps).
+constexpr int MAX_VARIANTS = 16;
+
+struct InstanceState {
+  size_t allowed[MAX_DEVICES];
+  int blocks[MAX_DEVICES][MAX_VARIANTS];
+};
+
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, size_t* allowed, int dev, size_t bytes) {
-  if (dev < 0 || dev >= MAX_DEVICES || bytes > (size_t)smem_optin(dev)) return cudaErrorInvalidValue;
-  if (allowed[dev] >= bytes) return cudaSuccess;
+inline cudaError_t allow_smem(Kernel kernel, InstanceState& st, int dev, size_t bytes) {
+  const DeviceSmem* ds = device_smem(dev);
+  if (ds == nullptr || bytes > (size_t)ds->optin) return cudaErrorInvalidValue;
+  if (st.allowed[dev] >= bytes) return cudaSuccess;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) allowed[dev] = bytes;
+  if (err == cudaSuccess) st.allowed[dev] = bytes;
   return err;
+}
+
+// Blocks of `kernel` an SM holds at `threads` threads and `walk` bytes of
+// dynamic shared memory (the split walk's), as the runtime's occupancy
+// calculator reports from the instance's registers and shared memory; read
+// once per device and variant.
+template <typename Kernel>
+inline cudaError_t blocks_per_sm(Kernel kernel, InstanceState& st, int dev, int variant, int threads, size_t walk,
+                                 int* blocks) {
+  if (dev < 0 || dev >= MAX_DEVICES || variant < 0 || variant >= MAX_VARIANTS) return cudaErrorInvalidValue;
+  int& cached = st.blocks[dev][variant];
+  if (cached == 0) {
+    cudaError_t err = allow_smem(kernel, st, dev, walk);
+    if (err != cudaSuccess) return err;
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, walk);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    cached = n;
+  }
+  *blocks = cached;
+  return cudaSuccess;
+}
+
+// Parts of o the merge stages at a time: as many as fit, beside the merge's
+// weights, in each of `blocks` blocks' share of an SM's shared memory (so
+// the merge's stage never lowers the occupancy the walk has), at most
+// MERGE_STAGE_BYTES' worth, at least one.
+inline int stage_parts(int parts, int R, int D, int blocks, int dev) {
+  const DeviceSmem* ds = device_smem(dev);
+  long long budget = (long long)ds->per_sm / blocks - ds->reserved - (long long)merge_bytes(parts, R);
+  if (budget > (long long)MERGE_STAGE_BYTES) budget = MERGE_STAGE_BYTES;
+  const long long fit = budget / ((long long)R * D * sizeof(float));
+  return fit < 1 ? 1 : fit < parts ? (int)fit : parts;
 }
 
 }  // namespace paged_split

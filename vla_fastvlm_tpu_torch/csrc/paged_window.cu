@@ -40,8 +40,11 @@
 // ~0.2 GFLOP a launch, ~3.4 us at 3.35 TB/s. The one-block-per-(slot, KV
 // head) design sat at 14x that: 68 blocks, each walking 6 tiles with
 // synchronous loads. Design: a (B, K, splits + 1) grid, splits from the
-// shapes alone (ops/kernels/paged_attention.py::split_plan: 3 parts of 2
-// tiles at the 7B verify shape, 272 blocks, one wave at 3 blocks an SM); a
+// shapes and the blocks an SM holds of the instance
+// (ops/kernels/paged_attention.py::split_plan, the occupancy from
+// paged_window_blocks_per_sm: at the 7B verify shape 3 parts of 2 tiles in
+// bf16, whose 181 registers fit 2 blocks an SM, and 6 of one tile over int8
+// pools, 168 registers and 4 blocks an SM); a
 // block carries the KV head's W * rep query rows (35 at k = 4 for both 0.5B
 // and 7B), ceil(W * rep / 16) warps, each owning 16 of them as an mma.sync
 // m16n8k16 tile with the FlashAttention-2 register layout of
@@ -52,7 +55,7 @@
 // shared memory), and every warp reads the staged tile. Block z == splits
 // stages the window's W rows (a 16-column tile) and attends them
 // slot-causally. The merge stages the parts' o in shared memory by cp.async
-// (paged_split.cuh), so a 7-part merge of 35 x 128 rows costs two round
+// (paged_split.cuh), so a 7-part merge of 35 x 128 rows costs two or three round
 // trips. The fp32 instance runs the same code with CUDA-core products
 // (mma_tiles.cuh).
 
@@ -269,7 +272,7 @@ paged_window_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const
                     const float* __restrict__ ksc_pool, const float* __restrict__ vsc_pool,
                     T* __restrict__ out, float* __restrict__ ws_o, float* __restrict__ ws_ml,
                     int* __restrict__ counters, int W, int N, int KH, int page, int P_slot, int splits,
-                    float scale) {
+                    int gs, float scale) {
   constexpr bool INT8 = sizeof(P) == 1;
   constexpr int LD = D + PAD;
   constexpr int CH = D * (int)sizeof(T) / 16;  // 16-byte chunks of a T row
@@ -282,7 +285,6 @@ paged_window_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const
   const int rep = N / KH, R = W * rep, S = P_slot * page, bk = b * KH + kvh;
   const Parts ws{ws_o, ws_ml, splits + 1, R};
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  mark(MARK_START);
 
   // One warp per 16 block rows: blockDim.x = 32 * ceil(R / 16).
   WinTile<T, D> tile;
@@ -330,27 +332,38 @@ paged_window_kernel(const T* __restrict__ q, const P* __restrict__ pool_k, const
 
   tile.write_part(ws.o_of(bk, z, D), ws.ml_of(bk, z), R);
   if (!last_ticket(counters + bk, splits + 1)) return;
-  merge_parts<T, D, D / 8>(ws, bk, out, b, kvh, W, N, rep, smem);
+  merge_parts<T, D, D / 8>(ws, bk, out, b, kvh, W, N, rep, gs, smem);
 }
 
+// Launch one call, or with `blocks` set only report the blocks an SM holds
+// (split_plan's wave on the host).
 template <typename T, typename P, int D>
 int launch(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
            const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
            int B, int W, int N, int KH, int page, int P_slot, int splits, float scale, int dev,
-           cudaStream_t stream) {
-  static size_t allowed[MAX_DEVICES] = {};
-  const int warps = (W * (N / KH) + 15) / 16;
+           cudaStream_t stream, int* blocks) {
+  static InstanceState st = {};
+  const auto kernel = paged_window_kernel<T, P, D>;
+  const int R = W * (N / KH), warps = (R + 15) / 16, parts = splits + 1;
   if (warps > MAX_WARPS) return (int)cudaErrorInvalidValue;
-  const size_t smem = std::max(Layout(sizeof(T), D, sizeof(P) == 1).total, merge_smem(splits + 1, W * (N / KH), D));
-  const cudaError_t err = allow_smem(paged_window_kernel<T, P, D>, allowed, dev, smem);
+  const size_t walk = Layout(sizeof(T), D, sizeof(P) == 1).total;
+  int per_sm = 0;
+  cudaError_t err = blocks_per_sm(kernel, st, dev, warps, 32 * warps, walk, &per_sm);
+  if (err != cudaSuccess || blocks != nullptr) {
+    if (blocks != nullptr) *blocks = per_sm;
+    return (int)err;
+  }
+  const int gs = stage_parts(parts, R, D, per_sm, dev);
+  const size_t smem = std::max(walk, merge_smem(parts, R, D, gs));
+  err = allow_smem(kernel, st, dev, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(B, KH, splits + 1);
-  paged_window_kernel<T, P, D><<<grid, 32 * warps, smem, stream>>>(
+  dim3 grid(B, KH, parts);
+  kernel<<<grid, 32 * warps, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(pk), static_cast<const P*>(pv),
       static_cast<const int*>(tables), static_cast<const int*>(mask), static_cast<const T*>(kn),
       static_cast<const T*>(vn), static_cast<const float*>(ksc), static_cast<const float*>(vsc),
       static_cast<T*>(out), static_cast<float*>(ws_o), static_cast<float*>(ws_ml), static_cast<int*>(counters),
-      W, N, KH, page, P_slot, splits, scale);
+      W, N, KH, page, P_slot, splits, gs, scale);
   return (int)cudaGetLastError();
 }
 
@@ -358,13 +371,22 @@ template <typename T, typename P>
 int by_dim(const void* q, const void* pk, const void* pv, const void* tables, const void* mask, const void* kn,
            const void* vn, const void* ksc, const void* vsc, void* out, void* ws_o, void* ws_ml, void* counters,
            int B, int W, int N, int KH, int D, int page, int P_slot, int splits, float scale, int dev,
-           cudaStream_t st) {
+           cudaStream_t st, int* blocks) {
   if (D == 64)
     return launch<T, P, 64>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, W, N, KH,
-                            page, P_slot, splits, scale, dev, st);
+                            page, P_slot, splits, scale, dev, st, blocks);
   if (D == 128)
     return launch<T, P, 128>(q, pk, pv, tables, mask, kn, vn, ksc, vsc, out, ws_o, ws_ml, counters, B, W, N, KH,
-                             page, P_slot, splits, scale, dev, st);
+                             page, P_slot, splits, scale, dev, st, blocks);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename... A>
+int by_dtype(int dtype, int int8_pool, A... a) {
+  if (dtype == 1 && !int8_pool) return by_dim<bf16, bf16>(a...);
+  if (dtype == 1 && int8_pool) return by_dim<bf16, int8_t>(a...);
+  if (dtype == 0 && !int8_pool) return by_dim<float, float>(a...);
+  if (dtype == 0 && int8_pool) return by_dim<float, int8_t>(a...);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -387,13 +409,18 @@ extern "C" int paged_window_fwd(const void* q, const void* pool_k, const void* p
   if (B <= 0 || W <= 0 || W > WIN || KH <= 0 || N % KH != 0 || P_slot <= 0 || KH > 65535 || page <= 0 ||
       page > TP || (page & (page - 1)) != 0 || splits < 1 || splits > MAX_SPLITS)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define WINDOW_ARGS q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, ws_o, ws_ml, counters, B, W, \
-                    N, KH, D, page, P_slot, splits, scale, device, st
-  if (dtype == 1 && !int8_pool) return by_dim<bf16, bf16>(WINDOW_ARGS);
-  if (dtype == 1 && int8_pool) return by_dim<bf16, int8_t>(WINDOW_ARGS);
-  if (dtype == 0 && !int8_pool) return by_dim<float, float>(WINDOW_ARGS);
-  if (dtype == 0 && int8_pool) return by_dim<float, int8_t>(WINDOW_ARGS);
-#undef WINDOW_ARGS
-  return (int)cudaErrorInvalidValue;
+  return by_dtype(dtype, int8_pool, q, pool_k, pool_v, tables, mask, k_new, v_new, kscale, vscale, out, ws_o, ws_ml,
+                  counters, B, W, N, KH, D, page, P_slot, splits, scale, device, static_cast<cudaStream_t>(stream),
+                  static_cast<int*>(nullptr));
+}
+
+// The blocks of one SM the instance for (W, N, K, D, dtype, int8_pool) holds
+// on `device`, written to *blocks. Returns a cudaError_t value.
+extern "C" int paged_window_blocks_per_sm(int W, int N, int KH, int D, int dtype, int int8_pool, int device,
+                                          int* blocks) {
+  if (W <= 0 || W > WIN || KH <= 0 || N % KH != 0 || blocks == nullptr) return (int)cudaErrorInvalidValue;
+  const void* none = nullptr;
+  return by_dtype(dtype, int8_pool, none, none, none, none, none, none, none, none, none, (void*)nullptr,
+                  (void*)nullptr, (void*)nullptr, (void*)nullptr, 1, W, N, KH, D, TP, 1, 1, 1.0f, device,
+                  (cudaStream_t)nullptr, blocks);
 }

@@ -24,8 +24,10 @@ what bounds it and how the design answers that: ``csrc/paged_attention.cu``
 - Both kernels split each slot's stored window across blocks and merge the
   parts inside the same launch (``csrc/paged_split.cuh``): one launch a call,
   int8 scales read through the page table, no host sync. ``split_plan`` fixes
-  the number of parts from the shapes alone; ``paged_attention_split_reference``
-  is the plain twin of that split-and-merge arithmetic, for tests and checks.
+  the number of parts from the shapes and the blocks the kernel instance
+  runs at once on the card (``instance_wave``, read once);
+  ``paged_attention_split_reference`` is the plain twin of that
+  split-and-merge arithmetic, for tests and checks.
 - ``lengths`` (B,) is each slot's write cursor. The kernels do not read it:
   like the Pallas kernel they rely on the server's invariant that
   ``kv_mask`` marks only positions below the cursor. The plain version
@@ -36,6 +38,7 @@ what bounds it and how the design answers that: ``csrc/paged_attention.cu``
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -49,32 +52,56 @@ MAX_PAGE = 64
 MAX_WINDOW = 9  # verify window positions (k <= 8 draft tokens)
 TILE = 64  # stored positions a kernel tile (csrc/paged_split.cuh TP)
 MAX_SPLITS = 32  # stored-window parts a (slot, KV head) (csrc/paged_split.cuh)
-# One wave of blocks on an H100 SXM: 132 SMs, each holding 4 blocks of the
-# W = 1 kernel (128 threads, up to 128 registers) or 3 of the window kernel
-# (up to 160 threads, 168-181 registers at head_dim 128).
-SMS = 132
-BLOCKS_PER_SM = {True: 4, False: 3}
 MASKED = -1e30
 
 
-def split_plan(b: int, kh: int, p_slot: int, page: int, w: int = 1) -> int:
+def split_plan(b: int, kh: int, p_slot: int, page: int, w: int = 1, *, wave: int) -> int:
     """Parts of the stored window each (slot, KV head) is split into, from the
-    shapes alone (never the mask, so a CUDA graph can replay the launch):
-    the most splits of whole 64-position tiles whose launch, ``b * kh *
-    (splits + 1)`` blocks with the new columns' part, still runs in one wave
-    (a second wave waits for the first); at least 1, at most ``MAX_SPLITS``.
-    At the serving shapes: 3 parts of 2 tiles for the 0.5B decode tick (512
-    blocks), 6 of one tile with the 7B heads (448), 3 of 2 for the 7B verify
-    window (272)."""
+    shapes and ``wave``, the blocks of the kernel instance the card runs at
+    once (``instance_wave``); never the mask, so a CUDA graph can replay the
+    launch. The most splits of whole 64-position tiles whose split blocks,
+    ``b * kh * splits``, still run in one wave (a second wave waits for the
+    first); the new columns' blocks, one more per (slot, KV head), are not
+    counted: they attend a single 16-column tile and leave their SM long
+    before the split blocks do. At least 1, at most ``MAX_SPLITS``."""
     tiles = -(-p_slot * page // TILE)
-    wave = SMS * BLOCKS_PER_SM[w == 1]
     best = 1
     for per in range(tiles, 0, -1):
         splits = -(-tiles // per)
-        if splits > MAX_SPLITS or b * kh * (splits + 1) > wave:
+        if splits > MAX_SPLITS or b * kh * splits > wave:
             break
         best = splits
     return best
+
+
+@functools.lru_cache(maxsize=None)
+def _instance_wave(device_index: int, window: bool, w: int, n: int, kh: int, d: int, dtype_code: int,
+                   int8: bool) -> int:
+    lib = "paged_window" if window else "paged_attention"
+    shape = (w, n, kh, d) if window else (n, kh, d)
+    fn = _build.LIBRARIES.entry(lib, f"{lib}_blocks_per_sm", [ctypes.c_int] * (len(shape) + 3)
+                                + [ctypes.POINTER(ctypes.c_int)], ctypes.c_int)
+    blocks = ctypes.c_int(0)
+    _build.check(fn(*shape, dtype_code, int(int8), device_index, ctypes.byref(blocks)), f"{lib}_blocks_per_sm")
+    return torch.cuda.get_device_properties(device_index).multi_processor_count * blocks.value
+
+
+def instance_wave(q: torch.Tensor, pool_k: torch.Tensor) -> int:
+    """Blocks of the kernel instance that ``q`` (on a CUDA device) and
+    ``pool_k`` launch which the card runs at once: its SMs times the blocks
+    an SM holds, as the CUDA occupancy calculator reports them from the
+    instance's registers and its walk's shared memory (the merge's stage is
+    sized to keep that occupancy). Read once per instance and device."""
+    window = q.ndim == 4
+    return _instance_wave(q.device.index, window, q.shape[1] if window else 1, q.shape[-2], pool_k.shape[1],
+                          q.shape[-1], _DTYPES[q.dtype], pool_k.dtype == torch.int8)
+
+
+def planned_splits(q: torch.Tensor, pool_k: torch.Tensor, tables: torch.Tensor) -> int:
+    """The parts a launch on these CUDA tensors splits the stored window into."""
+    w = q.shape[1] if q.ndim == 4 else 1
+    return split_plan(q.shape[0], pool_k.shape[1], tables.shape[1], pool_k.shape[2], w,
+                      wave=instance_wave(q, pool_k))
 
 
 def split_ranges(s_max: int, splits: int) -> list:
@@ -103,7 +130,7 @@ paged_attention_window_reference = paged_attention_gathered
 
 def paged_attention_split_reference(
     q, pool_k, pool_v, tables, kv_mask, lengths, k_new, v_new,
-    pool_k_scale=None, pool_v_scale=None, scale: Optional[float] = None, *, splits: Optional[int] = None,
+    pool_k_scale=None, pool_v_scale=None, scale: Optional[float] = None, *, splits: int,
 ) -> torch.Tensor:
     """The kernels' split-and-merge arithmetic in plain torch (q (B, N, D) or
     (B, W, N, D)), for tests and on-card checks; the main path never runs it.
@@ -126,8 +153,6 @@ def paged_attention_split_reference(
     rows, s_max = w * rep, p_slot * page
     if scale is None:
         scale = d ** -0.5
-    if splits is None:
-        splits = split_plan(b, kh, p_slot, page, w)
     quantized = pool_k.dtype == torch.int8
     tl = tables.long()
 
@@ -251,13 +276,21 @@ def scale_window(scale_pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor
 
 
 # Per (device, kernel): (slot, KV head) ticket counters, zeroed once here and
-# left zero by every launch, so no launch has to clear them.
+# left zero by every launch, so no launch has to clear them. A buffer that
+# grows is replaced, and the old one kept, so a CUDA graph that captured it
+# still replays into live memory.
 _COUNTERS: dict = {}
+_RETIRED: list = []
 
 
 def _counters(device: torch.device, symbol: str, n: int) -> torch.Tensor:
     buf = _COUNTERS.get((device, symbol))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{symbol}: its ticket counters must be allocated and zeroed before a CUDA graph "
+                               f"captures it; launch it once at this batch outside the capture first")
+        if buf is not None:
+            _RETIRED.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[(device, symbol)] = buf
     return buf
@@ -268,14 +301,20 @@ def _launch(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k_scale, pool
     """Launch the decode kernel (q (B, N, D)) or the window kernel (q (B, W, N, D)).
 
     ``splits`` forces the number of stored-window parts (tests and on-card
-    checks); by default ``split_plan``. Nothing here waits on the device."""
+    checks); by default ``planned_splits``. Nothing here waits on the device.
+
+    Each kernel keeps one set of ticket counters per device, which every
+    launch leaves at zero: launches of one kernel on one device must not run
+    at once, so issue them on one stream (or order the streams), and replay a
+    CUDA graph that holds them only where no other launch of that kernel runs
+    beside it."""
     check_kernel_shapes(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k_scale, pool_v_scale)
     b, n, d = q.shape[0], q.shape[-2], q.shape[-1]
     w = q.shape[1] if q.ndim == 4 else 1
     _, kh, page, _ = pool_k.shape
     p_slot = tables.shape[1]
     if splits is None:
-        splits = split_plan(b, kh, p_slot, page, w)
+        splits = planned_splits(q, pool_k, tables)
     if not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"paged kernels take 1 <= splits <= {MAX_SPLITS}, got {splits}")
     quantized = pool_k.dtype == torch.int8
@@ -292,8 +331,8 @@ def _launch(q, pool_k, pool_v, tables, kv_mask, k_new, v_new, pool_k_scale, pool
         symbol, wrapper, shape = "paged_window_fwd", paged_attention_window, (b, w, n, kh, d, page, p_slot)
     fn = _build.launcher(symbol.rsplit("_", 1)[0], symbol, 13,
                          [ctypes.c_int] * (len(shape) + 1) + [ctypes.c_float] + [ctypes.c_int] * 3)
-    counters = _counters(q.device, symbol, b * kh)
     with torch.cuda.device(q.device):
+        counters = _counters(q.device, symbol, b * kh)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), tables_i.data_ptr(), mask_i.data_ptr(),
