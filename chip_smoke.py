@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
     python3 chip_smoke.py                 # the full check, about four minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
+    python3 chip_smoke.py --only flash    # the flash-attention kernel alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
     python3 chip_smoke.py --only paged    # the two paged-attention kernels alone: build, checks, times (about a minute)
 
@@ -15,9 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the same inputs,
    in bf16 at the main paths' shapes and in fp32 at a small batch with a
    tight tolerance: flash at the policy step's shapes (right-padded masks,
-   fully padded rows), at head_dim 128 (the 7B decoder's shape) and at
-   S = 2048 / 1024 (the streamed instance); RepMixer per stage, fp32 up to
-   C = 384, and ragged pixel grids at each width in both dtypes; paged decode attention at the serving shape in bf16 and over
+   fully padded rows; causal and not), at head_dim 128 (the 7B decoder's
+   shape), with left-padded masks, at T = 1, 17 and 100 (rows that do not
+   fill a block) and at S = 2048 / 1024 (the streamed instance); RepMixer
+   per stage, fp32 up to C = 384, and ragged pixel grids at each width in
+   both dtypes; paged decode attention at the serving shape in bf16 and over
    int8 pools, at head_dim 128, and in fp32 with trash pages and an empty
    stored mask; the verify window kernel (W > 1) in bf16 and over int8
    pools at the 7B verify shape and with the 0.5B heads, and in fp32 at
@@ -66,14 +69,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    least time the card could take for the same work; for RepMixer each
    width's time split into a part per hidden chunk and a fixed part.
 
-``--only repmixer`` runs phase 1 for the RepMixer source alone, the RepMixer
-checks of phase 2 and the RepMixer timing of phase 6, then prints the card
-line and a JSON line of the kernel's numbers. ``--only paged`` does the same
-for the two paged-attention sources: their checks of phase 2, then at each
-of the 8 paged shapes of phase 6 the wrapper call (``ms``), the kernel's
-launch alone (``kernel_ms``: mask and tables already int32), the plain
-version, the bound, the planned parts, the launch alone with the L2 emptied
-first, and the launch alone at 1, 2, 3 and 6 parts.
+``--only flash`` runs phase 1 for the flash-attention source alone, the
+flash checks of phase 2 and, at the policy's shape, the 7B heads' and the
+two streamed shapes, the wrapper call (``ms``), the kernel's launch alone
+(``kernel_ms``), the plain version, ``scaled_dot_product_attention``, the
+bound and the launch alone with the L2 emptied first; at the policy's shape
+also with every key valid, and at the first two shapes by block shape (tiles
+of 16 packed rows and warps a block, with the blocks an SM holds); then the
+card line and a JSON line of the numbers. ``--only repmixer`` does the same
+for the RepMixer source: its checks of phase 2 and its timing of phase 6.
+``--only paged`` does the same for the two paged-attention sources: their
+checks of phase 2, then at each of the 8 paged shapes of phase 6 the wrapper
+call (``ms``), the kernel's launch alone (``kernel_ms``: mask and tables
+already int32), the plain version, the bound, the planned parts, the launch
+alone with the L2 emptied first, and the launch alone at 1, 2, 3 and 6
+parts.
 
 Prints the card's name and power limit, a JSON line of the kernels, and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -82,6 +92,7 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import statistics
 import subprocess
@@ -228,10 +239,13 @@ def check_close(what: str, out, ref, tol) -> float:
 # ---------------------------------------------------------------------------
 # inputs
 
-def flash_inputs(b, t, n, kh, d, dtype, seed=0):
-    """q/k/v ~ N(0, 1); right-padded key masks of varied length, one row in
-    eight entirely padded, as the decoder's prefill mask would never be but
-    the kernel must take."""
+def flash_inputs(b, t, n, kh, d, dtype, seed=0, pad="right"):
+    """q/k/v ~ N(0, 1); key masks of varied length, one row in eight
+    entirely padded, as the decoder's prefill mask would never be but the
+    kernel must take. ``pad``: "right" (the policy's: valid keys first),
+    "left" (valid keys last, as a left-padding tokenizer gives them: the
+    first positions of a row see no allowed key under causal masking) or
+    "none" (every key valid)."""
     import torch
 
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -240,8 +254,10 @@ def flash_inputs(b, t, n, kh, d, dtype, seed=0):
     v = torch.randn(b, t, kh, d, generator=g).to("cuda", dtype)
     lengths = torch.randint(1, t + 1, (b,), generator=g)
     lengths[::8] = 0
-    mask = (torch.arange(t)[None, :] < lengths[:, None]).to(torch.int32).to("cuda")
-    return q, k, v, mask
+    idx = torch.arange(t)[None, :]
+    mask = {"right": idx < lengths[:, None], "left": idx >= t - lengths[:, None],
+            "none": torch.ones(b, t, dtype=torch.bool)}[pad]
+    return q, k, v, mask.to(torch.int32).to("cuda")
 
 
 def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False, w=None, hole=False):
@@ -426,33 +442,56 @@ def ptxas_usage(text: str) -> list:
     return out
 
 
-def phase_kernels():
+# Flash against its plain version: (label, shape, dtype, mask padding). The
+# main path's shapes in bf16 (the policy step's, the 7B decoder's heads),
+# fp32 at a small batch, left-padded masks, T = 1, T = 17 and 100 (7 x 17 =
+# 119 and 7 x 100 = 700 packed rows: not whole blocks of 128 at D = 64 or
+# 112 at D = 128), and above what a block's shared memory holds (the
+# streamed instance).
+FLASH_CHECKS = [
+    ("flash bf16 main", FLASH_MAIN, "bf16", "right"),
+    ("flash bf16 d128", FLASH_7B, "bf16", "right"),
+    ("flash fp32 d64", dict(FLASH_MAIN, b=4), "fp32", "right"),
+    ("flash fp32 d128", dict(FLASH_7B, b=2), "fp32", "right"),
+    ("flash bf16 main left-padded", FLASH_MAIN, "bf16", "left"),
+    ("flash fp32 d64 left-padded", dict(FLASH_MAIN, b=9), "fp32", "left"),
+    ("flash fp32 d128 left-padded", dict(FLASH_7B, b=9), "fp32", "left"),
+    ("flash bf16 T=1", dict(FLASH_MAIN, t=1), "bf16", "right"),
+    ("flash fp32 T=17", dict(FLASH_MAIN, b=9, t=17), "fp32", "left"),
+    ("flash bf16 T=100 d128", dict(FLASH_7B, t=100), "bf16", "right"),
+    ("flash fp32 T=100", dict(FLASH_MAIN, b=9, t=100), "fp32", "right"),
+] + [(f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, kind, "right")
+     for shape in FLASH_LONG for kind in ("bf16", "fp32")]
+
+
+def check_flash() -> float:
+    """FLASH_CHECKS, with and without causal masking at the main shape,
+    and the streamed instance at the main shape; returns the bf16 error at
+    the main shape."""
     import torch
 
     from vla_fastvlm_tpu_torch.ops.kernels import flash_attention, flash_attention_reference, flash_attention_streamed
 
-    log("[2/6] kernels against their plain versions")
-    errs = {"flash_attention": 0.0, "repmixer_block": 0.0}
-    cases = [
-        ("flash bf16 main", FLASH_MAIN, torch.bfloat16, "bf16"),
-        ("flash bf16 d128", FLASH_7B, torch.bfloat16, "bf16"),
-        ("flash fp32 d64", dict(FLASH_MAIN, b=4), torch.float32, "fp32"),
-        ("flash fp32 d128", dict(FLASH_7B, b=2), torch.float32, "fp32"),
-    ]
-    for shape in FLASH_LONG:
-        for dtype, kind in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-            cases.append((f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, dtype, kind))
-    for what, shape, dtype, kind in cases:
-        q, k, v, mask = flash_inputs(**shape, dtype=dtype)
-        out = flash_attention(q, k, v, mask, True)
-        torch.cuda.synchronize()
-        err = check_close(what, out, flash_attention_reference(q, k, v, mask, True), TOL[("flash", kind)])
-        if kind == "bf16" and shape is FLASH_MAIN:
-            errs["flash_attention"] = err
+    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    main_err = 0.0
+    for what, shape, kind, pad in FLASH_CHECKS:
+        q, k, v, mask = flash_inputs(**shape, dtype=dtypes[kind], pad=pad)
+        for causal in (True, False) if shape is FLASH_MAIN else (True,):
+            out = flash_attention(q, k, v, mask, causal)
+            torch.cuda.synchronize()
+            err = check_close(what + ("" if causal else ", not causal"), out,
+                              flash_attention_reference(q, k, v, mask, causal), TOL[("flash", kind)])
+            if what == "flash bf16 main" and causal:
+                main_err = err
     q, k, v, mask = flash_inputs(**FLASH_MAIN, dtype=torch.bfloat16)
     check_close("flash bf16 main, streamed instance", flash_attention_streamed(q, k, v, mask, True),
                 flash_attention_reference(q, k, v, mask, True), TOL[("flash", "bf16")])
-    errs["repmixer_block"] = check_repmixer()
+    return main_err
+
+
+def phase_kernels():
+    log("[2/6] kernels against their plain versions")
+    errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
 
@@ -999,8 +1038,6 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
 def phase_timing(policy, plain, step):
     import torch
 
-    from vla_fastvlm_tpu_torch.ops.kernels import flash_attention, flash_attention_reference, flash_attention_streamed
-
     log("[6/6] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
@@ -1023,37 +1060,78 @@ def phase_timing(policy, plain, step):
         log(f"  step {what}: p50 {p50:.2f} ms, {BATCH / p50 * 1e3:.1f} actions/s "
             f"(min {min(ms):.2f}, max {max(ms):.2f}, n={len(ms)})")
 
-    import torch.nn.functional as F
-
-    results = {}
-    # flash: main-path shape
-    q, k, v, mask = flash_inputs(**FLASH_MAIN, dtype=torch.bfloat16)
-    out = flash_attention(q, k, v, mask, True)
-    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
-    t = q.shape[1]
-    bool_mask = (mask.bool()[:, None, None, :] & torch.ones(t, t, dtype=torch.bool, device="cuda").tril())
-    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bool_mask, enable_gqa=True)
-    bound, by = flash_bound_ms(q, k, v, mask, out)
-    results["flash_attention"] = dict(
-        ms=time_ms(lambda: flash_attention(q, k, v, mask, True), 50),
-        plain_ms=time_ms(lambda: flash_attention_reference(q, k, v, mask, True), 20),
-        library_ms=time_ms(lib, 50), bound_ms=bound, bound_by=by,
-    )
-    r = results["flash_attention"]
-    log(f"  flash_attention {tuple(q.shape)}x{tuple(k.shape)}: kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound {bound:.4f} ms ({by}); x24 per step")
-    streamed = time_ms(lambda: flash_attention_streamed(q, k, v, mask, True), 50)
-    log(f"  flash_attention streamed instance at the same shape: {streamed:.4f} ms")
-    for shape in FLASH_LONG:
-        q, k, v, mask = flash_inputs(**shape, dtype=torch.bfloat16)
-        out = flash_attention(q, k, v, mask, True)
-        bound, by = flash_bound_ms(q, k, v, mask, out)
-        log(f"  flash_attention streamed {tuple(q.shape)}: kernel {time_ms(lambda: flash_attention(q, k, v, mask, True), 10):.4f} ms, "
-            f"plain {time_ms(lambda: flash_attention_reference(q, k, v, mask, True), 3):.4f} ms, "
-            f"bound {bound:.4f} ms ({by})")
-
+    results = {"flash_attention": time_flash(sweep=False)["flash_attention"]}
     results.update(time_paged(sweep=False))
     results["repmixer_block"] = time_repmixer()
+    return results
+
+
+# Flash shapes timed, bf16, causal: (name, shape). The policy step's (24
+# launches a step), the 7B decoder's heads, and the streamed instance's.
+FLASH_TIMED = [("flash_attention", FLASH_MAIN), ("flash_attention d128", FLASH_7B)] + [
+    (f"flash_attention S={shape['t']} d{shape['d']}", shape) for shape in FLASH_LONG]
+# Block shapes swept at the main shape and at D = 128 (35 tiles of 16 packed
+# rows a (batch row, KV head) at both): (tiles a block, warps).
+FLASH_SWEEP = [(1, 1), (2, 2), (4, 2), (4, 4), (5, 5), (7, 4), (7, 7), (8, 4), (8, 8), (14, 7), (35, 8)]
+
+
+def time_flash(sweep: bool) -> dict:
+    """At each of FLASH_TIMED's shapes: the wrapper call (``ms``), the
+    kernel's launch alone (``kernel_ms``: the mask already int32), the plain
+    version, ``scaled_dot_product_attention`` on the same inputs with a
+    boolean mask (``library_ms``) and the bound; with ``sweep`` also the
+    launch alone with the L2 emptied first (``cold_ms``), at the main shape
+    with every key valid, and at the first two shapes for each of
+    FLASH_SWEEP's block shapes, with the blocks an SM holds."""
+    import torch
+    import torch.nn.functional as F
+
+    from vla_fastvlm_tpu_torch.ops.kernels import flash_attention, flash_attention_reference, flash_attention_streamed
+
+    fa = importlib.import_module("vla_fastvlm_tpu_torch.ops.kernels.flash_attention")  # the module, not the function
+    results = {}
+    for i, (name, shape) in enumerate(FLASH_TIMED):
+        q, k, v, mask = flash_inputs(**shape, dtype=torch.bfloat16)
+        long = shape in FLASH_LONG
+        out = flash_attention(q, k, v, mask, True)
+        t, s = q.shape[1], k.shape[1]
+        bool_mask = mask.bool()[:, None, None, :] & torch.ones(t, s, dtype=torch.bool, device="cuda").tril()
+        qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+        alone = lambda q=q, k=k, v=v, mask=mask: fa._launch(q, k, v, mask, True, q.shape[-1] ** -0.5)
+        bound, by = flash_bound_ms(q, k, v, mask, out)
+        r = dict(ms=time_ms(lambda: flash_attention(q, k, v, mask, True), 10 if long else 50),
+                 kernel_ms=time_ms(alone, 10 if long else 50),
+                 plain_ms=time_ms(lambda: flash_attention_reference(q, k, v, mask, True), 3 if long else 20),
+                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bool_mask,
+                                                                         enable_gqa=True), 10 if long else 50),
+                 bound_ms=bound, bound_by=by)
+        extra = ""
+        if sweep:
+            r["cold_ms"] = time_cold_ms(alone, 10 if long else 20)
+            extra += f", cold L2 {r['cold_ms']:.4f} ms"
+        if i == 0:
+            r["streamed_ms"] = time_ms(lambda: flash_attention_streamed(q, k, v, mask, True), 50)
+            extra += f", streamed instance {r['streamed_ms']:.4f} ms"
+            if sweep:
+                qf, kf, vf, full = flash_inputs(**shape, dtype=torch.bfloat16, pad="none")
+                r["all_keys_kernel_ms"] = time_ms(lambda: fa._launch(qf, kf, vf, full, True, q.shape[-1] ** -0.5), 50)
+                extra += f", every key valid {r['all_keys_kernel_ms']:.4f} ms"
+        if sweep and not long:
+            r["by_block"] = {}
+            for tiles, warps in FLASH_SWEEP:
+                run = lambda: fa._launch(q, k, v, mask, True, q.shape[-1] ** -0.5, tiles=tiles, warps=warps)
+                r["by_block"][f"{tiles}x{warps}"] = (time_ms(run, 50), fa.blocks_per_sm(q, k, tiles=tiles, warps=warps))
+            extra += ", by (tiles, warps): " + ", ".join(
+                f"{key} {ms:.4f} ({per} a SM)" for key, (ms, per) in r["by_block"].items())
+        if not long:
+            r["plan"] = fa.flash_plan(q.shape[1], q.shape[2], k.shape[2], q.shape[3])
+            r["blocks_per_sm"] = fa.blocks_per_sm(q, k)
+            extra += f", plan (tiles, warps) {r['plan']}, {r['blocks_per_sm']} blocks a SM"
+        results[name] = r
+        per = "; x24 per step" if shape is FLASH_MAIN else ""
+        log(f"  {name} q{tuple(q.shape)} k{tuple(k.shape)}: wrapper {r['ms']:.4f} ms, kernel alone "
+            f"{r['kernel_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}){extra}{per}")
     return results
 
 
@@ -1182,29 +1260,59 @@ def time_repmixer() -> dict:
     )
 
 
-def profile_step(policy, step, out_dir: Path) -> None:
+# Kernel-name patterns of the step's parts, first match wins; the rest is
+# unfused elementwise work (PyTorch's elementwise, reduction, copy and cat
+# kernels) and other kernels.
+STEP_PARTS = [("RepMixer", ("repmixer_kernel",)), ("flash", ("flash_fwd",)),
+              ("convolutions", ("conv", "cudnn", "fprop")), ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma"))]
+
+
+def step_parts(prof, steps: int) -> dict:
+    """Device time a step (ms) of each part of STEP_PARTS, and of the rest,
+    summed over the kernels ``prof`` recorded."""
+    from torch.autograd import DeviceType
+
+    parts = dict.fromkeys([name for name, _ in STEP_PARTS] + ["elementwise and other"], 0.0)
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        name = next((part for part, keys in STEP_PARTS if any(k in evt.key for k in keys)), "elementwise and other")
+        parts[name] += evt.self_device_time_total / 1e3 / steps
+    return parts
+
+
+def profile_step(policy, plain, step, out_dir: Path) -> None:
+    """torch.profiler tables of three steps of the kernel path and of the
+    plain path, and each one's device time a step by part (STEP_PARTS)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    step(policy)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            step(policy)
+    for name, p in (("step", policy), ("plain_step", plain)):
+        step(p)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    (out_dir / "step_profile.txt").write_text(table)
-    log(f"  profile of 3 steps written to {out_dir / 'step_profile.txt'}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(p)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        (out_dir / f"{name}_profile.txt").write_text(table)
+        parts = step_parts(prof, 3)
+        total = sum(parts.values())
+        log(f"  {name}: profile of 3 steps in {out_dir / f'{name}_profile.txt'}; device time a step {total:.2f} ms: "
+            + ", ".join(f"{part} {ms:.2f} ms ({ms / total:.1%})" for part, ms in parts.items()))
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=Path, default=None,
-                        help="directory for torch.profiler tables of three policy steps and of "
+                        help="directory for torch.profiler tables of three policy steps (kernel and plain "
+                             "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
-    parser.add_argument("--only", choices=["repmixer", "paged"], default=None,
-                        help="build, check and time one kernel family and nothing else (repmixer: "
+    parser.add_argument("--only", choices=["flash", "repmixer", "paged"], default=None,
+                        help="build, check and time one kernel family and nothing else (flash: the "
+                             "flash-attention library, its checks, its times at the policy's, the 7B "
+                             "heads' and the streamed shapes and by block shape; repmixer: "
                              "the RepMixer library, its checks against the plain version, its "
                              "per-width times; paged: the two paged-attention libraries, their "
                              "checks, their times at the 8 paged shapes and by part count)")
@@ -1224,6 +1332,17 @@ def main(argv=None) -> int:
     strict_fp32()  # fp32 plain versions in full fp32: no TF32 in cuDNN or matmuls
 
     t_start = time.perf_counter()
+    if args.only == "flash":
+        phase_build(("flash_attention",))
+        log("[2/6] flash-attention kernel against its plain version")
+        err = check_flash()
+        log("[6/6] flash-attention timing (CUDA graph replay between CUDA events)")
+        r = time_flash(sweep=True)
+        r["flash_attention"]["max_abs_err"] = err
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"flash": r}))
+        return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
         log("[2/6] RepMixer kernel against its plain version")
@@ -1265,7 +1384,7 @@ def main(argv=None) -> int:
     timings = timed("timing", phase_timing, policy, plain, step)
     log(f"seconds per phase: {phase_s}")
     if args.profile is not None:
-        profile_step(policy, step, args.profile)
+        profile_step(policy, plain, step, args.profile)
 
     # name: (source, TPU kernel it replaces, launches on its main path's run)
     meta = {

@@ -10,6 +10,8 @@ has no JAX, so leave out ``tests/conftest.py``:
 main path's full shapes.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -40,27 +42,75 @@ def cuda():
     return torch.device("cuda")
 
 
-def _flash_inputs(b, t, n, kh, d, dtype, device, seed=0):
+def _flash_inputs(b, t, n, kh, d, dtype, device, seed=0, pad="right"):
+    """Row 0 padded ("right": its last 5 keys; "left": its first 5, and row 1
+    its first half, so under causal masking their first positions see no
+    allowed key); the last row entirely padded."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn(b, t, n, d, generator=g).to(device, dtype)
     k = torch.randn(b, t, kh, d, generator=g).to(device, dtype)
     v = torch.randn(b, t, kh, d, generator=g).to(device, dtype)
     mask = torch.ones(b, t, dtype=torch.int32)
-    mask[0, t - 5:] = 0
+    if pad == "right":
+        mask[0, max(t - 5, 1):] = 0
+    else:
+        mask[0, :min(5, t - 1)] = 0
+        mask[1, :t // 2] = 0
     mask[-1, :] = 0  # one sequence entirely padded
     return q, k, v, mask.to(device)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+# (b, t, n, kh, d, mask padding, causal): the policy's heads, the 7B
+# decoder's (D = 128), left padding, T = 1, T = 17 and 100 (7 x 17 = 119 and
+# 7 x 100 = 700 packed rows: not whole blocks of 112), rep 1 and rep 8.
+FLASH_CASES = [
+    (3, 80, 14, 2, 64, "right", True),
+    (3, 80, 14, 2, 128, "right", True),
+    (3, 80, 14, 2, 64, "left", True),
+    (3, 80, 28, 4, 128, "left", True),
+    (3, 80, 14, 2, 64, "left", False),
+    (3, 1, 14, 2, 64, "right", True),
+    (3, 17, 14, 2, 64, "left", True),
+    (2, 100, 14, 2, 64, "right", True),
+    (3, 100, 28, 4, 128, "left", False),
+    (3, 80, 8, 8, 64, "left", True),
+    (3, 33, 16, 2, 128, "right", True),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-def test_flash_kernel_matches_plain(cuda, d, dtype, atol):
-    q, k, v, mask = _flash_inputs(3, 80, 14, 2, d, dtype, cuda)
+def test_flash_kernel_matches_plain(cuda, case, dtype, atol):
+    b, t, n, kh, d, pad, causal = case
+    q, k, v, mask = _flash_inputs(b, t, n, kh, d, dtype, cuda, pad=pad)
     reset_launch_counts()
-    out = flash_attention(q, k, v, mask, True)
+    out = flash_attention(q, k, v, mask, causal)
     torch.cuda.synchronize()
     assert launch_counts()["flash_attention"] == 1
+    ref = flash_attention_reference(q, k, v, mask, causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("tiles,warps", [(1, 1), (4, 2), (7, 7), (8, 4), (35, 8)])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_flash_block_shapes_match_plain(cuda, tiles, warps, dtype, atol):
+    """Blocks of other sizes than the plan's, warps running several tiles in turn."""
+    fa = importlib.import_module("vla_fastvlm_tpu_torch.ops.kernels.flash_attention")
+    q, k, v, mask = _flash_inputs(3, 80, 14, 2, 64, dtype, cuda, pad="left")
+    out = fa._launch(q, k, v, mask, True, 0.125, tiles=tiles, warps=warps)
     ref = flash_attention_reference(q, k, v, mask, True)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=atol)
+
+
+def test_flash_streamed_instance_runs_a_warp_a_tile(cuda):
+    """The streamed instance holds a tile a warp across its key blocks: it
+    takes the tiles at any warps and refuses more than 8."""
+    fa = importlib.import_module("vla_fastvlm_tpu_torch.ops.kernels.flash_attention")
+    q, k, v, mask = _flash_inputs(2, 80, 14, 2, 64, torch.bfloat16, cuda, pad="left")
+    out = fa._launch(q, k, v, mask, True, 0.125, streamed=True, tiles=7, warps=2)
+    torch.testing.assert_close(out.float(), flash_attention_reference(q, k, v, mask, True).float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(RuntimeError, match="flash_attention_fwd"):
+        fa._launch(q, k, v, mask, True, 0.125, streamed=True, tiles=9, warps=8)
 
 
 @pytest.mark.parametrize("s", [1024, 80])
