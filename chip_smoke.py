@@ -3,11 +3,12 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about four minutes
+    python3 chip_smoke.py                 # the full check, about five minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
     python3 chip_smoke.py --only flash    # the flash-attention kernel alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
     python3 chip_smoke.py --only paged    # the two paged-attention kernels alone: build, checks, times (about a minute)
+    python3 chip_smoke.py --only train    # the training phase alone, with the flash and RepMixer builds
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -16,10 +17,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the same inputs,
    in bf16 at the main paths' shapes and in fp32 at a small batch with a
    tight tolerance: flash at the policy step's shapes (right-padded masks,
-   fully padded rows; causal and not), at head_dim 128 (the 7B decoder's
+   fully padded rows; causal and not), at the train step's (T = 128, right-
+   and left-padded, bf16 and fp32), at head_dim 128 (the 7B decoder's
    shape), with left-padded masks, at T = 1, 17 and 100 (rows that do not
    fill a block) and at S = 2048 / 1024 (the streamed instance); RepMixer
-   per stage, fp32 up to C = 384, and ragged pixel grids at each width in
+   per stage of the policy step and of the train step (512 px), fp32 at
+   batch 2 of each, and ragged pixel grids at each width in
    both dtypes; paged decode attention at the serving shape in bf16 and over
    int8 pools, at head_dim 128, and in fp32 with trash pages and an empty
    stored mask; the verify window kernel (W > 1) in bf16 and over int8
@@ -37,7 +40,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    tensors already on the card give the same actions; the same weights
    through the plain path (``attention_impl="xla"``, ``vision_block_impl="xla"``)
    agree with it.
-4. serving: the paged server (``PagedGenerationServer``) of FastVLM-0.5B at
+4. training: FastVLA-0.5B at ``configs/train_aloha.yaml``'s settings (batch 8,
+   512 px, ``tokenizer_max_length`` 64, bf16 compute over fp32 parameters,
+   dropout 0.1, lr 1e-4, weight decay 1e-4), full depth, random weights from a
+   seed, driven through ``Trainer`` over ``create_aloha_dataloader`` of
+   ``SyntheticAlohaSource`` records with ALOHA's 480 x 640 camera frames.
+   Frozen backbone: ``fit()`` for 12 steps saving at step 10
+   (``keep_last_n`` 1), one ``evaluate()``, a fresh policy resumed from
+   step-10 for the last 2 steps (counters restored, step-10 pruned by the
+   step-12 save), the step-12 weights reloaded by
+   ``load_policy_from_checkpoint`` into a fresh policy with bit-equal
+   actions; launch counts 24 flash and 38 RepMixer a forward. Full backbone
+   (``train_backbone``, decoder blocks rematerialized): 3 steps, 2 x 24 flash
+   and 38 RepMixer launches a step, the peak memory. Kernel path against the
+   plain path on the same weights and batch, one step: bf16 both backbone
+   modes (loss, gradient norm, head gradients within the policy's limit, the
+   backbone's gradients within ``TRAIN_BACKBONE_REL_L2``), fp32 at batch 2
+   and 256 px (every gradient leaf within 1e-4); every trainable gradient
+   finite. Then the p50 train step and samples/s of both paths in turns
+   (20 steps a path and turn): frozen at the yaml shape and at the policy
+   step's (batch 128, 256 px), full backbone at the yaml shape; each path's
+   first ``Trainer`` step there gives its loss and gradient norm, held
+   kernel path against plain path within the policy's limit.
+5. serving: the paged server (``PagedGenerationServer``) of FastVLM-0.5B at
    its 1024 px, bf16, random weights from a seed, on the synthetic stream of
    ``scripts/serve.py``: 128 requests arriving 16 a tick, 64 slots, admission
    batches of 16, prompts of 4..64 tokens, 64 new tokens each, greedy, pages
@@ -47,7 +72,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    RepMixer = 38 x admissions, flash = 0); kernel and gathered tick logits
    from one admitted state agree; serve.py's summary and the device's idle
    share over a few decode ticks.
-5. speculative serving: ``SpeculativePagedGenerationServer`` with a
+6. speculative serving: ``SpeculativePagedGenerationServer`` with a
    FastVLM-7B target (28 layers, hidden 3584, untied LM head, vocab 152064)
    and a FastVLM-0.5B draft (vocab padded to 152064), 1024 px, bf16, random
    weights from seeds 0 and 1, k = 4, pages of 16, 16 slots, admission
@@ -63,13 +88,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefix by the dense cache path) set against the kernel-vs-gathered logit
    difference. Then FastVLM-0.5B as its own draft on 16 requests: at least
    2.0 tokens per active slot and round.
-6. timing: p50 step time and actions/sec of the kernel path and the plain
+7. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
    width's time split into a part per hidden chunk and a fixed part.
 
-``--only flash`` runs phase 1 for the flash-attention source alone, the
+``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
+their checks of phase 2 and phase 4, then the card line and the last line. ``--profile`` adds each
+timed train step's device time by part (STEP_PARTS, and the kernels'
+backward recomputes apart). ``--only flash`` runs phase 1 for the
+flash-attention source alone, the
 flash checks of phase 2 and, at the policy's shape, the 7B heads' and the
 two streamed shapes, the wrapper call (``ms``), the kernel's launch alone
 (``kernel_ms``), the plain version, ``scaled_dot_product_attention``, the
@@ -117,6 +146,13 @@ REPMIXER_STAGES = [((BATCH, 64, 64, 96, 384), 2), ((BATCH, 32, 32, 192, 768), 12
                    ((BATCH, 16, 16, 384, 1536), 24)]
 # Pixel grids that the image's edge cuts (H, W not multiples of 8 or 16).
 REPMIXER_RAGGED = [(3, 12, 20, 96, 384), (2, 20, 12, 192, 768), (2, 12, 20, 384, 1536)]
+# configs/train_aloha.yaml's batch and image size, and the train step's kernel
+# shapes there: T = 64 image + 64 text tokens; RepMixer's stages at 512 px.
+TRAIN_BATCH, TRAIN_IMAGE = 8, 512
+FLASH_TRAIN = dict(b=TRAIN_BATCH, t=(TRAIN_IMAGE // 64) ** 2 + TEXT_LEN, n=14, kh=2, d=64)
+REPMIXER_TRAIN = [(TRAIN_BATCH, TRAIN_IMAGE // 4, TRAIN_IMAGE // 4, 96, 384),
+                  (TRAIN_BATCH, TRAIN_IMAGE // 8, TRAIN_IMAGE // 8, 192, 768),
+                  (TRAIN_BATCH, TRAIN_IMAGE // 16, TRAIN_IMAGE // 16, 384, 1536)]
 
 # FastVLM-0.5B serving on the synthetic stream of scripts/serve.py, at the
 # preset's own 1024 px (256 image tokens): windows of 256 + 64 + 64 = 384
@@ -418,7 +454,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/6] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/7] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -443,8 +479,8 @@ def ptxas_usage(text: str) -> list:
 
 
 # Flash against its plain version: (label, shape, dtype, mask padding). The
-# main path's shapes in bf16 (the policy step's, the 7B decoder's heads),
-# fp32 at a small batch, left-padded masks, T = 1, T = 17 and 100 (7 x 17 =
+# main paths' shapes in bf16 (the policy step's, the 7B decoder's heads, the
+# train step's, there also in fp32), fp32 at a small batch, left-padded masks, T = 1, T = 17 and 100 (7 x 17 =
 # 119 and 7 x 100 = 700 packed rows: not whole blocks of 128 at D = 64 or
 # 112 at D = 128), and above what a block's shared memory holds (the
 # streamed instance).
@@ -460,7 +496,8 @@ FLASH_CHECKS = [
     ("flash fp32 T=17", dict(FLASH_MAIN, b=9, t=17), "fp32", "left"),
     ("flash bf16 T=100 d128", dict(FLASH_7B, t=100), "bf16", "right"),
     ("flash fp32 T=100", dict(FLASH_MAIN, b=9, t=100), "fp32", "right"),
-] + [(f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, kind, "right")
+] + [(f"flash {kind} train{label}", FLASH_TRAIN, kind, pad)
+     for kind in ("bf16", "fp32") for pad, label in (("right", ""), ("left", " left-padded"))] + [(f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, kind, "right")
      for shape in FLASH_LONG for kind in ("bf16", "fp32")]
 
 
@@ -490,7 +527,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/6] kernels against their plain versions")
+    log("[2/7] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -588,15 +625,15 @@ def check_paged() -> dict:
 
 def check_repmixer() -> float:
     """The RepMixer kernel against its plain version: bf16 at each stage's
-    main-path shape, fp32 at batch 2 of each width, and ragged pixel grids
-    (tiles cut by the image's edge) in both dtypes. Returns the largest bf16
-    error at the main-path shapes."""
+    shape on the policy step and on the train step, fp32 at batch 2 of each,
+    and ragged pixel grids (tiles cut by the image's edge) in both dtypes.
+    Returns the largest bf16 error at the main paths' shapes."""
     import torch
 
     from vla_fastvlm_tpu_torch.ops.kernels import repmixer_block, repmixer_block_reference
 
     worst = 0.0
-    for shape, _ in REPMIXER_STAGES:
+    for shape in [shape for shape, _ in REPMIXER_STAGES] + REPMIXER_TRAIN:
         b, h, w, c, f = shape
         args = repmixer_inputs(*shape, torch.bfloat16)
         out = repmixer_block(*args)
@@ -650,7 +687,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/6] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/7] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -699,6 +736,371 @@ def phase_policy():
     states_dev = bb.to_device(states)
     step = lambda p: p.model.apply_fn(img, ids, mask, states_dev)
     return policy, plain, step, counts
+
+
+# ---------------------------------------------------------------------------
+# training
+
+# configs/train_aloha.yaml: FastVLA-0.5B, batch 8, 512 px (64 image tokens),
+# tokenizer_max_length 64, bf16 compute over fp32 parameters, dropout 0.1,
+# lr 1e-4, weight decay 1e-4, seed 42; camera frames of ALOHA's 480 x 640,
+# which the letterbox resizes on the card.
+TRAIN_FRAME_HW = (480, 640)
+TRAIN_LR, TRAIN_WD, TRAIN_DROPOUT, TRAIN_SEED = 1e-4, 1e-4, 0.1, 42
+# Frozen backbone: 12 steps saving at step 10, one evaluation, a resume from
+# step 10 for the last 2 steps; full backbone: 3 steps.
+TRAIN_STEPS, TRAIN_SAVE_STEPS, TRAIN_EVAL_SAMPLES, TRAIN_FULL_STEPS = 12, 10, 16, 3
+# Flash and RepMixer launches a forward of FastVLA-0.5B (24 decoder layers;
+# FastViTHD's RepMixer blocks, depths 2 / 12 / 24). With the full backbone the
+# decoder blocks are rematerialized: each step runs their forward twice.
+FLASH_A_FORWARD, REPMIXER_A_FORWARD = DECODER_LAYERS, 38
+# Kernel path against plain path on one train step, bf16: relative L2 of the
+# loss, the gradient norm and the head's gradients (the policy's limit); of
+# every gradient leaf in fp32 (the kernels match their plain versions in fp32
+# to about 1e-6).
+TRAIN_REL_L2, TRAIN_FP32_REL_L2 = POLICY_REL_L2, 1e-4
+# The backbone's gradients, bf16, jointly: the same roundings reach every
+# gradient through the backward; measured 1.48e-2 on an H100 (PERF.md), the limit
+# is the policy's, twice that.
+TRAIN_BACKBONE_REL_L2 = POLICY_REL_L2
+TRAIN_FP32 = dict(batch=2, image=256)
+# Train steps timed a path and turn (kernel, plain, plain, kernel), after one
+# step whose loss and gradient norm are held kernel path against plain path.
+TRAIN_TIMED_STEPS = 20
+TRAIN_MODEL, TRAIN_DEVICE = "fastvlm-0.5b", "cuda"
+
+
+def train_policy(impl="auto", full=False, image=TRAIN_IMAGE, dtype="bfloat16"):
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
+
+    cfg = FastVLAConfig(
+        vlm_model_name=TRAIN_MODEL, bootstrap_model_name=TRAIN_MODEL, image_size=image,
+        tokenizer_max_length=TEXT_LEN, dtype=dtype, param_dtype="float32", dropout=TRAIN_DROPOUT,
+        attention_impl=impl, vision_block_impl=impl, train_backbone=full, freeze_backbone=not full, seed=SEED,
+    )
+    return FastVLAPolicy(cfg, device=TRAIN_DEVICE)
+
+
+def copy_weights(dst, src) -> None:
+    dst.model.backbone.model.load_state_dict(src.model.backbone.model.state_dict())
+    dst.model.head.load_state_dict(src.model.head.state_dict())
+
+
+def train_config(out: Path, **kw):
+    from vla_fastvlm_tpu_torch.training import TrainingConfig
+
+    settings = dict(output_dir=str(out), learning_rate=TRAIN_LR, weight_decay=TRAIN_WD, seed=TRAIN_SEED,
+                    report_to=[], logging_steps=1, eval_steps=10**9, save_steps=10**9, mixed_precision="bf16")
+    settings.update(kw)
+    return TrainingConfig(**settings)
+
+
+def check_launches(what: str, counts: dict, forwards: int, flash_runs: int = 1) -> None:
+    """Launches of a run of ``forwards`` forwards, each running the decoder
+    blocks' forward ``flash_runs`` times."""
+    expect = {"flash_attention": FLASH_A_FORWARD * forwards * flash_runs,
+              "repmixer_block": REPMIXER_A_FORWARD * forwards, "paged_attention": 0, "paged_attention_window": 0}
+    log(f"  {what}: launches {counts} (expected {expect})")
+    if counts != expect:
+        fail(f"{what}: launch counts {counts} != {expect}")
+
+
+def read_metrics(out: Path) -> list:
+    lines = [json.loads(ln) for ln in (out / "logs" / "metrics.jsonl").read_text().splitlines()]
+    import math
+
+    bad = [ln for ln in lines if not all(math.isfinite(ln[k]) for k in ("train/loss", "train/grad_norm"))]
+    if bad:
+        fail(f"non-finite loss or gradient norm in {out}: {bad[0]}")
+    return lines
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    den = float(b.norm())
+    return float((a - b).norm()) / den if den > 0 else float(a.norm() > 0) * float("inf")
+
+
+def step_grads(policy, arrays):
+    """One train step's loss (dropout from a generator seeded alike on both
+    paths), its trainable gradients by name and their global norm: what
+    ``Trainer._train_step`` computes before its update."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.training import global_norm
+
+    trainable = policy.trainable_params()
+    names = [f"{part}.{n}" for part, sub in trainable.items() for n in sub]
+    params = [p.requires_grad_(True) for sub in trainable.values() for p in sub.values()]
+    gen = torch.Generator(device=policy.device).manual_seed(TRAIN_SEED)
+    loss, _ = policy.loss_fn(arrays, train=True, generator=gen)
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    return dict(loss=loss.detach(), grad_norm=global_norm(grads), grads=dict(zip(names, grads)))
+
+
+def step_trainers(kernel, plain) -> dict:
+    """A Trainer for each path's policy, for timed steps on a batch already
+    on the card."""
+    from vla_fastvlm_tpu_torch.training import Trainer
+
+    return {path: Trainer(pol, [], None, train_config(ROOT / "build", max_steps=10**9))
+            for path, pol in (("kernel", kernel), ("plain", plain))}
+
+
+def compare_paths(what, kernel, plain, limits) -> dict:
+    """Kernel path against plain path on the same weights and batch: the loss,
+    the gradient norm and the gradients (``limits``: part -> joint relative
+    L2 limit, "leaf" -> limit of every leaf)."""
+    import torch
+
+    out = {"loss": rel_l2(kernel["loss"], plain["loss"]), "grad_norm": rel_l2(kernel["grad_norm"], plain["grad_norm"])}
+    for part in ("head", "backbone"):
+        names = [n for n in kernel["grads"] if n.startswith(part + ".")]
+        if not names:
+            continue
+        cat = lambda d: torch.cat([d[n].float().reshape(-1) for n in names])
+        out[f"{part} grads"] = rel_l2(cat(kernel["grads"]), cat(plain["grads"]))
+        leaf = {n: rel_l2(kernel["grads"][n], plain["grads"][n]) for n in names}
+        worst = max(leaf, key=leaf.get)
+        out[f"{part} worst leaf"] = leaf[worst]
+        log(f"  {what}: {part} grads rel_l2 {out[f'{part} grads']:.3e} over {len(names)} leaves; worst leaf "
+            f"{worst} {leaf[worst]:.3e}")
+    bad = [n for n, g in kernel["grads"].items() if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in kernel["grads"].items() if not bool(g.any())]
+    log(f"  {what}: loss {float(kernel['loss']):.5f} (plain {float(plain['loss']):.5f}, rel {out['loss']:.3e}), "
+        f"grad norm {float(kernel['grad_norm']):.4f} (plain {float(plain['grad_norm']):.4f}, rel "
+        f"{out['grad_norm']:.3e}); {len(kernel['grads'])} trainable leaves, {len(bad)} non-finite, "
+        f"{len(zero)} all zero")
+    if bad:
+        fail(f"{what}: non-finite gradients in {bad[:5]}")
+    for key, limit in limits.items():
+        if key == "leaf":
+            worst = {n: rel_l2(kernel["grads"][n], plain["grads"][n]) for n in kernel["grads"]}
+            over = {n: e for n, e in worst.items() if not e <= limit}
+            if over:
+                fail(f"{what}: {len(over)} gradient leaves beyond rel_l2 {limit:g}, e.g. {sorted(over.items())[:3]}")
+        elif not out[key] <= limit:
+            fail(f"{what}: {key} rel_l2 {out[key]:.3e} beyond {limit:g}")
+    return out
+
+
+def aloha_batch(records) -> dict:
+    """Records -> the collated batch the data loader gives (images in [0, 1])."""
+    from vla_fastvlm_tpu_torch.data import AlohaDataset, aloha_collate_fn
+
+    ds = AlohaDataset(source=records)
+    return aloha_collate_fn([ds[i] for i in range(len(ds))])
+
+
+def time_train_steps(label, trainers, arrays, batch, profile_dir=None) -> dict:
+    """p50 train step (host clock around synchronized steps) of the kernel
+    path and the plain path, in turns; under --profile each one's device
+    time a step by part. The first step of each path (a warm-up, the weights
+    alike) holds the loss and gradient norm that ``Trainer._train_step``
+    returns, kernel path against plain path."""
+    import torch
+
+    def steps(trainer, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer._train_step(arrays)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    first = {path: trainers[path]._train_step(arrays) for path in ("kernel", "plain")}
+    for key in ("loss", "grad_norm"):
+        err = rel_l2(first["kernel"][key], first["plain"][key])
+        log(f"  train step {label}, first step: {key} {float(first['kernel'][key]):.5f} (plain "
+            f"{float(first['plain'][key]):.5f}, rel {err:.3e})")
+        if not err <= TRAIN_REL_L2:
+            fail(f"train step {label}: the first step's {key} rel_l2 {err:.3e} beyond {TRAIN_REL_L2:g}")
+    ms = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        ms[path].extend(steps(trainers[path], TRAIN_TIMED_STEPS))
+    result = {}
+    for path, times in ms.items():
+        p50 = statistics.median(times)
+        result[path] = dict(p50_ms=p50, samples_per_s=batch / p50 * 1e3, min_ms=min(times), max_ms=max(times),
+                            n=len(times))
+        log(f"  train step {label}, {path} path: p50 {p50:.2f} ms, {batch / p50 * 1e3:.1f} samples/s "
+            f"(min {min(times):.2f}, max {max(times):.2f}, n={len(times)})")
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        for path, trainer in trainers.items():
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    trainer._train_step(arrays)
+                torch.cuda.synchronize()
+            name = f"train_{label.replace(' ', '_').replace(',', '')}_{path}"
+            (profile_dir / f"{name}_profile.txt").write_text(
+                prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+            parts = step_parts(prof, 3)
+            total = sum(parts.values())
+            result[path]["device_ms_by_part"] = parts
+            log(f"  {name}: device time a step {total:.2f} ms: "
+                + ", ".join(f"{part} {v:.2f} ms ({v / total:.1%})" for part, v in parts.items()))
+    return result
+
+
+def phase_train(profile_dir: Path | None = None) -> dict:
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.data import AlohaDataset, SyntheticAlohaSource, create_aloha_dataloader
+    from vla_fastvlm_tpu_torch.io.checkpoint import load_policy_from_checkpoint
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.training import Trainer
+
+    log(f"[4/7] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+        f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
+        f"dropout {TRAIN_DROPOUT}, full depth")
+    out = ROOT / "build" / "train_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    records = SyntheticAlohaSource(num_samples=TRAIN_STEPS * TRAIN_BATCH, image_hw=TRAIN_FRAME_HW, seed=SEED)
+    train_ds, eval_ds = AlohaDataset(source=records), AlohaDataset(source=records, limit_samples=TRAIN_EVAL_SAMPLES)
+    loader = lambda ds, shuffle: create_aloha_dataloader(ds, batch_size=TRAIN_BATCH, shuffle=shuffle,
+                                                         num_workers=2, seed=SEED)
+    result = {}
+    lap("records")
+
+    # Frozen backbone: fit, evaluate, checkpoint layout.
+    policy = train_policy()
+    lap("build")
+    trainer = Trainer(policy, loader(train_ds, True), loader(eval_ds, False),
+                      train_config(out, max_steps=TRAIN_STEPS, save_steps=TRAIN_SAVE_STEPS, keep_last_n=1))
+    reset_launch_counts()
+    trainer.fit()
+    eval_mse = trainer.evaluate()["eval/mse"]
+    torch.cuda.synchronize()
+    forwards = TRAIN_STEPS + -(-TRAIN_EVAL_SAMPLES // TRAIN_BATCH)
+    check_launches(f"frozen backbone: {TRAIN_STEPS} steps + evaluation", launch_counts(), forwards)
+    lines = read_metrics(out)
+    if [ln["step"] for ln in lines] != list(range(1, TRAIN_STEPS + 1)) or not np.isfinite(eval_mse):
+        fail(f"frozen backbone: logged steps {[ln['step'] for ln in lines]}, eval mse {eval_mse}")
+    lap("frozen fit")
+    log(f"  frozen backbone: loss {lines[0]['train/loss']:.4f} -> {lines[-1]['train/loss']:.4f}, grad norm "
+        f"{lines[-1]['train/grad_norm']:.4f}, lr {lines[-1]['train/lr']:.3e}, eval mse {eval_mse:.4f}")
+    ckpt = out / "checkpoints" / f"step-{TRAIN_SAVE_STEPS}"
+    layout = [out / "training_config.json", ckpt / "policy_config.json", ckpt / "policy_state_dict.safetensors",
+              ckpt / "train_state" / "train_state.pt"]
+    missing = [str(p.relative_to(out)) for p in layout if not p.is_file()]
+    present = sorted(p.name for p in (out / "checkpoints").iterdir())
+    if missing or present != [ckpt.name]:
+        fail(f"checkpoint layout: missing {missing}, checkpoints {present}")
+    del trainer
+
+    # A new trainer resumes from step 10 (the policy's weights, the optimizer
+    # state, the counters and the generator all from the checkpoint) for the
+    # last 2 steps; the step-12 save prunes step-10 (keep_last_n 1).
+    resumed = Trainer(policy, loader(train_ds, True), None,
+                      train_config(out, max_steps=TRAIN_STEPS, save_steps=TRAIN_STEPS, keep_last_n=1,
+                                   resume_from=str(ckpt)))
+    reset_launch_counts()
+    resumed.fit()
+    torch.cuda.synchronize()
+    check_launches(f"resumed from {ckpt.name}", launch_counts(), TRAIN_STEPS - TRAIN_SAVE_STEPS)
+    steps = [ln["step"] for ln in read_metrics(out)]
+    present = sorted(p.name for p in (out / "checkpoints").iterdir())
+    state = (resumed.global_step, resumed.epoch, resumed.updates)
+    log(f"  resumed: global_step, epoch, updates {state}; logged steps {steps[TRAIN_STEPS:]}; checkpoints {present}")
+    if state != (TRAIN_STEPS, 0, TRAIN_STEPS) or steps[TRAIN_STEPS:] != list(range(TRAIN_SAVE_STEPS + 1, TRAIN_STEPS + 1)) \
+            or present != [f"step-{TRAIN_STEPS}"]:
+        fail(f"resume: state {state}, logged steps {steps}, checkpoints {present}")
+
+    lap("resume")
+
+    # The written weights load into a fresh policy with the same actions, bit for bit.
+    loaded, _ = load_policy_from_checkpoint(out / "checkpoints" / f"step-{TRAIN_STEPS}", device=TRAIN_DEVICE)
+    batch8 = aloha_batch(records[:TRAIN_BATCH])
+    obs = (batch8["images"], batch8["states"], batch8["tasks"])
+    same = torch.equal(policy.forward(*obs), loaded.forward(*obs))
+    log(f"  reloaded step-{TRAIN_STEPS} into a fresh policy: actions bit-equal {same}")
+    if not same:
+        fail("the reloaded checkpoint's actions differ from the trained policy's")
+    del resumed, policy
+    arrays8 = loaded.to_device(loaded.prepare_batch(batch8))
+    lap("reload")
+
+    # Full backbone: 3 steps, gradients through both kernels, decoder remat.
+    held = torch.cuda.memory_allocated() / 2**30  # the frozen policy, kept for the comparisons
+    full = train_policy(full=True)
+    full_trainer = Trainer(full, loader(train_ds, True), None, train_config(out / "full", max_steps=TRAIN_FULL_STEPS))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    full_trainer.fit()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(f"full backbone: {TRAIN_FULL_STEPS} steps", launch_counts(), TRAIN_FULL_STEPS, flash_runs=2)
+    lines = read_metrics(out / "full")
+    n_params = sum(p.numel() for p in full_trainer._params)
+    log(f"  full backbone: {n_params / 1e6:.1f} M trainable parameters, loss {lines[0]['train/loss']:.4f} -> "
+        f"{lines[-1]['train/loss']:.4f}, grad norm {lines[-1]['train/grad_norm']:.4f}; peak memory "
+        f"{peak:.2f} GiB (torch.cuda.max_memory_allocated), {held:.2f} GiB of it held before the policy was "
+        f"built: the full-backbone training's own {peak - held:.2f} GiB")
+    result["full_backbone_training_gib"] = peak - held
+    del full_trainer
+    shutil.rmtree(out, ignore_errors=True)
+    lap("full fit")
+
+    # Kernel path against plain path: fp32 at batch 2 / 256 px first (then freed), then bf16.
+    kf = train_policy(full=True, image=TRAIN_FP32["image"], dtype="float32")
+    pf = train_policy("xla", full=True, image=TRAIN_FP32["image"], dtype="float32")
+    copy_weights(pf, kf)
+    arrays2 = kf.to_device(kf.prepare_batch(aloha_batch(records[:TRAIN_FP32["batch"]])))
+    result["fp32 full backbone"] = compare_paths(
+        f"fp32 full backbone, batch {TRAIN_FP32['batch']}, {TRAIN_FP32['image']} px",
+        step_grads(kf, arrays2), step_grads(pf, arrays2),
+        {"loss": TRAIN_FP32_REL_L2, "leaf": TRAIN_FP32_REL_L2})
+    del kf, pf
+    torch.cuda.empty_cache()
+    lap("fp32 compare")
+
+    plain_full = train_policy("xla", full=True)
+    copy_weights(plain_full, full)
+    result["bf16 full backbone"] = compare_paths(
+        "bf16 full backbone", step_grads(full, arrays8), step_grads(plain_full, arrays8),
+        {"loss": TRAIN_REL_L2, "grad_norm": TRAIN_REL_L2, "head grads": TRAIN_REL_L2,
+         "backbone grads": TRAIN_BACKBONE_REL_L2})
+    plain_frozen = train_policy("xla")
+    copy_weights(plain_frozen, loaded)
+    result["bf16 frozen"] = compare_paths(
+        "bf16 frozen backbone", step_grads(loaded, arrays8), step_grads(plain_frozen, arrays8),
+        {"loss": TRAIN_REL_L2, "grad_norm": TRAIN_REL_L2, "head grads": TRAIN_REL_L2})
+    lap("bf16 compare")
+
+    # Times.
+    log("  train step times (host clock around synchronized steps; inputs on the card)")
+    timed = {f"frozen, batch {TRAIN_BATCH}, {TRAIN_IMAGE} px": (step_trainers(loaded, plain_frozen), arrays8,
+                                                                TRAIN_BATCH)}
+    k256, p256 = train_policy(image=IMAGE), train_policy("xla", image=IMAGE)
+    copy_weights(p256, k256)
+    images, states, tasks = policy_inputs()
+    batch128 = dict(images=images, states=states, tasks=tasks,
+                    actions=np.random.default_rng(SEED).standard_normal((BATCH, 14)).astype(np.float32))
+    timed[f"frozen, batch {BATCH}, {IMAGE} px"] = (step_trainers(k256, p256),
+                                                   k256.to_device(k256.prepare_batch(batch128)), BATCH)
+    timed[f"full backbone, batch {TRAIN_BATCH}, {TRAIN_IMAGE} px"] = (step_trainers(full, plain_full), arrays8,
+                                                                     TRAIN_BATCH)
+    lap("256 px build")
+    for label, (trainers, arrays, batch) in timed.items():
+        result[label] = time_train_steps(label, trainers, arrays, batch, profile_dir)
+        lap(f"time {label}")
+    log(f"  seconds by part: {laps}")
+    log(json.dumps({"train": result}))
+    return result
 
 
 def make_servers():
@@ -814,7 +1216,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[4/6] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[5/7] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -959,7 +1361,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[5/6] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/7] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1038,7 +1440,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[6/6] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[7/7] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -1264,21 +1666,47 @@ def time_repmixer() -> dict:
 # unfused elementwise work (PyTorch's elementwise, reduction, copy and cat
 # kernels) and other kernels.
 STEP_PARTS = [("RepMixer", ("repmixer_kernel",)), ("flash", ("flash_fwd",)),
-              ("convolutions", ("conv", "cudnn", "fprop")), ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma"))]
+              ("convolutions", ("conv", "cudnn", "fprop")), ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
+              ("optimizer", ("Adam", "adam"))]
+OTHER_PART = "elementwise and other"
+# Autograd nodes whose kernels form a part of their own, whatever their names:
+# the backward of the kernels' autograd Functions (``_FlashAttention``,
+# ``_RepMixerBlock``), which recompute through the plain versions. The
+# profiler records each node's backward as a range of this name.
+RECOMPUTE_PARTS = {"_FlashAttentionBackward": "flash backward (plain recompute)",
+                   "_RepMixerBlockBackward": "RepMixer backward (plain recompute)"}
+
+
+def _part_of(kernel_name: str) -> str:
+    return next((part for part, keys in STEP_PARTS if any(k in kernel_name for k in keys)), OTHER_PART)
 
 
 def step_parts(prof, steps: int) -> dict:
-    """Device time a step (ms) of each part of STEP_PARTS, and of the rest,
-    summed over the kernels ``prof`` recorded."""
+    """Device time a step (ms) of each part of STEP_PARTS and RECOMPUTE_PARTS
+    that took any, and of the rest, summed over the kernels ``prof``
+    recorded. A kernel launched inside a recompute node's backward counts
+    for that node and not for its name's part."""
     from torch.autograd import DeviceType
 
-    parts = dict.fromkeys([name for name, _ in STEP_PARTS] + ["elementwise and other"], 0.0)
+    parts = dict.fromkeys([name for name, _ in STEP_PARTS] + list(RECOMPUTE_PARTS.values()) + [OTHER_PART], 0.0)
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
+        # A profiler range (record_function, Optimizer.step) also shows as a
+        # device event spanning its kernels: count the kernels only.
+        annotation = getattr(evt, "is_user_annotation", False) or evt.key.startswith("Optimizer.")
+        if evt.device_type == DeviceType.CUDA and not annotation:
+            parts[_part_of(evt.key)] += evt.self_device_time_total / 1e3 / steps
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU or not evt.kernels:
             continue
-        name = next((part for part, keys in STEP_PARTS if any(k in evt.key for k in keys)), "elementwise and other")
-        parts[name] += evt.self_device_time_total / 1e3 / steps
-    return parts
+        node = evt
+        while node is not None and node.name not in RECOMPUTE_PARTS:
+            node = node.cpu_parent
+        if node is not None:
+            for kernel in evt.kernels:
+                ms = kernel.duration / 1e3 / steps
+                parts[RECOMPUTE_PARTS[node.name]] += ms
+                parts[_part_of(kernel.name)] -= ms
+    return {name: ms for name, ms in parts.items() if ms > 0}
 
 
 def profile_step(policy, plain, step, out_dir: Path) -> None:
@@ -1309,13 +1737,14 @@ def main(argv=None) -> int:
                         help="directory for torch.profiler tables of three policy steps (kernel and plain "
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
-    parser.add_argument("--only", choices=["flash", "repmixer", "paged"], default=None,
+    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train"], default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
                              "heads' and the streamed shapes and by block shape; repmixer: "
                              "the RepMixer library, its checks against the plain version, its "
                              "per-width times; paged: the two paged-attention libraries, their "
-                             "checks, their times at the 8 paged shapes and by part count)")
+                             "checks, their times at the 8 paged shapes and by part count; train: the "
+                             "flash and RepMixer libraries and the training phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1334,9 +1763,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/6] flash-attention kernel against its plain version")
+        log("[2/7] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[6/6] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[7/7] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1345,19 +1774,33 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/6] RepMixer kernel against its plain version")
+        log("[2/7] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[6/6] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[7/7] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         log(json.dumps({"repmixer_block": dict(r, max_abs_err=err)}))
         return 0
+    if args.only == "train":
+        phase_build(("flash_attention", "repmixer"))
+        log("[2/7] flash-attention and RepMixer kernels against their plain versions")
+        check_flash()
+        check_repmixer()
+        if args.profile is not None:
+            args.profile.mkdir(parents=True, exist_ok=True)
+        phase_train(args.profile)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/6] paged-attention kernels against their plain versions")
+        log("[2/7] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[6/6] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[7/7] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -1378,6 +1821,8 @@ def main(argv=None) -> int:
     policy, plain, step, counts = timed("policy", phase_policy)
     if args.profile is not None:
         args.profile.mkdir(parents=True, exist_ok=True)
+    timed("train", phase_train, args.profile)
+    torch.cuda.empty_cache()  # the training phase's blocks, before the 7B target's
     summaries, serve_counts, model_05b = timed("serving", phase_serving, args.profile)
     spec_summaries, spec_counts = timed("speculative", phase_speculative, model_05b, args.profile)
     del model_05b

@@ -137,6 +137,54 @@ def _rep_args(b, h, w, c, f, dtype, device, seed=0):
     return [a.to(device, dtype) for a in args]
 
 
+@pytest.mark.parametrize("pad,causal", [("right", True), ("left", True), ("left", False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_gradients_are_the_plain_versions(cuda, pad, causal, dtype):
+    """The train_backbone path: the forward launches the kernel once, the
+    backward recomputes through the plain version and launches nothing, so
+    the gradients are plain autograd's (fully padded rows and left padding
+    included), up to the order of the library's sums between two runs."""
+    q, k, v, mask = _flash_inputs(3, 80, 14, 2, 64, dtype, cuda, pad=pad)
+    upstream = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def grads(fn):
+        qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*qkv, mask, causal)
+        return out, torch.autograd.grad((out.float() * upstream).sum(), qkv)
+
+    reset_launch_counts()
+    out, got = grads(flash_attention)
+    torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == 1
+    ref_out, expect = grads(flash_attention_reference)
+    atol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol, rtol=atol)
+    _same_grads(got, expect, dtype)
+
+
+def _same_grads(got, expect, dtype):
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, e in zip(got, expect):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), e.float(), rtol=tol, atol=tol * float(e.float().abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_repmixer_kernel_gradients_are_the_plain_versions(cuda, dtype):
+    args = [a.detach().requires_grad_() for a in _rep_args(2, 12, 20, 192, 768, dtype, cuda)]
+    upstream = torch.randn(args[0].shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+
+    def grads(fn):
+        inputs = [a.detach().requires_grad_() for a in args]
+        return torch.autograd.grad((fn(*inputs).float() * upstream).sum(), inputs)
+
+    reset_launch_counts()
+    got = grads(repmixer_block)
+    torch.cuda.synchronize()
+    assert launch_counts()["repmixer_block"] == 1
+    _same_grads(got, grads(repmixer_block_reference), dtype)
+
+
 REP_SHAPES = [
     (2, 16, 16, 96, 384), (1, 12, 20, 192, 768), (1, 12, 20, 384, 1536),
     # ragged pixel grids: tiles cut by the image's edge

@@ -6,7 +6,7 @@
   paged server runs where the backbone put its model.
 - The weight bridge covers every parameter at full ``fastvlm_0_5b`` width:
   ``jax.eval_shape`` of the JAX init against the port built on the meta
-  device (nothing is allocated for either).
+  device (nothing is allocated for either), both ways.
 """
 
 import importlib
@@ -23,7 +23,7 @@ import pytest
 import torch
 
 import vla_fastvlm_tpu_torch
-from vla_fastvlm_tpu_torch.io.bridge import jax_params_to_torch
+from vla_fastvlm_tpu_torch.io.bridge import jax_params_to_torch, torch_params_to_jax
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "vla_fastvlm_tpu_torch"
@@ -76,6 +76,8 @@ def test_every_module_has_a_jax_counterpart_layout():
         "models/qwen2.py", "models/fastvit.py", "models/fastvlm.py", "models/action_head.py",
         "io/tokenizer.py", "model/fastvlm_adapter.py", "fastvla/configuration_fastvla.py",
         "fastvla/processor_fastvla.py", "fastvla/fastvlm_with_expert.py", "fastvla/modeling_fastvla.py",
+        "training/trainer.py", "data/aloha_dataset.py", "data/prefetch.py", "io/checkpoint.py",
+        "utils/cli.py", "utils/logging.py",
     }
     for rel in mirrored:
         assert (PORT / rel).is_file() and (ROOT / "vla_fastvlm_tpu" / rel).is_file(), rel
@@ -93,12 +95,13 @@ class TestDevice:
             resolve_device("cuda")
 
     @pytest.mark.parametrize(
-        "entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy", "PagedGenerationServer"]
+        "entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy", "PagedGenerationServer", "Trainer"]
     )
     def test_entry_points_need_cuda_unless_cpu(self, entry, monkeypatch):
         from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMWithExpert
         from vla_fastvlm_tpu_torch.model import FastVLMBackbone
         from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+        from vla_fastvlm_tpu_torch.training import Trainer, TrainingConfig
 
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         cfg = FastVLAConfig(vlm_model_name="tiny", hidden_dim=8, fusion_dim=8, tokenizer_max_length=8,
@@ -111,6 +114,8 @@ class TestDevice:
             "PagedGenerationServer": lambda **kw: PagedGenerationServer(
                 FastVLMBackbone(cfg.to_backbone_config(), **kw).model, num_slots=1, prompt_len=8, max_new_tokens=2
             ),
+            # The trainer runs where the policy lives.
+            "Trainer": lambda **kw: Trainer(FastVLAPolicy(cfg, **kw), [], None, TrainingConfig(max_steps=1)),
         }[entry]
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
@@ -118,6 +123,19 @@ class TestDevice:
         assert built.device == torch.device("cpu")
         if entry == "PagedGenerationServer":
             assert built.pool.pool_k.device == torch.device("cpu") and built.pool.quantized
+
+    def test_train_script_needs_cuda_unless_cpu(self, monkeypatch, tmp_path):
+        from vla_fastvlm_tpu_torch.scripts.train import TrainArgs, main
+        from vla_fastvlm_tpu_torch.utils import parse_cli
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        flags = ["--synthetic-data", "--synthetic-samples", "4", "--synthetic-image-size", "32", "--model-id",
+                 "tiny", "--hidden-dim", "8", "--fusion-dim", "8", "--tokenizer-max-length", "8", "--batch-size",
+                 "4", "--num-workers", "0", "--max-steps", "1", "--eval-split", "none", "--output-dir", str(tmp_path)]
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(parse_cli(TrainArgs, flags))
+        main(parse_cli(TrainArgs, flags + ["--device", "cpu"]))
+        assert (tmp_path / "training_config.json").exists()
 
     def test_forward_rejects_another_device(self):
         from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig
@@ -152,6 +170,28 @@ class TestBridgeCoverage:
         assert sorted(got) == sorted(expect)
         assert got == expect
         assert sum(int(np.prod(s)) for s in got.values()) > 600e6  # the full 0.5B tree
+
+    def test_inverse_bridge_fastvlm_0_5b_full_width(self):
+        """torch_params_to_jax of the port on the meta device gives the JAX
+        tree's names and shapes (stacked layers, split projections), and the
+        forward bridge takes it back to the port's state_dict."""
+        from vla_fastvlm_tpu.models.fastvlm import FastVLM as JFastVLM, fastvlm_0_5b as j_cfg
+        from vla_fastvlm_tpu_torch.io.bridge import flatten_params
+        from vla_fastvlm_tpu_torch.models import FastVLM, fastvlm_0_5b
+
+        jmodel = JFastVLM(j_cfg(image_size=256))
+        shapes = jax.eval_shape(
+            lambda: jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 256, 256)),
+                                jnp.zeros((1, 64), jnp.int32))
+        )["params"]
+        with torch.device("meta"):
+            port = FastVLM(fastvlm_0_5b(image_size=256))
+        tree = torch_params_to_jax(port, as_numpy=False)
+        expect = {k: tuple(v.shape) for k, v in flatten_params(shapes).items()}
+        got = {k: tuple(v.shape) for k, v in flatten_params(tree).items()}
+        assert got == expect
+        back = jax_params_to_torch(self._zeros_like_shapes(tree))
+        assert {k: tuple(v.shape) for k, v in back.items()} == {k: tuple(v.shape) for k, v in port.state_dict().items()}
 
     @pytest.mark.parametrize("chunk", [1, 4])
     def test_head_full_width(self, chunk):

@@ -1,4 +1,4 @@
-"""FastVLA policy of the port (serving forward)."""
+"""FastVLA policy of the port: serving forward, loss and training surface."""
 
 from .configuration_fastvla import FastVLAConfig
 from .fastvlm_with_expert import FastVLMWithExpert

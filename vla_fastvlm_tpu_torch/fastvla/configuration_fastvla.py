@@ -1,7 +1,10 @@
 """FastVLA policy configuration (counterpart of
 ``vla_fastvlm_tpu/fastvla/configuration_fastvla.py``): the same field set and
-the same ``to_backbone_config()`` translation. Fields of paths that are not
-ported yet (quantization, LoRA, training, the token head) are kept for
+the same ``to_backbone_config()`` translation. ``train_backbone`` and
+``gradient_checkpointing`` pass through, and remat is derived as in JAX:
+``gradient_checkpointing or train_backbone or lora_rank > 0``, so
+``train_backbone`` alone rematerializes the decoder blocks. Fields of paths
+that are not ported yet (quantization, LoRA, the token head) are kept for
 config parity and rejected by the policy when set.
 """
 

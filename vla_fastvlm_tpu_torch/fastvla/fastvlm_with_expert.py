@@ -1,21 +1,28 @@
 """FastVLM backbone + action expert head (counterpart of
 ``vla_fastvlm_tpu/fastvla/fastvlm_with_expert.py``).
 
-``apply_fn(images, input_ids, attention_mask, states)`` is the policy step on
-device tensors (what the JAX package jits); ``forward(images, states, tasks)``
-is the eager API that takes host inputs (numpy, PIL, lists) or tensors, which
-stay on their device. Parameters live in the backbone's
-``FastVLM`` module and the head module, on the backbone's device.
+``apply_fn(images, input_ids, attention_mask, states, train, generator)`` is
+the policy step on device tensors (what the JAX package jits): with
+``train=False`` it runs under ``torch.inference_mode()``; with ``train=True``
+autograd records it and the head's dropout draws its mask from
+``generator``. ``forward(images, states, tasks)`` is the eager API that takes
+host inputs (numpy, PIL, lists) or tensors, which stay on their device.
+
+Parameters live in the backbone's ``FastVLM`` module and the head module, on
+the backbone's device. ``params`` is the JAX package's split of them,
+``{"backbone": {name: parameter}, "head": {...}}``, and
+``trainable_params()`` the sub-tree the optimizer updates: the head, or
+everything with ``train_backbone`` and not ``freeze_backbone``.
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
 from ..device import DeviceLike, resolve_dtype
-from ..io.bridge import jax_params_to_torch
+from ..io.bridge import jax_params_to_torch, torch_params_to_jax
 from ..model.fastvlm_adapter import FastVLMBackbone, as_float32
 from ..models.action_head import ActionChunkHead, ActionExpertHead
 from ..models.layers import init_weights
@@ -53,7 +60,7 @@ class FastVLMWithExpert:
                 self.head = ActionChunkHead(chunk_size=cfg.chunk_size, **head_kwargs)
             else:
                 self.head = ActionExpertHead(**head_kwargs)
-        self.head.eval().requires_grad_(False)
+        self.head.eval()
         if self.device.type != "meta":
             init_weights(self.head, torch.Generator(device=self.device).manual_seed(cfg.seed + 1))
 
@@ -62,12 +69,36 @@ class FastVLMWithExpert:
         self.backbone.load_jax_params(params["backbone"])
         self.head.load_state_dict(jax_params_to_torch(params["head"]), strict=True)
 
-    def apply_fn(self, images: torch.Tensor, input_ids: torch.Tensor,
-                 attention_mask: torch.Tensor, states: torch.Tensor) -> torch.Tensor:
+    def jax_params(self, as_numpy: bool = True) -> Dict:
+        """The JAX package's ``{"backbone": ..., "head": ...}`` tree of these
+        parameters (``io/bridge.py::torch_params_to_jax``)."""
+        scanned = self.backbone.model_config.text.scan_layers
+        return {"backbone": torch_params_to_jax(self.backbone.model, scanned, as_numpy),
+                "head": torch_params_to_jax(self.head, scanned, as_numpy)}
+
+    @property
+    def params(self) -> Dict[str, Dict[str, torch.nn.Parameter]]:
+        return {"backbone": dict(self.backbone.model.named_parameters()),
+                "head": dict(self.head.named_parameters())}
+
+    def trainable_params(self) -> Dict[str, Dict[str, torch.nn.Parameter]]:
+        if self.config.train_backbone and not self.config.freeze_backbone:
+            return self.params
+        return {"head": dict(self.head.named_parameters())}
+
+    def merge_trainable(self, trainable: Mapping) -> Dict:
+        return {**self.params, **trainable}
+
+    def apply_fn(self, images: torch.Tensor, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                 states: torch.Tensor, train: bool = False,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Device tensors -> actions: (B, action_dim), or (B, chunk, action_dim)."""
+        if not train:
+            with torch.inference_mode():
+                feats = self.backbone.features_fn(images, input_ids, attention_mask)
+                return self.head(feats, states, train=False)
         feats = self.backbone.features_fn(images, input_ids, attention_mask)
-        with torch.inference_mode():
-            return self.head(feats, states)
+        return self.head(feats, states, train=True, generator=generator)
 
     def forward(self, images, states, tasks: List[str], device: DeviceLike = None) -> torch.Tensor:
         self.backbone.check_device(device)

@@ -1,4 +1,6 @@
-"""Weight bridge: JAX-package parameters (as numpy) -> the port's state_dict.
+"""Weight bridge between the JAX package's parameters and the port's modules.
+
+``jax_params_to_torch``: JAX parameters (as numpy) -> the port's state_dict.
 
 Input is a nested dict of arrays, or the flat dotted names that
 ``vla_fastvlm_tpu/io/checkpoint.py::flatten_params`` produces. No JAX is
@@ -18,6 +20,14 @@ and are widened to float32). Per leaf:
 
 Prefixes pass through, so ``{"backbone": ..., "head": ...}`` maps to
 ``backbone.*`` and ``head.*`` names.
+
+``torch_params_to_jax(module)`` is the inverse: a module's state_dict ->
+the JAX tree (nested dict), the decoder's layers stacked again along a
+leading axis (``scanned``, the JAX default) or named ``layers_<i>``. The
+owning module's class says which JAX leaf a ``weight`` was (``kernel`` of a
+Dense or conv, ``scale`` of a LayerNorm or ChannelAffine, ``embedding``;
+RMSNorm keeps ``weight``), and the fused projections are split back into
+their parts by the attention config's head counts.
 """
 
 from __future__ import annotations
@@ -48,6 +58,9 @@ def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _as_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):  # a checkpoint read by the port's own reader
+        x = x.detach().cpu()
+        x = x.float() if x.dtype == torch.bfloat16 else x
     arr = np.asarray(x)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
@@ -112,3 +125,76 @@ def jax_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"{key}: missing {missing} to fuse")
         out[key] = np.concatenate([pieces[p] for p in order], axis=0)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+# Owning module class -> the JAX name of its ``weight``.
+_JAX_WEIGHT = {"Dense": "kernel", "Conv2d": "kernel", "LayerNorm": "scale", "ChannelAffine": "scale",
+               "Embed": "embedding"}
+_LAYER = re.compile(r"^(.*\.)?layers\.(\d+)\.(.*)$")
+# Fused projection -> (its parent module's name, the JAX parts in order).
+_SPLIT = {target: (parent, names) for parent, (target, names) in _FUSED.items()}
+
+
+def _split_fused(module: torch.nn.Module, owner: str, leaf: str, t: torch.Tensor):
+    """Yield (owner, leaf, tensor) with a fused projection split into its parts."""
+    parts = owner.split(".")
+    if parts[-1] not in _SPLIT or len(parts) < 2 or parts[-2] != _SPLIT[parts[-1]][0]:
+        yield owner, leaf, t
+        return
+    names = _SPLIT[parts[-1]][1]
+    if parts[-1] == "qkv_proj":
+        cfg = module.get_submodule(".".join(parts[:-1])).cfg
+        n, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.resolved_head_dim
+        sizes = [n * d, kh * d, kh * d]
+    else:
+        sizes = [t.shape[0] // 2] * 2
+    for name, piece in zip(names, t.split(sizes, dim=0)):
+        yield ".".join(parts[:-1] + [name]), leaf, piece
+
+
+def torch_params_to_jax(module: torch.nn.Module, scanned: bool = True, as_numpy: bool = True) -> Dict:
+    """A module's state_dict -> the JAX package's parameter tree.
+
+    Leaves are new CPU tensors in the JAX layout, or numpy arrays with
+    ``as_numpy`` (bf16 widened to float32, since numpy has no bf16). On the
+    meta device only the shapes are made (``as_numpy=False``).
+    """
+    owners = {name: type(m).__name__ for name, m in module.named_modules()}
+    flat: Dict[str, torch.Tensor] = {}
+    for name, value in module.state_dict().items():
+        t = value.detach()
+        if not t.is_meta:
+            t = t.to("cpu", copy=True)  # a snapshot: the parameters may change after
+        owner, _, leaf = name.rpartition(".")
+        cls = owners.get(owner)
+        for owner_, leaf_, piece in _split_fused(module, owner, leaf, t):
+            if leaf_ == "weight" and cls in _JAX_WEIGHT:
+                leaf_ = _JAX_WEIGHT[cls]
+                if leaf_ == "kernel":
+                    piece = piece.t() if piece.ndim == 2 else piece.permute(2, 3, 1, 0)
+            flat[f"{owner_}.{leaf_}" if owner_ else leaf_] = piece
+
+    stacked: Dict[str, Dict[int, torch.Tensor]] = {}
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in flat.items():
+        match = _LAYER.match(name)
+        if match is None:
+            out[name] = t
+        elif scanned:
+            stacked.setdefault(f"{match.group(1) or ''}layers.{match.group(3)}", {})[int(match.group(2))] = t
+        else:
+            out[f"{match.group(1) or ''}layers_{match.group(2)}.{match.group(3)}"] = t
+    for name, layers in stacked.items():
+        out[name] = torch.stack([layers[i] for i in range(len(layers))])
+
+    tree: Dict = {}
+    for name, t in out.items():
+        t = t.contiguous()
+        if as_numpy:
+            t = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        node = tree
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return tree

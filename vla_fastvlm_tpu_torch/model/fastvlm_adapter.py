@@ -4,10 +4,15 @@
 Same public surface: ``FastVLMBackboneConfig``, ``prepare_policy_images``,
 ``FastVLMBackbone.forward(images, tasks, device) -> (B, H)``. The backbone
 owns a ``FastVLM`` module on one device (the card unless ``device="cpu"`` is
-passed), its tokenizer, and the host-side input normalization. Its forward
-runs under ``torch.inference_mode()``, which is the port's form of the JAX
-``stop_gradient`` on the pooled features (the reference backbone is
-``@torch.no_grad()``).
+passed), its tokenizer, and the host-side input normalization.
+
+Gradients, as in JAX: ``features_fn`` runs under ``torch.no_grad()`` unless
+``train_backbone`` (the JAX ``stop_gradient`` on the pooled features; the
+reference backbone is ``@torch.no_grad()``). With ``train_backbone`` the
+graph is recorded, the backbone's parameters take gradients when
+``freeze_backbone`` is off, and ``gradient_checkpointing`` rematerializes
+the decoder blocks. The eager ``forward`` runs under
+``torch.inference_mode()``.
 
 Weights are random from ``seed`` (presets only); ``load_jax_params`` takes
 the JAX package's parameters through the weight bridge.
@@ -15,6 +20,7 @@ the JAX package's parameters through the weight bridge.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 from dataclasses import dataclass
 from typing import List, Mapping, Optional, Tuple
@@ -68,17 +74,8 @@ class FastVLMBackboneConfig:
 def _check_supported(cfg: FastVLMBackboneConfig) -> None:
     if cfg.kv_cache_quantization not in ("none", "int8"):
         raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
-    unported = {
-        "quantization": cfg.quantization != "none",
-        "train_backbone": cfg.train_backbone,
-        "gradient_checkpointing": cfg.gradient_checkpointing,
-    }
-    named = [k for k, on in unported.items() if on]
-    if named:
-        raise NotImplementedError(
-            f"{', '.join(named)}: not ported to PyTorch yet (the port serves the "
-            "frozen-backbone forward)"
-        )
+    if cfg.quantization != "none":
+        raise NotImplementedError("quantization: weight quantization is not ported to PyTorch yet")
 
 
 def as_float32(x):
@@ -137,6 +134,7 @@ class FastVLMBackbone:
             num_cameras=int(cfg.num_cameras),
             text=self.model_config.text.replace(
                 attention_impl=cfg.attention_impl,
+                remat=cfg.gradient_checkpointing,
                 fused_projections=cfg.fused_projections,
                 kv_cache_quantization=cfg.kv_cache_quantization,
             ),
@@ -144,7 +142,7 @@ class FastVLMBackbone:
         )
         with torch.device(self.device):
             self.model = FastVLM(self.model_config)
-        self.model.eval().requires_grad_(False)
+        self.model.eval().requires_grad_(cfg.train_backbone and not cfg.freeze_backbone)
         if self.device.type != "meta":
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
             init_weights(self.model, generator)
@@ -214,9 +212,10 @@ class FastVLMBackbone:
 
     def features_fn(self, images: torch.Tensor, input_ids: torch.Tensor,
                     attention_mask: torch.Tensor) -> torch.Tensor:
-        """Device tensors -> (B, H) pooled features, gradient-free."""
+        """Device tensors -> (B, H) pooled features; gradient-free unless
+        ``train_backbone``."""
         cfg = self.config
-        with torch.inference_mode():
+        with contextlib.nullcontext() if cfg.train_backbone else torch.no_grad():
             prepared = prepare_policy_images(images, self.model_config, cfg)
             hidden, _, text_mask = self.model(prepared, input_ids, attention_mask)
             if cfg.image_feature_pool == "mean_pool":
@@ -236,7 +235,8 @@ class FastVLMBackbone:
         self.check_device(device)
         img = self.to_device(self._as_bchw(images))
         ids, mask = self._prep_text(tasks)
-        return self.features_fn(img, self.to_device(ids), self.to_device(mask))
+        with torch.inference_mode():
+            return self.features_fn(img, self.to_device(ids), self.to_device(mask))
 
     __call__ = forward
 

@@ -3,7 +3,11 @@
 Same config fields and presets as the JAX module. Differences in form, not
 in numbers:
 
-- The JAX ``nn.scan`` over layers is an ``nn.ModuleList`` loop here.
+- The JAX ``nn.scan`` over layers is an ``nn.ModuleList`` loop here, and
+  ``nn.remat(Qwen2Block)`` (``cfg.remat``) is
+  ``torch.utils.checkpoint.checkpoint`` around each block of that loop,
+  taken when autograd records the prefill (training): the block's forward,
+  flash launches included, runs again in the backward pass.
 - q/k/v are stored as one fused ``qkv_proj`` (q, k, v order) and gate/up as
   one ``gate_up_proj`` (gate, up order): the JAX package concatenates them
   at apply time when ``fused_projections`` is on (``qwen2.py:224-228,368-371``);
@@ -31,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention, make_attention_bias, paged_attention
 from ..ops.norms import rms_norm
@@ -318,9 +323,15 @@ class Qwen2Model(nn.Module):
         else:
             kv_mask = attention_mask.to(torch.int32)
 
+        # The decoder draws no random numbers, so remat need not restore the RNG.
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         news = []
         for layer, layer_cache in zip(self.layers, layer_caches):
-            x, new = layer(x, kv_mask, cos, sin, causal, bias, layer_cache)
+            if remat:
+                x, new = checkpoint(layer, x, kv_mask, cos, sin, causal, bias, layer_cache,
+                                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, new = layer(x, kv_mask, cos, sin, causal, bias, layer_cache)
             news.append(new)
         x = self.norm(x)
 
