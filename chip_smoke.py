@@ -3,12 +3,13 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about five minutes
+    python3 chip_smoke.py                 # the full check, about six minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
     python3 chip_smoke.py --only flash    # the flash-attention kernel alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
     python3 chip_smoke.py --only paged    # the two paged-attention kernels alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only train    # the training phase alone, with the flash and RepMixer builds
+    python3 chip_smoke.py --only closed_loop  # the closed-loop phase, after the four builds and their checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -18,11 +19,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    in bf16 at the main paths' shapes and in fp32 at a small batch with a
    tight tolerance: flash at the policy step's shapes (right-padded masks,
    fully padded rows; causal and not), at the train step's (T = 128, right-
-   and left-padded, bf16 and fp32), at head_dim 128 (the 7B decoder's
-   shape), with left-padded masks, at T = 1, 17 and 100 (rows that do not
-   fill a block) and at S = 2048 / 1024 (the streamed instance); RepMixer
-   per stage of the policy step and of the train step (512 px), fp32 at
-   batch 2 of each, and ragged pixel grids at each width in
+   and left-padded, bf16 and fp32), at the closed loop's MLP tick (T = 320
+   at batch 64 and at a staggered group of 16 in bf16, batch 4 in fp32), at
+   head_dim 128 (the 7B decoder's shape), with left-padded masks, at T = 1,
+   17 and 100 (rows that do not fill a block) and at S = 2048 / 1024 (the
+   streamed instance); RepMixer per stage of the policy step, of the train
+   step (512 px) and of the closed loop (1024 px, batch 64 and 16), fp32 at
+   batch 2 of each grid, and ragged pixel grids at each width in
    both dtypes; paged decode attention at the serving shape in bf16 and over
    int8 pools, at head_dim 128, and in fp32 with trash pages and an empty
    stored mask; the verify window kernel (W > 1) in bf16 and over int8
@@ -88,14 +91,43 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefix by the dense cache path) set against the kernel-vs-gathered logit
    difference. Then FastVLM-0.5B as its own draft on 16 requests: at least
    2.0 tokens per active slot and round.
-7. timing: p50 step time and actions/sec of the kernel path and the plain
+7. closed loop: FastVLA-0.5B at full width and depth, its 1024 px, bf16,
+   random weights from the seed, 64 ``DummyEnv``s of
+   ``python -m vla_fastvlm_tpu_torch.scripts.eval_closed_loop`` with 256-px
+   frames (letterboxed on the card), state and action widths 14, the CLI's
+   default task, through ``BatchedEnvRunner`` over the CLI's build functions, 8
+   control ticks a run (4 on the speculative server): the MLP policy
+   (``stagger`` 1 and 4: groups of 16),
+   and the token head as one batched generation, on the dense server and
+   on the paged server (64 slots, admissions of 16, pages of 16, raw frames
+   letterboxed in admission, bf16 and int8 pools), and on the speculative
+   paged server with the model as its own draft (k = 4, 16 slots,
+   admissions of 8). Checks: one finite action per env and tick, token
+   actions on the codebook's bin centers, every request's 14 tokens, every
+   page back, the launch counts of each run (24 flash + 38 RepMixer an MLP
+   forward; 38 RepMixer a tower pass, 24 paged a decode tick, 24 window a
+   round), at least 2.0 tokens per slot and round with the self-draft,
+   staggered against serial first-tick actions and the MLP kernel path
+   against its plain path on the first tick's observations (both
+   ``POLICY_REL_L2``), and the
+   paged server's tokens with ``image_prep`` equal to its tokens from the
+   host-letterboxed frames. Printed: each run's actions/s, p50 control tick
+   of the CLI's summary, the first tick apart and the p50 of the rest (min,
+   max), server calls and decode ticks a control tick, the host time
+   of ``dispatch_chunk`` against one forward between CUDA events (with
+   ``--profile``: the device time of a tick and the idle share), and the
+   servers' greedy agreement with the batched generation, with the
+   divergence report of phase 6 for the paged server.
+8. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
    width's time split into a part per hidden chunk and a fixed part.
 
 ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
-their checks of phase 2 and phase 4, then the card line and the last line. ``--profile`` adds each
+their checks of phase 2 and phase 4, then the card line and the last line.
+``--only closed_loop`` runs phases 1 and 2 and phase 7, then the card line
+and the last line. ``--profile`` adds each
 timed train step's device time by part (STEP_PARTS, and the kernels'
 backward recomputes apart). ``--only flash`` runs phase 1 for the
 flash-attention source alone, the
@@ -106,9 +138,9 @@ bound and the launch alone with the L2 emptied first; at the policy's shape
 also with every key valid, and at the first two shapes by block shape (tiles
 of 16 packed rows and warps a block, with the blocks an SM holds); then the
 card line and a JSON line of the numbers. ``--only repmixer`` does the same
-for the RepMixer source: its checks of phase 2 and its timing of phase 6.
+for the RepMixer source: its checks of phase 2 and its timing of phase 8.
 ``--only paged`` does the same for the two paged-attention sources: their
-checks of phase 2, then at each of the 8 paged shapes of phase 6 the wrapper
+checks of phase 2, then at each of the 8 paged shapes of phase 8 the wrapper
 call (``ms``), the kernel's launch alone (``kernel_ms``: mask and tables
 already int32), the plain version, the bound, the planned parts, the launch
 alone with the L2 emptied first, and the launch alone at 1, 2, 3 and 6
@@ -121,6 +153,7 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import statistics
@@ -159,6 +192,14 @@ REPMIXER_TRAIN = [(TRAIN_BATCH, TRAIN_IMAGE // 4, TRAIN_IMAGE // 4, 96, 384),
 # positions, 24 pages of 16, a pool of 64 x 24 + 1 = 1,537 pages.
 SERVE = dict(num_slots=64, prefill_batch=16, prompt_len=64, max_new_tokens=64, page_size=16)
 SERVE_REQUESTS, SERVE_ARRIVALS, N_IMG, DECODER_LAYERS = 128, 16, 256, 24
+# The closed loop's kernel shapes at the preset's 1024 px: the MLP tick's
+# prefill (T = 256 image + 64 text tokens) at its 64 envs and at a staggered
+# group of 16; RepMixer's three stage grids at the tick's batch of 64 and at
+# an admission (or staggered group) of 16.
+LOOP_IMAGE, LOOP_ENVS, LOOP_GROUP = 1024, 64, 16
+FLASH_LOOP = dict(b=LOOP_ENVS, t=N_IMG + TEXT_LEN, n=14, kh=2, d=64)
+REPMIXER_LOOP = [(b, LOOP_IMAGE // s, LOOP_IMAGE // s, c, 4 * c) for b in (LOOP_ENVS, LOOP_GROUP)
+                 for s, c in ((4, 96), (8, 192), (16, 384))]
 # The paged kernel at the serving shape (one launch per layer and tick) and
 # with the 7B decoder's heads.
 PAGED_MAIN = dict(b=64, n=14, kh=2, d=64)
@@ -454,7 +495,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/7] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/8] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -480,7 +521,8 @@ def ptxas_usage(text: str) -> list:
 
 # Flash against its plain version: (label, shape, dtype, mask padding). The
 # main paths' shapes in bf16 (the policy step's, the 7B decoder's heads, the
-# train step's, there also in fp32), fp32 at a small batch, left-padded masks, T = 1, T = 17 and 100 (7 x 17 =
+# train step's and the closed loop's, there also in fp32), fp32 at a small
+# batch, left-padded masks, T = 1, T = 17 and 100 (7 x 17 =
 # 119 and 7 x 100 = 700 packed rows: not whole blocks of 128 at D = 64 or
 # 112 at D = 128), and above what a block's shared memory holds (the
 # streamed instance).
@@ -497,7 +539,11 @@ FLASH_CHECKS = [
     ("flash bf16 T=100 d128", dict(FLASH_7B, t=100), "bf16", "right"),
     ("flash fp32 T=100", dict(FLASH_MAIN, b=9, t=100), "fp32", "right"),
 ] + [(f"flash {kind} train{label}", FLASH_TRAIN, kind, pad)
-     for kind in ("bf16", "fp32") for pad, label in (("right", ""), ("left", " left-padded"))] + [(f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, kind, "right")
+     for kind in ("bf16", "fp32") for pad, label in (("right", ""), ("left", " left-padded"))] + [
+    ("flash bf16 closed loop", FLASH_LOOP, "bf16", "right"),
+    ("flash bf16 closed loop, staggered group", dict(FLASH_LOOP, b=LOOP_GROUP), "bf16", "right"),
+    ("flash fp32 closed loop", dict(FLASH_LOOP, b=4), "fp32", "right"),
+] + [(f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, kind, "right")
      for shape in FLASH_LONG for kind in ("bf16", "fp32")]
 
 
@@ -527,7 +573,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/7] kernels against their plain versions")
+    log("[2/8] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -625,15 +671,16 @@ def check_paged() -> dict:
 
 def check_repmixer() -> float:
     """The RepMixer kernel against its plain version: bf16 at each stage's
-    shape on the policy step and on the train step, fp32 at batch 2 of each,
-    and ragged pixel grids (tiles cut by the image's edge) in both dtypes.
-    Returns the largest bf16 error at the main paths' shapes."""
+    shape on the policy step, the train step and the closed loop, fp32 at
+    batch 2 of each grid, and ragged pixel grids (tiles cut by the image's
+    edge) in both dtypes. Returns the largest bf16 error at the main paths'
+    shapes."""
     import torch
 
     from vla_fastvlm_tpu_torch.ops.kernels import repmixer_block, repmixer_block_reference
 
-    worst = 0.0
-    for shape in [shape for shape, _ in REPMIXER_STAGES] + REPMIXER_TRAIN:
+    worst, fp32_grids = 0.0, set()
+    for shape in [shape for shape, _ in REPMIXER_STAGES] + REPMIXER_TRAIN + REPMIXER_LOOP:
         b, h, w, c, f = shape
         args = repmixer_inputs(*shape, torch.bfloat16)
         out = repmixer_block(*args)
@@ -641,6 +688,10 @@ def check_repmixer() -> float:
         err = check_close(f"repmixer bf16 {shape}", out, repmixer_block_reference(*args),
                           TOL[("repmixer", "bf16")])
         worst = max(worst, err)
+        del args, out
+        if (h, w, c, f) in fp32_grids:
+            continue
+        fp32_grids.add((h, w, c, f))
         args = repmixer_inputs(2, h, w, c, f, torch.float32)
         out = repmixer_block(*args)
         torch.cuda.synchronize()
@@ -687,7 +738,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/7] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/8] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -957,7 +1008,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
 
-    log(f"[4/7] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+    log(f"[4/8] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
         f"dropout {TRAIN_DROPOUT}, full depth")
     out = ROOT / "build" / "train_smoke"
@@ -1216,7 +1267,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[5/7] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[5/8] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -1317,6 +1368,7 @@ def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: 
 
     from vla_fastvlm_tpu_torch.models.qwen2 import init_kv_cache
 
+    device = next(target.parameters()).device
     first = {}
     for rid in sorted(spec_out):
         diff = [i for i, (x, y) in enumerate(zip(spec_out[rid], plain_out[rid])) if x != y]
@@ -1329,9 +1381,9 @@ def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: 
         ids, mask, images = (np.concatenate([reqs[rid][j] for rid in chunk]) for j in range(3))
         steps = max(first[rid] for rid in chunk) + 1
         with torch.no_grad():
-            cache = init_kv_cache(target.cfg.text, len(chunk), N_IMG + ids.shape[1] + steps, device="cuda")
+            cache = init_kv_cache(target.cfg.text, len(chunk), N_IMG + ids.shape[1] + steps, device=device)
             logits, _, cache, _, _ = target.prefill(
-                torch.from_numpy(images).cuda(), torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(), cache)
+                *(torch.from_numpy(a).to(device) for a in (images, ids, mask)), cache)
             for j in range(steps):
                 for i, rid in enumerate(chunk):
                     if first[rid] == j:
@@ -1342,7 +1394,7 @@ def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: 
                                          token_gap=abs(float(row[a] - row[b])), dense_argmax=int(row.argmax()),
                                          spec_token=int(a), plain_token=int(b)))
                 if j + 1 < steps:
-                    tok = torch.tensor([[plain_out[rid][j]] for rid in chunk], dtype=torch.int32, device="cuda")
+                    tok = torch.tensor([[plain_out[rid][j]] for rid in chunk], dtype=torch.int32, device=device)
                     logits, cache = target.decode_step(tok, cache)
     for r in rows:
         log(f"  {name} vs plain, request {r['request']}: first differs at {r['position']}, top-2 gap "
@@ -1361,7 +1413,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[6/7] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/8] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1437,10 +1489,288 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     return summaries, counts
 
 
+# Closed-loop control: FastVLA-0.5B at full width and depth, the preset's
+# 1024 px, bf16, random weights from the seed, 64 DummyEnvs of
+# vla_fastvlm_tpu_torch/scripts/eval_closed_loop.py with 256-px frames that
+# the letterbox resizes on the card, state and action widths 14 (ALOHA's),
+# the CLI's default task: BASELINE.md's closed-loop configuration ("64
+# parallel envs") at the 0.5B model the port serves. Every run goes through
+# BatchedEnvRunner over the CLI's build functions, LOOP_TICKS control ticks
+# each (the speculative run, ~5 s a tick, SPEC_LOOP_TICKS). The first tick
+# carries the cold first forward (and a staggered run's prologue), so the p50
+# and its min and max are read over the ticks after it.
+LOOP_TICKS, SPEC_LOOP_TICKS, LOOP_DEVICE = 8, 4, "cuda"
+LOOP = dict(model_id="fastvlm-0.5b", num_envs=LOOP_ENVS, image_size=256, state_dim=14, action_dim=14,
+            dtype="bfloat16", max_steps=LOOP_TICKS, seed=SEED)
+LOOP_SERVE = dict(num_slots=64, prefill_batch=LOOP_GROUP, page_size=16)
+LOOP_SPEC = dict(num_slots=16, prefill_batch=8, page_size=16, spec_k=4, draft_model_id="self",
+                 max_steps=SPEC_LOOP_TICKS)
+# (name, ClosedLoopArgs fields past LOOP), in the order they run.
+LOOP_RUNS = [
+    ("mlp", dict(action_head="mlp")),
+    ("mlp_stagger4", dict(action_head="mlp", stagger=4)),
+    ("token_batch", dict(action_head="token", serving="batch")),
+    ("token_dense", dict(action_head="token", serving="dense", **LOOP_SERVE)),
+    ("token_paged", dict(action_head="token", serving="paged", **LOOP_SERVE)),
+    ("token_paged_int8", dict(action_head="token", serving="paged", kv_cache_quantization="int8", **LOOP_SERVE)),
+    ("token_spec_paged", dict(action_head="token", serving="spec-paged", **LOOP_SPEC)),
+]
+
+
+def loop_expected_launches(args, bridge) -> dict:
+    """The kernel launches a run must make: MLP forwards 24 flash + 38
+    RepMixer (a staggered group dispatches once more after the last tick);
+    token runs RepMixer in each tower pass (the prefills run no flash), the
+    paged kernel 24 a decode tick, the window kernel 24 a round."""
+    counts = dict(flash_attention=0, repmixer_block=0, paged_attention=0, paged_attention_window=0)
+    if args.action_head == "mlp":
+        forwards = args.max_steps if args.stagger == 1 else args.stagger * (args.max_steps + 1)
+        counts.update(flash_attention=DECODER_LAYERS * forwards, repmixer_block=REPMIXER_A_FORWARD * forwards)
+    elif bridge is None:
+        counts.update(repmixer_block=REPMIXER_A_FORWARD * args.max_steps)
+    else:
+        server = bridge.server
+        towers = 2 if hasattr(server, "draft") else 1  # the self-draft prefills its own tower
+        counts.update(repmixer_block=towers * REPMIXER_A_FORWARD * server.admissions)
+        if args.serving == "paged":
+            counts.update(paged_attention=DECODER_LAYERS * server.ticks)
+        elif args.serving == "spec-paged":
+            counts.update(paged_attention_window=DECODER_LAYERS * server.spec_ticks)
+    return counts
+
+
+def event_ms(fn) -> float:
+    """Time of ``fn()`` between CUDA events on a synchronized card."""
+    import torch
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def loop_run(name, args, policy, obs0, profile_dir: Path | None):
+    """One closed-loop run through BatchedEnvRunner: every env one finite
+    action a tick, the launch counts, token actions on the codebook's bin
+    centers, pages back on the free list. Returns the summary, the first
+    tick's actions and, for a token server, its first tick's tokens."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts.eval_closed_loop import build_envs, summarize
+    from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner, TokenPolicyServer
+
+    dispatch_ms = []
+
+    class TimedQueue(ActionQueuePolicy):
+        def dispatch_chunk(self, batch):
+            t0 = time.perf_counter()
+            out = super().dispatch_chunk(batch)
+            dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+    bridge = policy if isinstance(policy, TokenPolicyServer) else None
+    runner = BatchedEnvRunner(build_envs(args), TimedQueue(policy, args.n_action_steps), task=args.task)
+    ticks, actions, first_tokens = [], [], []
+
+    def on_step(tick_actions, done):
+        ticks.append(time.perf_counter())
+        actions.append(np.array(tick_actions))
+        if bridge is not None and not first_tokens:
+            first_tokens.append(bridge.last_tokens.copy())
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = runner.run(max_steps=args.max_steps, on_step=on_step, stagger=args.stagger)
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if len(actions) != args.max_steps or any(a.shape != (args.num_envs, args.action_dim) for a in actions):
+        fail(f"loop {name}: {len(actions)} ticks of actions {sorted({a.shape for a in actions})}")
+    if not all(np.isfinite(a).all() for a in actions) or (result["lengths"] != args.max_steps).any():
+        fail(f"loop {name}: non-finite actions or episode lengths {sorted(set(result['lengths'].tolist()))}")
+    if args.action_head == "token":
+        tok = (bridge.policy if bridge else policy).tokenizer
+        if any((tok.decode(tok.encode(a)) != a).any() for a in actions):
+            fail(f"loop {name}: actions off the codebook's bin centers")
+    expect = loop_expected_launches(args, bridge)
+    if counts != expect:
+        fail(f"loop {name}: launch counts {counts} != {expect}")
+    if bridge is not None and hasattr(bridge.server, "pool"):
+        pool = bridge.server.pool
+        if pool.free_pages != pool.num_pages - 1 or pool.page_table.any():
+            fail(f"loop {name}: {pool.free_pages} of {pool.num_pages - 1} pages back on the free list")
+
+    # The CLI's summary, then the ticks after the first, the dispatches and the launches.
+    summary = summarize(args, policy, result, ticks, t0, elapsed)
+    deltas = np.diff([t0] + ticks) * 1e3
+    warm = deltas[1:]
+    summary.update(first_tick_ms=float(deltas[0]), warm_p50_tick_ms=float(np.median(warm)),
+                   warm_min_tick_ms=float(warm.min()), warm_max_tick_ms=float(warm.max()),
+                   actions_per_sec_at_warm_p50=args.num_envs / float(np.median(warm)) * 1e3,
+                   dispatch_host_ms_p50=float(np.median(dispatch_ms)), launches=counts)
+    if bridge is not None:
+        server = bridge.server
+        summary.update(admissions=server.admissions)
+        if hasattr(server, "spec_ticks"):
+            summary.update(tokens_per_slot_round=server.tokens_per_slot_round)
+    # A dispatch's batch: the tick's, or a staggered group's.
+    group = {k: v[: args.num_envs // args.stagger] for k, v in obs0.items()}
+    one = lambda: ActionQueuePolicy.fetch_chunk(policy.forward(group["images"], group["states"], group["tasks"]))
+    tick = lambda: [one() for _ in range(args.stagger)]
+    # One more forward between CUDA events for the dispatch's host time to
+    # stand against (a token server answers on the host: its dispatch is the
+    # whole forward).
+    summary.update(forward_batch=len(group["tasks"]), forward_event_ms=event_ms(one))
+    if profile_dir is not None:
+        # One control tick's device work (a staggered tick: every group's
+        # forward), by part; idle = 1 - device time / p50 tick, as in §2.
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            tick()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        dev = device_ms(avg)
+        (profile_dir / f"loop_{name}.txt").write_text(avg.table(sort_by="self_cuda_time_total", row_limit=30)
+                                                     + "\n" + avg.table(sort_by="self_cpu_time_total", row_limit=30))
+        summary.update(tick_device_ms=dev, device_idle_share=1.0 - dev / summary["warm_p50_tick_ms"],
+                       tick_parts_ms={k: round(v, 2) for k, v in step_parts(prof, 1).items()})
+    log(f"  {name}: {json.dumps(summary)}")
+    return summary, actions[0], (first_tokens[0] if first_tokens else None)
+
+
+def log_loop_summaries(summaries: dict) -> None:
+    for name, summary in summaries.items():
+        extra = "" if "server_programs_per_control_tick" not in summary else (
+            f", server calls {summary['server_programs_per_control_tick']:.2f} and decode ticks "
+            f"{summary['server_ticks_per_control_tick']:.2f} a control tick")
+        log(f"loop {name}: actions/s {summary['actions_per_sec']:.1f} ({summary['actions_per_sec_at_warm_p50']:.1f} "
+            f"at the p50 after the first tick), p50 control tick {summary['p50_control_latency_ms']:.2f} ms, "
+            f"first {summary['first_tick_ms']:.2f} ms, then p50 {summary['warm_p50_tick_ms']:.2f} ms "
+            f"[{summary['warm_min_tick_ms']:.2f}-{summary['warm_max_tick_ms']:.2f}], dispatch host "
+            f"{summary['dispatch_host_ms_p50']:.2f} ms against a forward of {summary['forward_event_ms']:.2f} ms{extra}")
+
+
+def phase_closed_loop(profile_dir: Path | None = None):
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAPolicy
+    from vla_fastvlm_tpu_torch.model.fastvlm_adapter import prepare_policy_images
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts.eval_closed_loop import (
+        ClosedLoopArgs, build_envs, build_policy, build_token_server,
+    )
+    from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
+
+    log(f"[7/8] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
+        f"DummyEnvs of {LOOP['image_size']}-px frames, state/action {LOOP['state_dim']}, {LOOP['max_steps']} "
+        f"control ticks a run ({SPEC_LOOP_TICKS} speculative)")
+    t0 = time.perf_counter()
+    device = torch.device(LOOP_DEVICE)
+    mlp_args = ClosedLoopArgs(**LOOP, action_head="mlp")
+    token_args = ClosedLoopArgs(**LOOP, action_head="token")
+    policies = {"mlp": build_policy(mlp_args, device), "token": build_policy(token_args, device)}
+    int8 = build_policy(ClosedLoopArgs(**LOOP, action_head="token", kv_cache_quantization="int8"), device)
+    int8.backbone.model.load_state_dict(policies["token"].backbone.model.state_dict())
+    policies["token_int8"] = int8
+    # The first tick's observations, as the runner collects them from fresh envs.
+    envs = build_envs(mlp_args)
+    obs0 = BatchedEnvRunner(envs, None, task=mlp_args.task)._collect_obs([env.reset() for env in envs])
+    torch.cuda.synchronize()
+    log(f"  policies and observations ready in {time.perf_counter() - t0:.1f} s")
+    t_runs = time.perf_counter()
+
+    summaries, first_actions, first_tokens = {}, {}, {}
+    for name, fields in LOOP_RUNS:
+        args = ClosedLoopArgs(**{**LOOP, **fields})
+        key = "mlp" if args.action_head == "mlp" else ("token_int8" if args.kv_cache_quantization == "int8"
+                                                      else "token")
+        policy = policies[key]
+        if args.serving != "batch":
+            policy = build_token_server(args, policy)
+        summaries[name], first_actions[name], first_tokens[name] = loop_run(name, args, policy, obs0, profile_dir)
+        del policy
+        torch.cuda.empty_cache()
+
+    spec = summaries["token_spec_paged"]
+    if not spec["tokens_per_slot_round"] >= SELF_DRAFT_MIN_TOKENS_PER_SLOT_ROUND:
+        fail(f"loop self-draft: {spec['tokens_per_slot_round']:.3f} tokens per slot and round "
+             f"< {SELF_DRAFT_MIN_TOKENS_PER_SLOT_ROUND}")
+    a, b = first_actions["mlp_stagger4"], first_actions["mlp"]
+    rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    log(f"  stagger=4 vs stagger=1 first-tick actions: rel_l2={rel:.3e} (limit {POLICY_REL_L2:g}; groups of "
+        f"{LOOP['num_envs'] // 4} against {LOOP['num_envs']})")
+    if not rel <= POLICY_REL_L2:
+        fail(f"loop: staggered actions differ from serial, rel_l2={rel:.3e}")
+
+    # The MLP tick's kernel path against its plain path, same weights, the
+    # first tick's observations.
+    mlp = policies["mlp"]
+    plain = FastVLAPolicy(dataclasses.replace(mlp.config, attention_impl="xla", vision_block_impl="xla"), device=device)
+    copy_weights(plain, mlp)
+    reset_launch_counts()
+    plain_actions = ActionQueuePolicy.fetch_chunk(plain.forward(obs0["images"], obs0["states"], obs0["tasks"]))
+    if any(launch_counts().values()):
+        fail(f"loop: the plain MLP path launched kernels: {launch_counts()}")
+    b = first_actions["mlp"]
+    rel = float(np.linalg.norm(plain_actions.reshape(b.shape) - b) / np.linalg.norm(plain_actions))
+    log(f"  MLP kernel path vs plain path, first-tick actions: rel_l2={rel:.3e} (limit {POLICY_REL_L2:g})")
+    if not rel <= POLICY_REL_L2:
+        fail(f"loop: the MLP kernel path differs from the plain path, rel_l2={rel:.3e}")
+    del plain, mlp
+
+    # image_prep inside admission against the host letterbox, same observations.
+    token = policies["token"]
+    paged_args = ClosedLoopArgs(**LOOP, **dict(LOOP_RUNS)["token_paged"])
+    host_bridge = build_token_server(paged_args, token)
+    host_bridge.server.image_prep = None  # the bridge letterboxes the tick on the card, submits tower-size frames
+    host_bridge.forward(obs0["images"], obs0["states"], obs0["tasks"])
+    same = float((host_bridge.last_tokens == first_tokens["token_paged"]).mean())
+    log(f"  paged server, image_prep in admission vs host letterbox: tokens equal in {same:.4f} of positions")
+    if same != 1.0:
+        fail("loop: image_prep inside admission changed the paged server's tokens")
+    del host_bridge
+
+    # Greedy agreement of the servers with the batched generation (printed):
+    # the paged and window kernels and the plain dense decode sum in other
+    # orders, so bf16 near-ties of random weights may flip.
+    batch_tokens = token.tokens(obs0["images"], obs0["states"], obs0["tasks"]).cpu().numpy()
+    for name in ("token_dense", "token_paged", "token_paged_int8", "token_spec_paged"):
+        log(f"  first-tick tokens identical between {name} and token_batch: "
+            f"{float((first_tokens[name] == batch_tokens).mean()):.4f}")
+    diff = [r for r in range(len(batch_tokens)) if (first_tokens["token_paged"][r] != batch_tokens[r]).any()]
+    if diff:
+        server = build_token_server(paged_args, token).server
+        ids, mask = token.prompt_arrays(token.processor.prepare_tasks([obs0["tasks"][r] for r in diff], len(diff)),
+                                        obs0["states"][diff])
+        images = prepare_policy_images(token.backbone.to_device(obs0["images"][diff]), token.backbone.model_config,
+                                       token.backbone.config).float().cpu().numpy()
+        for r in range(min(len(diff), server.num_slots)):
+            server.submit(ids[r: r + 1], mask[r: r + 1], obs0["images"][diff][r: r + 1])
+        server.step()
+        kernel, gathered = server.tick_logits("kernel").float(), server.tick_logits("gathered").float()
+        logit_err = float((kernel - gathered).abs().max())
+        del server
+        reqs = {r: (ids[i: i + 1], mask[i: i + 1], images[i: i + 1]) for i, r in enumerate(diff)}
+        outs = lambda toks: {r: [int(t) for t in toks[r]] for r in diff}
+        divergence_report(token.backbone.model, reqs, outs(first_tokens["token_paged"]), outs(batch_tokens),
+                          logit_err, "token_paged")
+    del policies, token, int8
+    torch.cuda.empty_cache()
+    log(f"  closed-loop runs and checks in {time.perf_counter() - t_runs:.1f} s")
+    return summaries
+
+
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[7/7] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[8/8] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -1737,14 +2067,15 @@ def main(argv=None) -> int:
                         help="directory for torch.profiler tables of three policy steps (kernel and plain "
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
-    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train"], default=None,
+    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop"], default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
                              "heads' and the streamed shapes and by block shape; repmixer: "
                              "the RepMixer library, its checks against the plain version, its "
                              "per-width times; paged: the two paged-attention libraries, their "
                              "checks, their times at the 8 paged shapes and by part count; train: the "
-                             "flash and RepMixer libraries and the training phase)")
+                             "flash and RepMixer libraries and the training phase; closed_loop: the four "
+                             "libraries, their checks and the closed-loop phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -1763,9 +2094,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/7] flash-attention kernel against its plain version")
+        log("[2/8] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[7/7] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[8/8] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -1774,9 +2105,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/7] RepMixer kernel against its plain version")
+        log("[2/8] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[7/7] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[8/8] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -1784,7 +2115,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "train":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/7] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/8] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         if args.profile is not None:
@@ -1796,11 +2127,23 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if args.only == "closed_loop":
+        phase_build()
+        phase_kernels()
+        if args.profile is not None:
+            args.profile.mkdir(parents=True, exist_ok=True)
+        log_loop_summaries(phase_closed_loop(args.profile))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/7] paged-attention kernels against their plain versions")
+        log("[2/8] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[7/7] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[8/8] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -1826,6 +2169,7 @@ def main(argv=None) -> int:
     summaries, serve_counts, model_05b = timed("serving", phase_serving, args.profile)
     spec_summaries, spec_counts = timed("speculative", phase_speculative, model_05b, args.profile)
     del model_05b
+    loop_summaries = timed("closed_loop", phase_closed_loop, args.profile)
     timings = timed("timing", phase_timing, policy, plain, step)
     log(f"seconds per phase: {phase_s}")
     if args.profile is not None:
@@ -1860,6 +2204,7 @@ def main(argv=None) -> int:
         log(f"serve {name}: tokens/s {summary['tokens_per_sec']:.1f}, p50 round {summary['p50_tick_ms']:.2f} ms, "
             f"rounds {summary['ticks']}, admissions {summary['admissions']}{extra}, "
             f"device idle share {summary['device_idle_share']}")
+    log_loop_summaries(loop_summaries)
     kernels = []
     for name, (source, replaces, launches) in meta.items():
         t = timings[name]

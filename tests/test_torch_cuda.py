@@ -444,3 +444,70 @@ def test_kernels_reject_non_contiguous(cuda):
     q, k, v, mask = _flash_inputs(1, 16, 4, 2, 64, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, mask, True)
+
+
+def _card_policy(cls, **kw):
+    """FastVLA-0.5B's decoder and tower, fp32, at 64 px (1 image token):
+    every kernel of the closed loop takes these shapes."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig
+
+    return cls(FastVLAConfig(vlm_model_name="fastvlm-0.5b", bootstrap_model_name="fastvlm-0.5b", image_size=64,
+                             tokenizer_max_length=16, state_dim=4, action_dim=4, dtype="float32",
+                             param_dtype="float32", dropout=0.0, **kw))
+
+
+def _card_obs(b=4, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.random((b, 3, 48, 80), dtype=np.float32), (rng.standard_normal((b, 4)) * 0.5).astype(np.float32),
+            ["pick up the cube", "open the drawer", "push", "stack the cups"][:b])
+
+
+def test_token_head_paged_tick_on_the_card(cuda):
+    """One control tick of the token head on the paged server, raw frames
+    letterboxed inside admission: the paged kernel decodes (24 launches a
+    tick), the RepMixer kernel runs in each admission, the tokens are the
+    policy's own dense-cache decode (fp32), every page comes back."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLMTokenPolicy
+    from vla_fastvlm_tpu_torch.model.fastvlm_adapter import prepare_policy_images
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer, TokenPolicyServer
+
+    policy = _card_policy(FastVLMTokenPolicy, action_head="token")
+    mcfg, bcfg = policy.backbone.model_config, policy.backbone.config
+    server = PagedGenerationServer(policy.backbone.model, num_slots=4, prompt_len=16 + 4, max_new_tokens=4,
+                                   eos_token_id=-1, prefill_batch=2, page_size=16,
+                                   image_prep=lambda imgs: prepare_policy_images(imgs, mcfg, bcfg))
+    bridge = TokenPolicyServer(policy, server)
+    obs = _card_obs()
+    ref = policy.tokens(*obs).cpu().numpy()
+    reset_launch_counts()
+    actions = bridge.forward(*obs)
+    assert launch_counts() == {"flash_attention": 0, "repmixer_block": 38 * server.admissions,
+                               "paged_attention": 24 * server.ticks, "paged_attention_window": 0}
+    assert (server.admissions, server.ticks) == (2, 3)
+    np.testing.assert_array_equal(bridge.last_tokens, ref)
+    np.testing.assert_array_equal(policy.tokenizer.decode(policy.tokenizer.encode(actions)), actions)
+    assert server.pool.free_pages == server.pool.num_pages - 1 and not server.pool.page_table.any()
+
+
+def test_staggered_runner_on_the_card(cuda):
+    """The MLP policy in two staggered groups against the serial runner:
+    the dispatch leaves its actions on the card, every forward launches 24
+    flash and 38 RepMixer kernels, and the returns agree."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAPolicy
+    from vla_fastvlm_tpu_torch.scripts.eval_closed_loop import DummyEnv
+    from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
+
+    policy = _card_policy(FastVLAPolicy, hidden_dim=16, fusion_dim=16)
+    make = lambda: [DummyEnv(horizon=3, state_dim=4, image_hw=48, seed=i) for i in range(4)]
+    serial = BatchedEnvRunner(make(), ActionQueuePolicy(policy, 1), task="go").run(max_steps=3)
+    reset_launch_counts()
+    staggered = BatchedEnvRunner(make(), ActionQueuePolicy(policy, 1), task="go").run(max_steps=3, stagger=2)
+    torch.cuda.synchronize()
+    forwards = 2 * (3 + 1)  # each group: the prologue's dispatch and one after each tick
+    assert launch_counts() == {"flash_attention": 24 * forwards, "repmixer_block": 38 * forwards,
+                               "paged_attention": 0, "paged_attention_window": 0}
+    np.testing.assert_allclose(staggered["returns"], serial["returns"], rtol=1e-5)
+    assert staggered["lengths"].tolist() == serial["lengths"].tolist() == [3] * 4
+    images, states, tasks = _card_obs()
+    pending = ActionQueuePolicy(policy, 1).dispatch_chunk({"images": images, "states": states, "tasks": tasks})
+    assert isinstance(pending, torch.Tensor) and pending.device.type == "cuda"

@@ -3,7 +3,10 @@
 ``FastVLMWithExpert`` at ``fastvlm_tiny`` (64 px tower, 2-layer decoder):
 seeded random JAX parameters at realistic scales move across the weight
 bridge into the port, and both run the policy step on the same
-numpy images (letterboxed from 48x64), token ids and states, in fp32.
+numpy images (letterboxed from 48x64), token ids and states, in fp32; and
+the policy's host forward under each preprocessing and decoder option
+(cameras, unfused projections, plain resize, pad value, left padding,
+padding to the maximum length, no trailing newline).
 """
 
 import jax
@@ -117,3 +120,30 @@ def test_text_only_mode_matches_jax():
     tmodel.load_jax_params(params)
     out = tmodel.apply_fn(*(torch.from_numpy(x) for x in (images, ids, mask, states)))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+# Options of the policy's preprocessing and decoder, each against the JAX
+# package at fp32 through the host API (tokenizer, letterbox, splice); fp32
+# sums in another order, as ATOL above, held here to 1e-5.
+OPTION_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("option", [
+    dict(num_cameras=2), dict(fused_projections=False), dict(resize_with_padding=False), dict(pad_value=0.5),
+    dict(tokenizer_padding_side="left"), dict(pad_to_max_length=True), dict(add_trailing_newline=False),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_policy_forward_options_match_jax(option):
+    from vla_fastvlm_tpu.fastvla import FastVLAPolicy as JPolicy
+
+    jpolicy = JPolicy(JConfig(**TINY, fabricate_params=True, **option))
+    params = random_params(jpolicy.params, 11)
+    jpolicy.load_params(params)
+    policy = FastVLAPolicy(FastVLAConfig(**TINY, **option), device="cpu")
+    policy.load_jax_params(params)
+    rng = np.random.default_rng(12)
+    cams = (2,) if option.get("num_cameras") else ()
+    images = rng.random((2,) + cams + (3, 48, 64), dtype=np.float32)
+    states = rng.standard_normal((2, 6)).astype(np.float32)
+    tasks = ["pick up the cube", "open"]
+    out = policy.forward(images, states, tasks)
+    np.testing.assert_allclose(out.numpy(), np.asarray(jpolicy.forward(images, states, tasks)), atol=OPTION_ATOL)

@@ -2,8 +2,9 @@
 
 - The port imports without JAX and without the JAX package.
 - No file of the port, nor ``chip_smoke.py``, names the JAX package or JAX.
-- Entry points raise without CUDA unless ``device="cpu"`` is passed; the
-  paged server runs where the backbone put its model.
+- Entry points raise without CUDA unless ``device="cpu"`` is passed (the
+  policies, the trainer, the closed-loop CLI); the paged server runs where
+  the backbone put its model.
 - The weight bridge covers every parameter at full ``fastvlm_0_5b`` width:
   ``jax.eval_shape`` of the JAX init against the port built on the meta
   device (nothing is allocated for either), both ways.
@@ -77,7 +78,8 @@ def test_every_module_has_a_jax_counterpart_layout():
         "io/tokenizer.py", "model/fastvlm_adapter.py", "fastvla/configuration_fastvla.py",
         "fastvla/processor_fastvla.py", "fastvla/fastvlm_with_expert.py", "fastvla/modeling_fastvla.py",
         "training/trainer.py", "data/aloha_dataset.py", "data/prefetch.py", "io/checkpoint.py",
-        "utils/cli.py", "utils/logging.py",
+        "utils/cli.py", "utils/logging.py", "models/action_tokens.py", "fastvla/token_policy.py",
+        "serving/policy_runtime.py", "serving/token_policy_server.py",
     }
     for rel in mirrored:
         assert (PORT / rel).is_file() and (ROOT / "vla_fastvlm_tpu" / rel).is_file(), rel
@@ -95,11 +97,15 @@ class TestDevice:
             resolve_device("cuda")
 
     @pytest.mark.parametrize(
-        "entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy", "PagedGenerationServer", "Trainer"]
+        "entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy", "PagedGenerationServer", "Trainer",
+                  "FastVLMTokenPolicy", "eval_closed_loop"]
     )
     def test_entry_points_need_cuda_unless_cpu(self, entry, monkeypatch):
-        from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMWithExpert
+        from types import SimpleNamespace
+
+        from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy, FastVLMWithExpert
         from vla_fastvlm_tpu_torch.model import FastVLMBackbone
+        from vla_fastvlm_tpu_torch.scripts import eval_closed_loop
         from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
         from vla_fastvlm_tpu_torch.training import Trainer, TrainingConfig
 
@@ -116,6 +122,12 @@ class TestDevice:
             ),
             # The trainer runs where the policy lives.
             "Trainer": lambda **kw: Trainer(FastVLAPolicy(cfg, **kw), [], None, TrainingConfig(max_steps=1)),
+            "FastVLMTokenPolicy": lambda **kw: FastVLMTokenPolicy(FastVLAConfig(
+                vlm_model_name="tiny", action_head="token", action_bins=64, tokenizer_max_length=8), **kw),
+            # The CLI's summary names the device it ran on.
+            "eval_closed_loop": lambda **kw: SimpleNamespace(device=torch.device(eval_closed_loop.main(
+                eval_closed_loop.ClosedLoopArgs(num_envs=1, max_steps=1, state_dim=2, action_dim=2, **kw)
+            )["device"])),
         }[entry]
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()

@@ -184,7 +184,7 @@ class TestPool:
 
 class TestServerOptions:
     @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(prefix_cache_size=2), dict(prefill_chunk_tokens=4),
-                                    dict(lora={}), dict(image_prep=lambda x: x)])
+                                    dict(lora={})])
     def test_unported_options_raise(self, kw):
         with pytest.raises(NotImplementedError, match="not ported"):
             PagedGenerationServer(t_vlm.FastVLM(t_vlm.fastvlm_tiny()), num_slots=1, prompt_len=4, **kw)

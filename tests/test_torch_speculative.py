@@ -240,7 +240,7 @@ class TestRefusals:
         server = SpeculativeGenerationServer(pair["tt"], pair["td"], k=2, num_slots=1, prompt_len=PROMPT)
         with pytest.raises(NotImplementedError, match="step_n"):
             server.step_n(4)
-        for kw in (dict(mesh=object()), dict(lora={}), dict(image_prep=lambda x: x)):
+        for kw in (dict(mesh=object()), dict(lora={})):
             with pytest.raises(NotImplementedError, match="not ported"):
                 GenerationServer(pair["tt"], num_slots=1, prompt_len=4, **kw)
         with pytest.raises(NotImplementedError, match="LoRA"):

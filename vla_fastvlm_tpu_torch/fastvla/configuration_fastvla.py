@@ -3,9 +3,11 @@
 the same ``to_backbone_config()`` translation. ``train_backbone`` and
 ``gradient_checkpointing`` pass through, and remat is derived as in JAX:
 ``gradient_checkpointing or train_backbone or lora_rank > 0``, so
-``train_backbone`` alone rematerializes the decoder blocks. Fields of paths
-that are not ported yet (quantization, LoRA, the token head) are kept for
-config parity and rejected by the policy when set.
+``train_backbone`` alone rematerializes the decoder blocks. ``action_head``
+is "mlp" (``FastVLAPolicy``) or "token" (``FastVLMTokenPolicy``, actions
+decoded as tokens through the VLM's own lm_head). Fields of paths that are
+not ported yet (quantization, LoRA) are kept for config parity and rejected
+by the policies when set.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ class FastVLAConfig:
     lora_rank: int = 0
     lora_alpha: Optional[float] = None
     chunk_size: int = 1  # > 1 emits (chunk, action_dim) per forward
-    action_head: str = "mlp"  # "mlp" ("token" is not ported yet)
+    action_head: str = "mlp"  # "mlp" | "token"
     action_bins: int = 256
     action_token_low: float = -1.0
     action_token_high: float = 1.0

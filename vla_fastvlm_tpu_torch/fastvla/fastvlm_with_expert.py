@@ -33,7 +33,8 @@ def _check_supported(cfg: FastVLAConfig) -> None:
     if cfg.lora_rank > 0:
         raise NotImplementedError("LoRA adapters are not ported to PyTorch yet")
     if cfg.action_head != "mlp":
-        raise NotImplementedError(f"action_head={cfg.action_head!r} is not ported to PyTorch yet")
+        raise ValueError(f"FastVLMWithExpert is the MLP head's stack, got action_head={cfg.action_head!r}; "
+                         "the token head is fastvla.FastVLMTokenPolicy")
 
 
 class FastVLMWithExpert:

@@ -176,25 +176,32 @@ def load_policy_from_checkpoint(checkpoint_dir: str | Path, device: DeviceLike =
     """Build the policy a checkpoint directory describes and load its
     weights: ``(policy, device)``. The card unless ``device="cpu"``.
 
-    FastVLA checkpoints (``vlm_model_name`` in the config, the JAX rule) load;
-    the legacy ``FastVLMPolicy`` layout is not ported and raises.
+    FastVLA checkpoints (``vlm_model_name`` in the config, the JAX rule) load:
+    ``FastVLMTokenPolicy`` when the config says ``action_head == "token"``
+    (the same layout with no ``head`` sub-tree), else ``FastVLAPolicy``; the
+    legacy ``FastVLMPolicy`` layout is not ported and raises.
     ``strict=False`` lets the checkpoint leave parameters at their init.
     """
-    from ..fastvla import FastVLAConfig, FastVLAPolicy
+    from ..fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
 
     config_dict, params = load_policy_state(checkpoint_dir)
     if "vlm_model_name" not in config_dict:
         raise NotImplementedError(
             f"{checkpoint_dir}: a legacy FastVLMPolicy checkpoint; that policy is not ported to PyTorch yet"
         )
-    policy = FastVLAPolicy(FastVLAConfig(**_filter_known_fields(FastVLAConfig, config_dict)), device=device)
+    config = FastVLAConfig(**_filter_known_fields(FastVLAConfig, config_dict))
+    policy_cls = FastVLMTokenPolicy if config.action_head == "token" else FastVLAPolicy
+    policy = policy_cls(config, device=device)
     if strict:
         policy.load_jax_params(params)
     else:
         from .bridge import jax_params_to_torch
 
-        policy.model.backbone.model.load_state_dict(jax_params_to_torch(params.get("backbone", {})), strict=False)
-        policy.model.head.load_state_dict(jax_params_to_torch(params.get("head", {})), strict=False)
+        token = policy_cls is FastVLMTokenPolicy
+        backbone = policy.backbone if token else policy.model.backbone
+        backbone.model.load_state_dict(jax_params_to_torch(params.get("backbone", {})), strict=False)
+        if not token:  # the token policy has no head
+            policy.model.head.load_state_dict(jax_params_to_torch(params.get("head", {})), strict=False)
     return policy, policy.device
 
 

@@ -28,6 +28,7 @@ from typing import List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..data.prefetch import to_device
 from ..device import DeviceLike, resolve_device, resolve_dtype, same_device
 from ..io.bridge import jax_params_to_torch
 from ..io.presets import resolve_fastvlm_config
@@ -223,7 +224,11 @@ class FastVLMBackbone:
             return pool_last_text_token(hidden, text_mask)
 
     def to_device(self, array) -> torch.Tensor:
-        return torch.as_tensor(array).to(self.device, non_blocking=True)
+        """Host array or tensor -> tensor on the backbone's device. Host
+        memory goes through pinned memory (``data/prefetch.py::to_device``),
+        so the copy neither waits for the card's queued work nor holds the
+        host."""
+        return to_device(array if isinstance(array, torch.Tensor) else np.asarray(array), self.device)
 
     def check_device(self, device: DeviceLike) -> None:
         """A ``device`` passed to forward must name the one the model lives on."""

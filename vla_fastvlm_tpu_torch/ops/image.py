@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -20,18 +19,20 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def _interp_matrix(in_size: int, out_size: int, dtype=np.float32) -> np.ndarray:
-    """(out, in) bilinear interpolation matrix, half-pixel centers
-    (torch ``align_corners=False``, no antialias)."""
-    src = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
-    src = np.clip(src, 0.0, in_size - 1)
-    lo = src.astype(np.int64)
-    hi = np.minimum(lo + 1, in_size - 1)
-    w_hi = (src - lo).astype(dtype)
-    mat = np.zeros((out_size, in_size), dtype)
-    rows = np.arange(out_size)
-    mat[rows, lo] += 1.0 - w_hi
-    mat[rows, hi] += w_hi
+def _interp_matrix(in_size: int, out_size: int, device=None) -> torch.Tensor:
+    """(out, in) fp32 bilinear interpolation matrix, half-pixel centers
+    (torch ``align_corners=False``, no antialias), built on ``device``: the
+    JAX package's numpy arithmetic (source coordinates in float64), with no
+    copy from the host, which would wait for the card's queued work."""
+    src = (torch.arange(out_size, dtype=torch.float64, device=device) + 0.5) * (in_size / out_size) - 0.5
+    src = src.clamp(0.0, in_size - 1)
+    lo = src.to(torch.int64)
+    hi = (lo + 1).clamp(max=in_size - 1)
+    w_hi = (src - lo).to(torch.float32)
+    mat = torch.zeros((out_size, in_size), dtype=torch.float32, device=device)
+    rows = torch.arange(out_size, device=device)
+    mat.index_put_((rows, lo), 1.0 - w_hi, accumulate=True)
+    mat.index_put_((rows, hi), w_hi, accumulate=True)
     return mat
 
 
@@ -40,8 +41,8 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     _, _, in_h, in_w = img.shape
     if (in_h, in_w) == (out_h, out_w):
         return img
-    r_h = torch.from_numpy(_interp_matrix(in_h, out_h)).to(img.device)
-    r_w = torch.from_numpy(_interp_matrix(in_w, out_w)).to(img.device)
+    r_h = _interp_matrix(in_h, out_h, img.device)
+    r_w = _interp_matrix(in_w, out_w, img.device)
     out = torch.einsum("oh,bchw,pw->bcop", r_h, img.float(), r_w)
     return out.to(img.dtype)
 

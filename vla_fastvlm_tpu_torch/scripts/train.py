@@ -9,8 +9,10 @@ an unknown split. ``--synthetic-data`` trains on ``SyntheticAlohaSource`` record
 (offline). Flags of the port: ``--device`` (``cuda`` by default; the script raises
 without CUDA unless ``--device cpu``) and ``--train-backbone`` (with
 ``--no-freeze-backbone``: the whole policy trains, through the kernels' backward,
-decoder blocks rematerialized). Paths not ported raise: ``--tp`` above 1 and
-``--fsdp`` (a mesh), ``--lora-rank``, ``--quantization``, ``--action-head token``.
+decoder blocks rematerialized). ``--action-head token`` trains the action-token
+policy (``FastVLMTokenPolicy``), which has no head and trains only with
+``--train-backbone``, as in JAX. Paths not ported raise: ``--tp`` above 1 and
+``--fsdp`` (a mesh), ``--lora-rank``, ``--quantization``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Optional
 
 from ..data import AlohaDataset, AlohaIterableDataset, SyntheticAlohaSource, create_aloha_dataloader
 from ..device import resolve_device
-from ..fastvla import FastVLAConfig, FastVLAPolicy
+from ..fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
 from ..training import Trainer, TrainingConfig
 from ..utils import configure_logging, parse_cli
 
@@ -125,7 +127,8 @@ def main(args: TrainArgs) -> None:
         action_token_high=args.action_token_high,
         seed=args.seed,
     )
-    policy = FastVLAPolicy(policy_config, device=device)
+    policy_cls = FastVLMTokenPolicy if args.action_head == "token" else FastVLAPolicy
+    policy = policy_cls(policy_config, device=device)
 
     synthetic = (
         SyntheticAlohaSource(

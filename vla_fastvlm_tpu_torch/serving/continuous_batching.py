@@ -16,8 +16,15 @@ Finished slots ride the batch too and their cursors run on; the decoder
 clamps their writes at the buffer end (``models/qwen2.py``) and the next
 admission overwrites the whole slot row. The prompt-bucket helpers
 (``normalize_buckets``, ``pick_bucket``, ``_pad_to``) are shared with the
-paged server. Not in this port yet: LoRA, a TP mesh and ``image_prep``;
-each raises ``NotImplementedError`` when set.
+paged server.
+
+``image_prep`` (every server of the port takes it): a function applied on
+the device to each admission batch's images before the prefill, e.g.
+``model/fastvlm_adapter.prepare_policy_images`` (letterbox + normalize to
+the tower resolution). Callers then submit raw frames of any one size, and
+only those cross from the host; the batch's dummy rows are zero frames of
+that size. Not in this port yet: LoRA and a TP mesh; each raises
+``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ class _Pending:
     request_id: int
     input_ids: np.ndarray  # (1, bucket)
     attention_mask: np.ndarray  # (1, bucket)
-    images: Optional[np.ndarray]  # (1, 3, S, S) | None
+    images: Optional[np.ndarray]  # (1, 3, S, S), raw frames under image_prep | None
     bucket: int = 0  # prompt width this request was padded to
 
 
@@ -118,6 +125,15 @@ def admission_arrays(batch, prefill_batch: int, eos_token_id: int):
     return ids, mask, images
 
 
+def device_images(server, images) -> Optional[torch.Tensor]:
+    """An admission batch's host images on ``server.device``, through
+    ``server.image_prep`` when it is set (raw frames in, tower-size out)."""
+    if images is None:
+        return None
+    images = server._to_device(images)
+    return images if server.image_prep is None else server.image_prep(images)
+
+
 def _pad_to(ids: np.ndarray, mask: np.ndarray, bucket: int):
     pad = bucket - ids.shape[1]
     if pad == 0:
@@ -133,6 +149,7 @@ class GenerationServer:
     no counterpart). The other keywords are the JAX server's; ``cache_slack``
     adds cache positions past image + prompt + new tokens (the speculative
     subclass writes a ``k + 1`` window before rolling back).
+    ``admissions`` counts the admission prefills run so far.
     """
 
     def __init__(
@@ -151,11 +168,12 @@ class GenerationServer:
         cache_slack: int = 0,
         image_prep=None,
     ) -> None:
-        unported = {"mesh": mesh is not None, "lora": lora is not None, "image_prep": image_prep is not None}
+        unported = {"mesh": mesh is not None, "lora": lora is not None}
         named = [k for k, on in unported.items() if on]
         if named:
             raise NotImplementedError(f"{', '.join(named)}: not ported to the PyTorch dense server yet")
         self.model = model
+        self.image_prep = image_prep
         self.device = next(model.parameters()).device
         self.num_slots = num_slots
         self.prompt_buckets = normalize_buckets(prompt_len)
@@ -179,6 +197,7 @@ class GenerationServer:
         self._finished_buffer: Dict[int, List[int]] = {}
         # Fixed by the first request and checked at submit, never mid-admit.
         self._multimodal: Optional[bool] = None
+        self.admissions = 0
 
     # ------------------------------------------------------------------
 
@@ -243,13 +262,13 @@ class GenerationServer:
         positions -> (last logits (bp, V), cache)."""
         cache_p = init_kv_cache(model.cfg.text, self.prefill_batch, cache_len, device=self.device)
         last_logits, _, cache_p, _, _ = model.prefill(
-            None if images is None else self._to_device(images), self._to_device(ids), self._to_device(mask),
-            cache_p,
+            device_images(self, images), self._to_device(ids), self._to_device(mask), cache_p,
         )
         return last_logits, cache_p
 
     def _register_admitted(self, batch: List[_Pending], slots: np.ndarray, first_host: np.ndarray) -> None:
         """Slot bookkeeping after the prefill ran."""
+        self.admissions += 1
         for row, req in enumerate(batch):
             slot_idx = int(slots[row])
             slot = self._slots[slot_idx]

@@ -24,9 +24,10 @@ table, so device memory scales with allocated tokens, not slots x max_len:
   the speculative server (``serving/speculative_paged.py``) runs at W = k + 1.
 
 The pools are updated in place (the JAX server donates its buffers to the
-jitted programs instead). Not in this port yet: prefix caching, chunked
-prefill, LoRA, a TP mesh and ``image_prep``; each raises
-``NotImplementedError`` when set.
+jitted programs instead). ``image_prep`` letterboxes raw frames inside
+admission, as on the dense server (``serving/continuous_batching.py``). Not
+in this port yet: prefix caching, chunked prefill, LoRA and a TP mesh; each
+raises ``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import Qwen2Config, init_kv_cache
-from .continuous_batching import _pad_to, admission_arrays, normalize_buckets, pick_bucket
+from .continuous_batching import _pad_to, admission_arrays, device_images, normalize_buckets, pick_bucket
 from .sampling import sample_tokens
 
 
@@ -61,7 +62,7 @@ class _Pending:
     slot: int
     input_ids: np.ndarray  # (1, bucket)
     attention_mask: np.ndarray  # (1, bucket)
-    images: Optional[np.ndarray]  # (1, 3, S, S) | None
+    images: Optional[np.ndarray]  # (1, 3, S, S), raw frames under image_prep | None
     bucket: int = 0
 
 
@@ -210,7 +211,6 @@ class PagedGenerationServer:
         unported = {
             "mesh": mesh is not None, "prefix_cache_size": prefix_cache_size > 0,
             "prefill_chunk_tokens": prefill_chunk_tokens > 0, "lora": lora is not None,
-            "image_prep": image_prep is not None,
         }
         named = [k for k, on in unported.items() if on]
         if named:
@@ -219,6 +219,7 @@ class PagedGenerationServer:
             raise ValueError(f"unknown decode_impl {decode_impl!r}")
         self.decode_impl = "kernel" if decode_impl == "auto" else decode_impl
         self.model = model
+        self.image_prep = image_prep
         self.device = next(model.parameters()).device
         self.num_slots = num_slots
         self.prompt_buckets = normalize_buckets(prompt_len)
@@ -322,8 +323,7 @@ class PagedGenerationServer:
         model = self.model
         cache = init_kv_cache(model.cfg.text, bp, self._max_len, device=self.device)
         last_logits, _, cache, _, _ = model.prefill(
-            None if images is None else self._to_device(images), self._to_device(ids), self._to_device(mask),
-            cache,
+            device_images(self, images), self._to_device(ids), self._to_device(mask), cache,
         )
         tokens = sample_tokens(last_logits, self._generator, self.temperature, self.top_p)
         self._scatter_prefill(cache, self._to_device(pages).long())

@@ -221,8 +221,9 @@ class SpeculativeGenerationServer(GenerationServer):
     The dense slot server with its decode tick replaced by one draft-verify
     round across all slots (``num_slots + 1`` rows with the trash slot, an
     ``active`` mask pinning the others): a tick emits ``accepted_i + 1`` in
-    ``[1, k + 1]`` tokens per active slot. Admission prefills both models and
-    inserts each cache into its slot. A slot that finishes mid-window
+    ``[1, k + 1]`` tokens per active slot. Admission prefills both models (raw
+    frames through the same ``image_prep`` on both sides) and inserts each
+    cache into its slot. A slot that finishes mid-window
     abandons its extra accepted rows; the next admission's insert overwrites
     the whole slot row. ``step_n`` raises: a plain multi-tick decode would
     advance the target cache without the draft's.
@@ -230,14 +231,16 @@ class SpeculativeGenerationServer(GenerationServer):
 
     def __init__(self, model: FastVLM, draft: FastVLM, *, k: int = 4, num_slots: int = 8, prompt_len=64,
                  max_new_tokens: int = 32, eos_token_id: int = 2, prefill_batch: int = 4,
-                 temperature: float = 0.0, top_p: float = 1.0, seed: int = 0, lora=None, mesh=None) -> None:
+                 temperature: float = 0.0, top_p: float = 1.0, seed: int = 0, lora=None, mesh=None,
+                 image_prep=None) -> None:
         validate_draft_pair(model, draft, k)
         self.k = int(k)
         # Rounds write a k + 1 window before rolling the rejected suffix
         # back; the high-water mark is the accepted length plus one window.
         super().__init__(model, num_slots=num_slots, prompt_len=prompt_len, max_new_tokens=max_new_tokens,
                          eos_token_id=eos_token_id, prefill_batch=prefill_batch, temperature=temperature,
-                         top_p=top_p, seed=seed, lora=lora, mesh=mesh, cache_slack=self.k + 1)
+                         top_p=top_p, seed=seed, lora=lora, mesh=mesh, cache_slack=self.k + 1,
+                         image_prep=image_prep)
         self.draft = draft
         dcfg = draft.cfg
         self._draft_cache_len = dcfg.num_image_tokens + self.prompt_len + max_new_tokens + self.k + 1

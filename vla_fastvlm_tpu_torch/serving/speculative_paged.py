@@ -44,7 +44,7 @@ import torch
 
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import init_kv_cache
-from .continuous_batching import admission_arrays, make_slot_insert
+from .continuous_batching import admission_arrays, device_images, make_slot_insert
 from .paged_kv import PagedGenerationServer, _Pending
 from .speculative import _accept, _draft_propose, _emit, _rewind, validate_draft_pair
 
@@ -122,14 +122,13 @@ class SpeculativePagedGenerationServer(PagedGenerationServer):
     def _draft_admit(self, batch: List[_Pending]) -> None:
         """Prefill the draft on an admitted batch and insert it per slot,
         after the target's admission, so the draft cache mirrors the prompts
-        the target holds."""
+        the target holds (raw frames through the same ``image_prep``)."""
         ids, mask, images = admission_arrays(batch, self.prefill_batch, self.eos_token_id)
         slots = np.full(self.prefill_batch, self.num_slots, np.int32)  # dummy rows: the trash row
         slots[: len(batch)] = [req.slot for req in batch]
         cache_p = init_kv_cache(self.draft.cfg.text, self.prefill_batch, self._draft_cache_len, device=self.device)
         _, _, cache_p, _, _ = self.draft.prefill(
-            None if images is None else self._to_device(images), self._to_device(ids), self._to_device(mask),
-            cache_p,
+            device_images(self, images), self._to_device(ids), self._to_device(mask), cache_p,
         )
         self.draft_cache = self._draft_insert(self.draft_cache, cache_p, self._to_device(slots))
 
