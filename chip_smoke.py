@@ -3,13 +3,14 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about six minutes
+    python3 chip_smoke.py                 # the full check, about eight minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
     python3 chip_smoke.py --only flash    # the flash-attention kernel alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
     python3 chip_smoke.py --only paged    # the two paged-attention kernels alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only train    # the training phase alone, with the flash and RepMixer builds
     python3 chip_smoke.py --only closed_loop  # the closed-loop phase, after the four builds and their checks
+    python3 chip_smoke.py --only serve    # the serving-CLI phase, after the RepMixer and paged builds and checks
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -91,7 +92,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    prefix by the dense cache path) set against the kernel-vs-gathered logit
    difference. Then FastVLM-0.5B as its own draft on 16 requests: at least
    2.0 tokens per active slot and round.
-7. closed loop: FastVLA-0.5B at full width and depth, its 1024 px, bf16,
+7. serving CLI: ``python -m vla_fastvlm_tpu_torch.scripts.serve``'s ``main``
+   called in-process (the kernels are built once) on FastVLM-0.5B at its
+   1024 px, bf16, seed 0, the stream and shape of phase 5: ``--paged``
+   (whole-prompt admission), ``--prefix-cache 16 --repeat-fraction 0.5``,
+   ``--prefill-chunk-tokens 16``, both together over int8 pools, and the
+   speculative paged server with a FastVLM-0.5B draft (k = 4, prefix cache
+   8, repeat fraction 0.5, chunks of 16) at the shape of phase 6; then
+   ``... .generate`` once with the zero frame. Checks: every request
+   answered in full; free + cache-pinned pages make the pool, and every
+   page is free once the cache is emptied; hits and misses above zero and
+   summing to the requests; launch counts (paged = 24 x ticks, window =
+   24 x rounds, RepMixer = 38 x tower passes: miss admission batches,
+   image chunks and draft prefills; 38 for generate). Then, on the server
+   directly: 16 requests on one frame sharing a 48-token template, the
+   first a miss and 15 page-level partial hits (19 shared pages, a 16-token
+   tail each, the 15 tails one program), over bf16 and over int8 pools; 16 requests of the stream
+   admitted in chunks; a whole-prompt hit on a 56-token prompt, whose rows
+   end 8 positions into its 20th page. First-token logits of the partial
+   hits and of the chunked admission against the same requests'
+   whole-prompt prefill (``SERVE_LOGITS_REL_L2``); the hit's first token is
+   its entry's argmax, its tail page a private copy of the entry's, and the
+   entry's logits and pages are unchanged after it decodes.
+   Printed per run: tokens/s, p50 and max tick, ticks, the share of ticks
+   that ran admission work and their p50 against the decode ticks', hits,
+   partial hits and misses, the host time of ``submit`` (the hashes of the
+   raw frame), and with ``--profile`` the device time by part and the idle
+   share.
+8. closed loop: FastVLA-0.5B at full width and depth, its 1024 px, bf16,
    random weights from the seed, 64 ``DummyEnv``s of
    ``python -m vla_fastvlm_tpu_torch.scripts.eval_closed_loop`` with 256-px
    frames (letterboxed on the card), state and action widths 14, the CLI's
@@ -118,7 +146,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--profile``: the device time of a tick and the idle share), and the
    servers' greedy agreement with the batched generation, with the
    divergence report of phase 6 for the paged server.
-8. timing: p50 step time and actions/sec of the kernel path and the plain
+9. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
@@ -126,8 +154,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
 their checks of phase 2 and phase 4, then the card line and the last line.
-``--only closed_loop`` runs phases 1 and 2 and phase 7, then the card line
-and the last line. ``--profile`` adds each
+``--only closed_loop`` runs phases 1 and 2 and phase 8, then the card line
+and the last line. ``--only serve`` runs phase 1 for the RepMixer and the
+two paged-attention sources, their checks of phase 2 and phase 7 (on a
+FastVLM-0.5B built as in phase 5), then the card line and the last line.
+``--profile`` adds each
 timed train step's device time by part (STEP_PARTS, and the kernels'
 backward recomputes apart). ``--only flash`` runs phase 1 for the
 flash-attention source alone, the
@@ -138,9 +169,9 @@ bound and the launch alone with the L2 emptied first; at the policy's shape
 also with every key valid, and at the first two shapes by block shape (tiles
 of 16 packed rows and warps a block, with the blocks an SM holds); then the
 card line and a JSON line of the numbers. ``--only repmixer`` does the same
-for the RepMixer source: its checks of phase 2 and its timing of phase 8.
+for the RepMixer source: its checks of phase 2 and its timing of phase 9.
 ``--only paged`` does the same for the two paged-attention sources: their
-checks of phase 2, then at each of the 8 paged shapes of phase 8 the wrapper
+checks of phase 2, then at each of the 8 paged shapes of phase 9 the wrapper
 call (``ms``), the kernel's launch alone (``kernel_ms``: mask and tables
 already int32), the plain version, the bound, the planned parts, the launch
 alone with the L2 emptied first, and the launch alone at 1, 2, 3 and 6
@@ -398,15 +429,15 @@ def paged_inputs(b, n, kh, d, dtype, int8, seed=0, empty_slot=False, w=None, hol
     return [a.cuda() for a in args], scales
 
 
-def serve_stream(seed=SEED):
-    """``scripts/serve.py``'s synthetic requests: prompt lengths uniform in
-    4..prompt_len, token ids in 3..249, images uniform in [0, 1)."""
+def serve_stream(seed=SEED, n=SERVE_REQUESTS):
+    """``scripts/serve.py``'s first ``n`` synthetic requests: prompt lengths
+    uniform in 4..prompt_len, token ids in 3..249, images uniform in [0, 1)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     width = SERVE["prompt_len"]
     reqs = []
-    for _ in range(SERVE_REQUESTS):
+    for _ in range(n):
         length = int(rng.integers(4, width + 1))
         ids = np.zeros((1, width), np.int32)
         mask = np.zeros((1, width), np.int32)
@@ -495,7 +526,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/8] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/9] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -573,7 +604,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/8] kernels against their plain versions")
+    log("[2/9] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -738,7 +769,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/8] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/9] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -1008,7 +1039,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
 
-    log(f"[4/8] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+    log(f"[4/9] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
         f"dropout {TRAIN_DROPOUT}, full depth")
     out = ROOT / "build" / "train_smoke"
@@ -1267,7 +1298,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[5/8] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[5/9] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -1341,10 +1372,19 @@ def spec_models():
     draft_cfg = FastVLMConfig(vision=fastvithd(**bf16), text=qwen2_0_5b(vocab_size=TARGET_VOCAB, **bf16),
                               image_size=1024)
     target, draft = build_model(target_cfg, SEED), build_model(draft_cfg, SEED + 1)
+    return target, draft, int8_kv_twin(target)
+
+
+def int8_kv_twin(model):
+    """``model``'s weights, shared, under a text config with int8 KV pools."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.models import FastVLM
+
     with torch.device("meta"):
-        target_int8 = FastVLM(target_cfg.replace(text=target_cfg.text.replace(kv_cache_quantization="int8")))
-    target_int8.load_state_dict(target.state_dict(), assign=True)
-    return target, draft, target_int8.eval().requires_grad_(False)
+        twin = FastVLM(model.cfg.replace(text=model.cfg.text.replace(kv_cache_quantization="int8")))
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin.eval().requires_grad_(False)
 
 
 def new_spec_server(target, draft, impl):
@@ -1413,7 +1453,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[6/8] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/9] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1487,6 +1527,286 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
              f"< {SELF_DRAFT_MIN_TOKENS_PER_SLOT_ROUND}")
     summaries["self_draft"] = summary
     return summaries, counts
+
+
+# The serving CLI, ``python -m vla_fastvlm_tpu_torch.scripts.serve``, called
+# in-process: FastVLM-0.5B at its 1024 px, bf16, seed 0, on scripts/serve.py's
+# stream at the SERVE shape (64 slots, admission batches of 16, prompts of
+# 4..64 tokens, 64 new tokens, pages of 16, 128 requests arriving 16 a tick);
+# the speculative run at the SPEC shape (16 slots, admission batches of 8, 32
+# requests, 32 new tokens) with a FastVLM-0.5B draft (seed 1). Half the
+# requests of a prefix-cache run repeat the first (--repeat-fraction 0.5).
+SERVE_CLI = dict(model_id="fastvlm-0.5b", dtype="bfloat16", seed=SEED, paged=True, num_requests=SERVE_REQUESTS,
+                 arrivals_per_tick=SERVE_ARRIVALS, **SERVE)
+SERVE_CLI_RUNS = [
+    ("paged", {}),
+    ("paged_prefix", dict(prefix_cache=16, repeat_fraction=0.5)),
+    ("paged_chunked", dict(prefill_chunk_tokens=16)),
+    ("paged_prefix_chunked_int8", dict(prefix_cache=16, repeat_fraction=0.5, prefill_chunk_tokens=16,
+                                       kv_cache_quantization="int8")),
+    ("spec_paged_prefix_chunked", dict(draft_model_id="fastvlm-0.5b", spec_k=SPEC["k"], prefix_cache=8,
+                                       repeat_fraction=0.5, prefill_chunk_tokens=16, num_requests=SPEC_REQUESTS,
+                                       **{k: v for k, v in SPEC.items() if k != "k"})),
+]
+# The direct prefix check: 16 requests on one frame sharing a 48-token
+# template (pages 16-18 after the image's 16), each with its own 16-token tail.
+PARTIAL_REQUESTS, PARTIAL_TEMPLATE = 16, 48
+# The whole-prompt hit's prompt width: its rows end 8 positions into a page.
+HIT_WIDTH = 56
+
+
+def check_cli_run(name, args, summary, counts) -> None:
+    """A serving-CLI run: every request answered in full, every page back
+    (free + cache-pinned = the pool before the cache is emptied, free
+    after), prefix-cache counts where the traffic makes them, launch counts
+    (paged = 24 x ticks or window = 24 x rounds; RepMixer = 38 x tower
+    passes: miss admission batches, image chunks and draft prefills)."""
+    if summary["total_new_tokens"] != args.num_requests * args.max_new_tokens:
+        fail(f"serve_cli {name}: {summary['total_new_tokens']} tokens, not {args.num_requests} x {args.max_new_tokens}")
+    pages = summary["pages"]
+    if not (pages["free"] + pages["pinned"] == pages["usable"] == pages["free_after_evict"] and pages["tables_empty"]):
+        fail(f"serve_cli {name}: pages {pages}")
+    if args.prefix_cache:
+        hits, partial, misses = (summary[f"prefix_cache_{k}"] for k in ("hits", "partial_hits", "misses"))
+        if not (hits > 0 and misses > 0 and hits + partial + misses == args.num_requests):
+            fail(f"serve_cli {name}: {hits} hits, {partial} partial hits, {misses} misses of {args.num_requests}")
+    if args.prefill_chunk_tokens and (summary["admissions"] or not summary["image_chunks"]):
+        fail(f"serve_cli {name}: chunked admission ran {summary['admissions']} whole prefills, "
+             f"{summary['image_chunks']} image chunks")
+    spec = args.draft_model_id is not None
+    towers = summary["admissions"] + summary["image_chunks"] + summary.get("draft_admissions", 0)
+    ticks = DECODER_LAYERS * summary["decode_ticks"]
+    expect = {"flash_attention": 0, "repmixer_block": 38 * towers, "paged_attention": 0 if spec else ticks,
+              "paged_attention_window": ticks if spec else 0}
+    if counts != expect:
+        fail(f"serve_cli {name}: launch counts {counts} != {expect}")
+
+
+def rel_rows(got, ref) -> float:
+    """Largest relative L2 error over the rows of two (B, V) logits."""
+    got, ref = got.float(), ref.float()
+    return float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max())
+
+
+def check_prefix_paths(model) -> dict:
+    """Page-level partial hits (over bf16 and int8 pools), chunked admission
+    and a whole-prompt hit on the paged server of ``model`` (FastVLM-0.5B,
+    bf16, the SERVE shape), each held to the whole-prompt prefill of the
+    same requests on the card: first-token logits within SERVE_LOGITS_REL_L2
+    (those of a partial hit or a chunked admission are what its cache entry
+    records). The whole hit runs at a 56-token bucket, so its prompt ends
+    inside a page: its first token is the argmax of its entry's logits,
+    which it leaves unchanged; its tail page is a private copy of the
+    entry's (copy-on-write), and the entry's pages keep their bytes while
+    it decodes."""
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.models.qwen2 import init_kv_cache
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+
+    def whole_prefill_logits(m, reqs):
+        ids, mask, images = (np.concatenate([r[j] for r in reqs]) for j in range(3))
+        with torch.no_grad():
+            cache = init_kv_cache(m.cfg.text, len(reqs), N_IMG + ids.shape[1], device="cuda")
+            return m.prefill(*(torch.from_numpy(a).cuda() for a in (images, ids, mask)), cache)[0]
+
+    def entry_logits(server, reqs):
+        return torch.stack([server._prefix_cache[server._prompt_hashes(*r)[0]]["logits"] for r in reqs])
+
+    def drain(server, finished):
+        while server.num_active:
+            finished.update(server.step())
+        return finished
+
+    def check_pages(name, server, finished, n_requests):
+        """Answers in full; free + pinned pages make the pool; all free once
+        the cache is emptied."""
+        pool = server.pool
+        if pool.free_pages + len(server.pinned_pages()) != pool.num_pages - 1:
+            fail(f"{name}: {pool.free_pages} free + {len(server.pinned_pages())} pinned of {pool.num_pages - 1}")
+        server.evict_prefix_cache()
+        check_answers(name, server, finished, n_requests, SERVE["max_new_tokens"])
+
+    def new_server(m, **kw):
+        return PagedGenerationServer(m, eos_token_id=-1, temperature=0.0, seed=SEED, decode_impl="kernel",
+                                     **dict(SERVE, **kw))
+
+    width = SERVE["prompt_len"]
+
+    def partial_hits(name, m) -> dict:
+        """The first request misses, the other 15 reuse its 19 shared pages
+        (image and template) and prefill their 16-token tail."""
+        rng = np.random.default_rng(SEED + 11)
+        frame = rng.random((1, 3, 1024, 1024), dtype=np.float32)
+        template = rng.integers(3, 250, PARTIAL_TEMPLATE)
+        reqs = [(np.concatenate([template, rng.integers(3, 250, width - PARTIAL_TEMPLATE)]).astype(np.int32)[None],
+                 np.ones((1, width), np.int32), frame) for _ in range(PARTIAL_REQUESTS)]
+        server = new_server(m, prefix_cache_size=PARTIAL_REQUESTS)
+        reset_launch_counts()
+        server.submit(*reqs[0])
+        finished = server.step()
+        t0 = time.perf_counter()
+        for req in reqs[1:]:
+            server.submit(*req)
+        submit_ms = (time.perf_counter() - t0) * 1e3 / (len(reqs) - 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        finished.update(server.step())  # the 15 tails, then one decode tick
+        torch.cuda.synchronize()
+        tails_tick_ms = (time.perf_counter() - t0) * 1e3
+        drain(server, finished)
+        counts = launch_counts()
+        hits = (server.prefix_cache_hits, server.prefix_cache_partial_hits, server.prefix_cache_misses)
+        if hits != (0, PARTIAL_REQUESTS - 1, 1) or server.text_chunks != 1:
+            fail(f"{name}: (hits, partial, misses) = {hits}, {server.text_chunks} text-chunk programs (the 15 "
+                 "16-token tails share one)")
+        expect = {"flash_attention": 0, "repmixer_block": 38, "paged_attention": DECODER_LAYERS * server.ticks,
+                  "paged_attention_window": 0}
+        if counts != expect:
+            fail(f"{name}: launch counts {counts} != {expect}")
+        err = rel_rows(entry_logits(server, reqs[1:]), whole_prefill_logits(m, reqs[1:]))
+        shared = (N_IMG + PARTIAL_TEMPLATE) // SERVE["page_size"]
+        log(f"  {name}: {hits[1]} of {len(reqs)} requests reuse {shared} pages and prefill the rest "
+            f"({server.text_chunks} text-chunk programs); first-token logits against the whole-prompt prefill: max rel_l2 "
+            f"{err:.3e} (limit {SERVE_LOGITS_REL_L2:g}); submit {submit_ms:.2f} ms a request; the tick admitting "
+            f"the {hits[1]} tails {tails_tick_ms:.2f} ms; launches {counts}")
+        if not err <= SERVE_LOGITS_REL_L2:
+            fail(f"{name}: first-token logits rel_l2 {err:.3e}")
+        check_pages(name, server, finished, len(reqs))
+        return dict(partial_hits=hits[1], rel_l2=err, submit_ms=submit_ms, tails_tick_ms=tails_tick_ms)
+
+    result = {"partial": partial_hits("partial hits", model)}
+    torch.cuda.empty_cache()
+    result["partial_int8"] = partial_hits("partial hits int8", int8_kv_twin(model))
+    torch.cuda.empty_cache()
+
+    # Chunked admission of 16 requests of the stream (an image chunk and four
+    # 16-token text chunks).
+    reqs = serve_stream(n=SERVE["prefill_batch"])
+    server = new_server(model, prefix_cache_size=16, prefill_chunk_tokens=16)
+    for req in reqs:
+        server.submit(*req)
+    server.flush()
+    if (server.admissions, server.image_chunks, server.text_chunks) != (0, 1, width // 16):
+        fail(f"chunked: {server.admissions} prefills, {server.image_chunks} image and {server.text_chunks} text chunks")
+    err = rel_rows(entry_logits(server, reqs), whole_prefill_logits(model, reqs))
+    log(f"  chunked admission: first-token logits against the whole-prompt prefill: max rel_l2 {err:.3e} "
+        f"(limit {SERVE_LOGITS_REL_L2:g})")
+    if not err <= SERVE_LOGITS_REL_L2:
+        fail(f"chunked: first-token logits rel_l2 {err:.3e}")
+    check_pages("chunked", server, drain(server, {}), len(reqs))
+    result["chunked"] = dict(rel_l2=err)
+    del server
+
+    # A whole-prompt hit whose prompt ends inside a page: 256 image + 56
+    # text rows fill 19 pages and 8 positions of the 20th. The first request
+    # misses and decodes to its end (into the rest of the tail page); then
+    # the repeat hits.
+    rng = np.random.default_rng(SEED + 12)
+    req = (rng.integers(3, 250, (1, HIT_WIDTH)).astype(np.int32), np.ones((1, HIT_WIDTH), np.int32),
+           rng.random((1, 3, 1024, 1024), dtype=np.float32))
+    server = new_server(model, prompt_len=(HIT_WIDTH, width), prefix_cache_size=2)
+    server.submit(*req)
+    finished = drain(server, {})
+    entry = server._prefix_cache[server._prompt_hashes(*req)[0]]
+    logits = entry["logits"].clone()
+    n_full, part = divmod(entry["prefill_len"], SERVE["page_size"])
+    pages = torch.tensor(entry["pages"], device="cuda")
+    before = {name: buf[:, pages].clone() for name, buf in server.pool.pools().items()}
+    rid = server.submit(*req)
+    server.flush()
+    slot = next(i for i, s in enumerate(server._slots) if s.active and s.request_id == rid)
+    table = server.pool.page_table[slot, : n_full + 1].tolist()
+    tail = int(table[n_full])
+    private = (part > 0 and table[:n_full] == entry["pages"][:n_full] and tail != entry["pages"][n_full]
+               and all(torch.equal(buf[:, tail, :, :part], before[name][:, n_full, :, :part])
+                       for name, buf in server.pool.pools().items()))
+    first = server._slots[slot].tokens[0]
+    drain(server, finished)
+    same_pages = all(torch.equal(buf[:, pages], before[name]) for name, buf in server.pool.pools().items())
+    exact = torch.equal(entry["logits"], logits) and first == int(logits.argmax())
+    log(f"  whole-prompt hit: first token {first} = argmax of the entry's logits, entry unchanged: {exact}; "
+        f"{n_full} pages shared and the tail page ({part} prompt positions) a private copy: {private}; the "
+        f"entry's {len(entry['pages'])} pages unchanged after the hit decoded: {same_pages}")
+    if (server.prefix_cache_hits, server.admissions) != (1, 1) or not (exact and private and same_pages):
+        fail(f"whole-prompt hit: hits {server.prefix_cache_hits}, prefills {server.admissions}, exact {exact}, "
+             f"private tail {private}, pages unchanged {same_pages}")
+    check_pages("whole hit", server, finished, 2)
+    return result
+
+
+def phase_serve_cli(model, profile_dir: Path | None = None) -> dict:
+    """The serving-CLI runs, generate and the prefix paths. With
+    ``profile_dir`` each CLI run is traced whole (device activity only; the
+    trace holds the server's build too): its device time by part
+    (STEP_PARTS) and the idle share of its serving loop."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts import generate, serve
+
+    log("[7/9] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
+        "paged, prefix cache, chunked admission, both over int8 pools, speculative paged; then generate, and "
+        "the prefix paths against whole-prompt prefills")
+    summaries = {}
+    for name, extra in SERVE_CLI_RUNS:
+        args = serve.ServeArgs(**dict(SERVE_CLI, **extra))
+        tracer = contextlib.nullcontext() if profile_dir is None else profile(activities=[ProfilerActivity.CUDA])
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with tracer:
+            summary = serve.main(args)
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        summary.update(run_s=time.perf_counter() - t0, launches=counts)
+        if profile_dir is not None:
+            (profile_dir / f"serve_cli_{name}.txt").write_text(
+                tracer.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
+            parts = step_parts(tracer, 1)
+            busy = sum(parts.values())
+            loop_ms = summary["total_new_tokens"] / summary["tokens_per_sec"] * 1e3
+            summary.update(device_ms_by_part={k: round(v, 2) for k, v in parts.items()}, device_busy_ms=busy,
+                           device_idle_share=1.0 - busy / loop_ms)
+        log(f"  {name}: launches {counts}")
+        check_cli_run(name, args, summary, counts)
+        summaries[name] = summary
+        torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    text = generate.main(generate.GenerateArgs(model_id="fastvlm-0.5b", bootstrap_model_id="fastvlm-0.5b",
+                                               dtype="bfloat16", seed=SEED))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect = {"flash_attention": 0, "repmixer_block": 38, "paged_attention": 0, "paged_attention_window": 0}
+    if not isinstance(text, str) or counts != expect:
+        fail(f"generate: {type(text).__name__}, launch counts {counts} != {expect}")
+    summaries["generate"] = dict(seconds=time.perf_counter() - t0, characters=len(text), launches=counts)
+    log(f"  generate: {json.dumps(summaries['generate'])}")
+    torch.cuda.empty_cache()
+    summaries["prefix_paths"] = check_prefix_paths(model)
+    return summaries
+
+
+def log_serve_cli_summaries(summaries: dict) -> None:
+    for name, s in summaries.items():
+        if "ticks" not in s:
+            continue
+        cache = "" if "prefix_cache_hits" not in s else (
+            f", hits / partial / misses {s['prefix_cache_hits']} / {s['prefix_cache_partial_hits']} / "
+            f"{s['prefix_cache_misses']}")
+        idle = "" if "device_idle_share" not in s else (
+            f", device {s['device_busy_ms']:.1f} ms ({json.dumps(s['device_ms_by_part'])}), idle share "
+            f"{s['device_idle_share']:.3f}")
+        log(f"serve_cli {name}: tokens/s {s['tokens_per_sec']:.1f}, p50 tick {s['p50_tick_ms']:.2f} ms, max tick "
+            f"{s['max_tick_ms']:.2f} ms, ticks {s['ticks']}; admission ticks {s['admission_ticks']} "
+            f"({s['admission_ticks'] / s['ticks']:.1%}), p50 {s['p50_admission_tick_ms']:.2f} ms against "
+            f"{s['p50_decode_tick_ms']:.2f} ms for decode ticks{cache}; submit p50 {s['p50_submit_ms']:.2f} ms "
+            f"(max {s['max_submit_ms']:.2f}){idle}")
 
 
 # Closed-loop control: FastVLA-0.5B at full width and depth, the preset's
@@ -1668,7 +1988,7 @@ def phase_closed_loop(profile_dir: Path | None = None):
     )
     from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
 
-    log(f"[7/8] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
+    log(f"[8/9] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
         f"DummyEnvs of {LOOP['image_size']}-px frames, state/action {LOOP['state_dim']}, {LOOP['max_steps']} "
         f"control ticks a run ({SPEC_LOOP_TICKS} speculative)")
     t0 = time.perf_counter()
@@ -1770,7 +2090,7 @@ def phase_closed_loop(profile_dir: Path | None = None):
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[8/8] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[9/9] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -1996,6 +2316,7 @@ def time_repmixer() -> dict:
 # unfused elementwise work (PyTorch's elementwise, reduction, copy and cat
 # kernels) and other kernels.
 STEP_PARTS = [("RepMixer", ("repmixer_kernel",)), ("flash", ("flash_fwd",)),
+              ("paged attention", ("paged_decode", "paged_window")),
               ("convolutions", ("conv", "cudnn", "fprop")), ("GEMMs", ("nvjet", "gemm", "cutlass", "xmma")),
               ("optimizer", ("Adam", "adam"))]
 OTHER_PART = "elementwise and other"
@@ -2067,7 +2388,7 @@ def main(argv=None) -> int:
                         help="directory for torch.profiler tables of three policy steps (kernel and plain "
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
-    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop"], default=None,
+    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve"], default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
                              "heads' and the streamed shapes and by block shape; repmixer: "
@@ -2075,7 +2396,8 @@ def main(argv=None) -> int:
                              "per-width times; paged: the two paged-attention libraries, their "
                              "checks, their times at the 8 paged shapes and by part count; train: the "
                              "flash and RepMixer libraries and the training phase; closed_loop: the four "
-                             "libraries, their checks and the closed-loop phase)")
+                             "libraries, their checks and the closed-loop phase; serve: the RepMixer and paged "
+                             "libraries, their checks and the serving-CLI phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2094,9 +2416,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/8] flash-attention kernel against its plain version")
+        log("[2/9] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[8/8] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[9/9] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2105,9 +2427,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/8] RepMixer kernel against its plain version")
+        log("[2/9] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[8/8] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[9/9] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -2115,7 +2437,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "train":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/8] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/9] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         if args.profile is not None:
@@ -2139,11 +2461,25 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if args.only == "serve":
+        phase_build(("repmixer", "paged_attention", "paged_window"))
+        log("[2/9] RepMixer and paged-attention kernels against their plain versions")
+        check_repmixer()
+        check_paged()
+        if args.profile is not None:
+            args.profile.mkdir(parents=True, exist_ok=True)
+        log_serve_cli_summaries(phase_serve_cli(make_servers()[0], args.profile))
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/8] paged-attention kernels against their plain versions")
+        log("[2/9] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[8/8] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[9/9] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -2168,6 +2504,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()  # the training phase's blocks, before the 7B target's
     summaries, serve_counts, model_05b = timed("serving", phase_serving, args.profile)
     spec_summaries, spec_counts = timed("speculative", phase_speculative, model_05b, args.profile)
+    cli_summaries = timed("serve_cli", phase_serve_cli, model_05b, args.profile)
     del model_05b
     loop_summaries = timed("closed_loop", phase_closed_loop, args.profile)
     timings = timed("timing", phase_timing, policy, plain, step)
@@ -2204,6 +2541,7 @@ def main(argv=None) -> int:
         log(f"serve {name}: tokens/s {summary['tokens_per_sec']:.1f}, p50 round {summary['p50_tick_ms']:.2f} ms, "
             f"rounds {summary['ticks']}, admissions {summary['admissions']}{extra}, "
             f"device idle share {summary['device_idle_share']}")
+    log_serve_cli_summaries(cli_summaries)
     log_loop_summaries(loop_summaries)
     kernels = []
     for name, (source, replaces, launches) in meta.items():

@@ -40,3 +40,28 @@ def random_params(shapes, seed=0):
 def jax_param_shapes(module, *inputs, **kw):
     """Abstract Flax init of ``module`` on ``inputs``: the parameter shapes."""
     return jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *inputs, **kw))["params"]
+
+
+def tiny_vlm_pair(seed, kvq="none", mode="prefix", embed_scale=0.1, prompt=8):
+    """The JAX tiny FastVLM (1 image token at 64 px), its params from
+    ``seed`` and the port's model with the same weights, fp32. The token
+    embedding is scaled by ``embed_scale``: at unit scale the tiny models
+    copy their input token, and greedy sequences do not vary."""
+    import jax.numpy as jnp
+
+    from vla_fastvlm_tpu.models import fastvlm as j_vlm
+    from vla_fastvlm_tpu.models import qwen2 as j_qwen
+    from vla_fastvlm_tpu_torch.io.bridge import jax_params_to_torch
+    from vla_fastvlm_tpu_torch.models import fastvlm as t_vlm
+    from vla_fastvlm_tpu_torch.models import qwen2 as t_qwen
+
+    jm = j_vlm.FastVLM(j_vlm.fastvlm_tiny(image_token_mode=mode).replace(
+        text=j_qwen.qwen2_tiny(kv_cache_quantization=kvq)))
+    images = jnp.zeros((1, 3, 64, 64)) if mode == "prefix" else None
+    params = random_params(jax_param_shapes(jm, images, jnp.ones((1, prompt), jnp.int32)), seed=seed)
+    embed = params["language_model"]["embed_tokens"]
+    embed["embedding"] = embed["embedding"] * embed_scale
+    tm = t_vlm.FastVLM(t_vlm.fastvlm_tiny(image_token_mode=mode).replace(
+        text=t_qwen.qwen2_tiny(kv_cache_quantization=kvq)))
+    tm.load_state_dict(jax_params_to_torch(params), strict=True)
+    return jm, params, tm.eval().requires_grad_(False)

@@ -511,3 +511,86 @@ def test_staggered_runner_on_the_card(cuda):
     images, states, tasks = _card_obs()
     pending = ActionQueuePolicy(policy, 1).dispatch_chunk({"images": images, "states": states, "tasks": tasks})
     assert isinstance(pending, torch.Tensor) and pending.device.type == "cuda"
+
+
+def _card_vlm(cuda):
+    """FastVLM-0.5B's decoder and tower, fp32, at 64 px (1 image token)."""
+    from vla_fastvlm_tpu_torch.models import FastVLM, fastvlm_0_5b, init_weights
+
+    with torch.device(cuda):
+        model = FastVLM(fastvlm_0_5b(image_size=64))
+    init_weights(model, torch.Generator(device=cuda).manual_seed(0))
+    return model.eval().requires_grad_(False)
+
+
+def _template_requests(n, seed=0):
+    """``n`` 48-token prompts on one 64-px frame sharing a 31-token
+    template: the image and the template fill pages 0 and 1 (16 positions)."""
+    rng = np.random.default_rng(seed)
+    frame = rng.random((1, 3, 64, 64), dtype=np.float32)
+    template = rng.integers(3, 250, 31)
+    return [(np.concatenate([template, rng.integers(3, 250, 17)]).astype(np.int32)[None], np.ones((1, 48), np.int32),
+             frame) for _ in range(n)]
+
+
+def _prefill_logits(model, reqs, device):
+    from vla_fastvlm_tpu_torch.models.qwen2 import init_kv_cache
+
+    ids, mask, images = (np.concatenate([r[j] for r in reqs]) for j in range(3))
+    with torch.no_grad():
+        cache = init_kv_cache(model.cfg.text, len(reqs), 64, device=device)
+        return model.prefill(*(torch.from_numpy(a).to(device) for a in (images, ids, mask)), cache)[0]
+
+
+def test_chunked_admission_and_partial_hits_on_the_card(cuda):
+    """A chunked miss (an image chunk, three text chunks) and three
+    page-level partial hits on the paged server over the kernels: each
+    first-token logits within 2e-2 rel. L2 of the whole-prompt prefill, the
+    RepMixer kernel run once (the image chunk), the paged kernel 24 times a
+    tick, every page back once the prefix cache is emptied."""
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+
+    model = _card_vlm(cuda)
+    reqs = _template_requests(4)
+    server = PagedGenerationServer(model, num_slots=4, prompt_len=48, max_new_tokens=4, eos_token_id=-1,
+                                   page_size=16, prefill_batch=2, prefix_cache_size=4, prefill_chunk_tokens=16)
+    reset_launch_counts()
+    server.submit(*reqs[0])
+    server.flush()
+    for req in reqs[1:]:
+        server.submit(*req)
+    server.run_to_completion()
+    assert (server.prefix_cache_hits, server.prefix_cache_partial_hits, server.prefix_cache_misses) == (0, 3, 1)
+    assert launch_counts() == {"flash_attention": 0, "repmixer_block": 38, "paged_attention": 24 * server.ticks,
+                               "paged_attention_window": 0}
+    got = torch.stack([server._prefix_cache[server._prompt_hashes(*r)[0]]["logits"] for r in reqs])
+    ref = _prefill_logits(model, reqs, cuda)
+    assert float(((got - ref).norm(dim=-1) / ref.norm(dim=-1)).max()) <= 2e-2
+    server.evict_prefix_cache()
+    assert server.pool.free_pages == server.pool.num_pages - 1 and not server.pool.page_table.any()
+
+
+def test_whole_prefix_hit_leaves_shared_pages_on_the_card(cuda):
+    """A whole-prompt hit samples its first token from the entry's logits
+    (within 2e-2 rel. L2 of the whole-prompt prefill), copies the tail page
+    and decodes into the copy: the entry's pages keep their bytes."""
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+
+    model = _card_vlm(cuda)
+    req = _template_requests(1, seed=1)[0]  # prefill 49: three full pages and one position
+    server = PagedGenerationServer(model, num_slots=2, prompt_len=48, max_new_tokens=4, eos_token_id=-1,
+                                   page_size=16, prefill_batch=1, prefix_cache_size=2)
+    server.submit(*req)
+    first = server.run_to_completion()
+    entry = next(iter(server._prefix_cache.values()))
+    pages = torch.tensor(entry["pages"], device=cuda)
+    before = {name: buf[:, pages].clone() for name, buf in server.pool.pools().items()}
+    reset_launch_counts()
+    server.submit(*req)
+    second = server.run_to_completion()
+    assert launch_counts()["repmixer_block"] == 0 and server.prefix_cache_hits == 1
+    assert list(second.values()) == list(first.values())
+    for name, buf in server.pool.pools().items():
+        assert torch.equal(buf[:, pages], before[name]), name
+    ref = _prefill_logits(model, [req], cuda)[0]
+    assert float((entry["logits"] - ref).norm() / ref.norm()) <= 2e-2

@@ -3,8 +3,8 @@
 - The port imports without JAX and without the JAX package.
 - No file of the port, nor ``chip_smoke.py``, names the JAX package or JAX.
 - Entry points raise without CUDA unless ``device="cpu"`` is passed (the
-  policies, the trainer, the closed-loop CLI); the paged server runs where
-  the backbone put its model.
+  policies, the trainer, the closed-loop, serve and generate CLIs); the
+  paged server runs where the backbone put its model.
 - The weight bridge covers every parameter at full ``fastvlm_0_5b`` width:
   ``jax.eval_shape`` of the JAX init against the port built on the meta
   device (nothing is allocated for either), both ways.
@@ -85,6 +85,16 @@ def test_every_module_has_a_jax_counterpart_layout():
         assert (PORT / rel).is_file() and (ROOT / "vla_fastvlm_tpu" / rel).is_file(), rel
 
 
+def _generate_backbone(module, monkeypatch, **kw):
+    """Run the generate CLI at the tiny preset; the backbone it built."""
+    built = []
+    cls = module.FastVLMBackbone
+    monkeypatch.setattr(module, "FastVLMBackbone", lambda *a, **k: built.append(cls(*a, **k)) or built[-1])
+    module.main(module.GenerateArgs(model_id="tiny", bootstrap_model_id="tiny", max_new_tokens=2,
+                                    tokenizer_max_length=8, dtype="float32", **kw))
+    return built[-1]
+
+
 class TestDevice:
     def test_resolve_device(self, monkeypatch):
         from vla_fastvlm_tpu_torch.device import resolve_device
@@ -98,14 +108,14 @@ class TestDevice:
 
     @pytest.mark.parametrize(
         "entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy", "PagedGenerationServer", "Trainer",
-                  "FastVLMTokenPolicy", "eval_closed_loop"]
+                  "FastVLMTokenPolicy", "eval_closed_loop", "serve", "generate"]
     )
     def test_entry_points_need_cuda_unless_cpu(self, entry, monkeypatch):
         from types import SimpleNamespace
 
         from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy, FastVLMWithExpert
         from vla_fastvlm_tpu_torch.model import FastVLMBackbone
-        from vla_fastvlm_tpu_torch.scripts import eval_closed_loop
+        from vla_fastvlm_tpu_torch.scripts import eval_closed_loop, generate, serve
         from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
         from vla_fastvlm_tpu_torch.training import Trainer, TrainingConfig
 
@@ -128,6 +138,11 @@ class TestDevice:
             "eval_closed_loop": lambda **kw: SimpleNamespace(device=torch.device(eval_closed_loop.main(
                 eval_closed_loop.ClosedLoopArgs(num_envs=1, max_steps=1, state_dim=2, action_dim=2, **kw)
             )["device"])),
+            # The serving CLIs default to the card.
+            "serve": lambda **kw: SimpleNamespace(device=torch.device(serve.main(serve.ServeArgs(
+                model_id="tiny", num_slots=1, prefill_batch=1, prompt_len=4, max_new_tokens=2, num_requests=1,
+                dtype="float32", paged=True, page_size=4, **kw))["device"])),
+            "generate": lambda **kw: _generate_backbone(generate, monkeypatch, **kw),
         }[entry]
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()

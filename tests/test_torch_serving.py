@@ -4,7 +4,9 @@ Greedy tokens of ``serving.generate`` and of ``PagedGenerationServer``
 (decode_impl "kernel" and "gathered", float and int8 pools) against the JAX
 ``generate`` and JAX ``PagedGenerationServer`` on the tiny FastVLM with the
 same weights (bridged), fp32; ``warp_logits`` and greedy ``sample_tokens``
-against JAX; the page pool's bookkeeping; the options not ported yet.
+against JAX; the page pool's bookkeeping; the options not ported yet (a mesh,
+LoRA). Prefix caching and chunked admission: ``test_torch_prefix_cache.py``,
+``test_torch_chunked_prefill.py``.
 
 Greedy tokens are compared exactly: both sides compute the same fp32 logits
 up to summation order (pinned to 1e-4 in ``test_torch_paged_attention.py``)
@@ -183,8 +185,7 @@ class TestPool:
 
 
 class TestServerOptions:
-    @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(prefix_cache_size=2), dict(prefill_chunk_tokens=4),
-                                    dict(lora={})])
+    @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(lora={})])
     def test_unported_options_raise(self, kw):
         with pytest.raises(NotImplementedError, match="not ported"):
             PagedGenerationServer(t_vlm.FastVLM(t_vlm.fastvlm_tiny()), num_slots=1, prompt_len=4, **kw)

@@ -7,7 +7,10 @@ the cache-free forward, ``prefill`` / ``decode_step`` run against a dense KV
 cache (``models/qwen2.py::init_kv_cache``) and ``decode_step_paged`` against
 a paged pool (``serving/paged_kv.py``); ``verify_step`` and
 ``verify_step_paged`` are their multi-token forms for the speculative
-verify window (``serving/speculative.py``, ``serving/speculative_paged.py``).
+verify window (``serving/speculative.py``, ``serving/speculative_paged.py``);
+``prefill_image_chunk`` and ``prefill_text_chunk`` split ``prefill`` into
+the image rows and prompt chunks (the paged server's chunked admission and
+prefix-cache tails).
 """
 
 from __future__ import annotations
@@ -191,6 +194,35 @@ class FastVLM(nn.Module):
             cache=cache, causal=True,
         )
         return self._logits(hidden[:, -1]), rows
+
+    def prefill_image_chunk(self, images: torch.Tensor, cache: dict) -> dict:
+        """Chunked prefill, stage 0: write the image rows into a dense cache.
+
+        The vision encode and the projector run as their own cached step: the
+        ``num_image_tokens`` projected embeddings land at cache slots
+        ``[0, N_img)`` (the cursor starts at 0) with RoPE positions
+        ``0..N_img-1``, where ``prefill``'s front splice puts them. Returns
+        the cache, written in place.
+        """
+        image_embeds = self.encode_images(images)
+        ones = torch.ones(image_embeds.shape[:2], dtype=torch.int32, device=image_embeds.device)
+        _, new_cache, _ = self.language_model(inputs_embeds=image_embeds, attention_mask=ones, cache=cache, causal=True)
+        return new_cache
+
+    def prefill_text_chunk(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, cache: dict):
+        """Chunked prefill, stage 1 on: one (B, C) prompt chunk against a
+        dense cache -> ``((B, C, V) logits, new_cache)``.
+
+        The cached branch of ``Qwen2Model`` gives prefill semantics chunk by
+        chunk: the rows land at slots ``[index, index + C)``, causality runs
+        on slot indices, and RoPE positions continue each row's true valid
+        count (``cache["mask"]``), so pads advance the cursor but stay
+        masked, as in the one-shot padded ``prefill``.
+        """
+        hidden, new_cache, _ = self.language_model(
+            input_ids=input_ids, attention_mask=attention_mask, cache=cache, causal=True,
+        )
+        return self._logits(hidden), new_cache
 
     def verify_step(self, input_ids: torch.Tensor, cache: dict):
         """The speculative verify pass: multi-token cached decode returning

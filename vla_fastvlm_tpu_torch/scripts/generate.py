@@ -1,0 +1,92 @@
+"""VLM text generation CLI of the port (twin of the repository's
+``scripts/generate.py``): image + prompt -> caption or answer.
+
+    python -m vla_fastvlm_tpu_torch.scripts.generate --model-id fastvlm-0.5b --prompt "Describe the image."
+    python -m vla_fastvlm_tpu_torch.scripts.generate --device cpu --model-id fastvlm-tiny --dtype float32
+
+One prompt and an optional image (``--image PATH``, read through PIL; none
+is a zero frame) go through ``serving/generate.py``: one prefill into a dense
+KV cache, then one decode step per new token. The decoded text is printed
+and returned from ``main``. Weights are random from ``seed`` until real
+checkpoints load. ``--device`` is the card unless ``--device cpu`` is given;
+without CUDA the script raises. ``--dp`` / ``--tp`` above 1 (a mesh) and
+``--quantization`` other than ``none`` raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..model import FastVLMBackbone, FastVLMBackboneConfig
+from ..ops.image import prepare_image_batch
+from ..serving import generate
+from ..utils import configure_logging, parse_cli
+
+
+@dataclass
+class GenerateArgs:
+    model_id: str = "apple/FastVLM-0.5B"
+    bootstrap_model_id: str = "apple/FastVLM-0.5B"
+    prompt: str = "Describe the image."
+    image: Optional[str] = None  # path; None -> zeros
+    image_size: Optional[int] = None
+    max_new_tokens: int = 64
+    temperature: float = 0.0
+    top_p: float = 1.0
+    tokenizer_max_length: int = 64
+    dtype: str = "bfloat16"
+    # The card unless "cpu" is asked for.
+    device: Optional[str] = "cuda"
+    seed: int = 0
+    # Mesh factors of the JAX script; the port generates on one card.
+    dp: int = 1
+    tp: int = 1
+    # Weight quantization of the JAX script: not ported.
+    quantization: str = "none"
+
+
+def main(args: GenerateArgs) -> str:
+    if args.dp * args.tp > 1:
+        raise NotImplementedError("--dp / --tp: a device mesh is not ported to PyTorch yet; the port generates on "
+                                  "one card")
+    if args.quantization != "none":
+        raise NotImplementedError("--quantization: weight quantization is not ported to PyTorch yet")
+    device = resolve_device(args.device)
+    configure_logging()
+    backbone = FastVLMBackbone(FastVLMBackboneConfig(
+        model_id=args.model_id, bootstrap_model_id=args.bootstrap_model_id, force_image_size=args.image_size,
+        tokenizer_max_length=args.tokenizer_max_length, dtype=args.dtype, param_dtype=args.dtype, seed=args.seed,
+    ), device=device)
+    mcfg = backbone.model_config
+    size = mcfg.image_size
+    if args.image:
+        from PIL import Image
+
+        raw = np.asarray(Image.open(args.image).convert("RGB"), np.float32) / 255.0
+        img = np.transpose(raw, (2, 0, 1))[None]
+    else:
+        img = np.zeros((1, 3, size, size), np.float32)
+    images = None
+    if mcfg.num_image_tokens > 0:
+        images = prepare_image_batch(backbone.to_device(img), size=size, dtype=mcfg.text.dtype)
+
+    ids, mask = backbone._prep_text([args.prompt])
+    tokens = generate(
+        backbone.model, images, np.asarray(ids, np.int32), np.asarray(mask, np.int32),
+        max_new_tokens=args.max_new_tokens,
+        eos_token_id=getattr(backbone.tokenizer, "eos_token_id", 2) or 2,
+        temperature=args.temperature, top_p=args.top_p,
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+    )
+    text = backbone.tokenizer.decode(tokens[0].cpu().numpy().tolist())
+    print(text)
+    return text
+
+
+if __name__ == "__main__":
+    main(parse_cli(GenerateArgs, prog="python -m vla_fastvlm_tpu_torch.scripts.generate"))

@@ -15,6 +15,18 @@ table, so device memory scales with allocated tokens, not slots x max_len:
 - **Admission**: requests queue at ``submit``; ``step``/``flush`` prefill
   them ``prefill_batch`` at a time into a dense cache, then scatter the rows
   into their pages.
+- **Prefix caching** (``prefix_cache_size``): a whole-prompt repeat installs
+  the cached prompt pages by reference and samples its first token from the
+  cached logits, with no prefill at all; a request that shares only
+  page-aligned leading pages (a common frame and instruction template)
+  installs those and prefills its tail alone, page-size text chunks against
+  the gathered shared rows (the tails of hits admitted together that share
+  a match length run as the rows of one program). Both layers are LRU maps that pin pages through
+  the pool's reference counts.
+- **Chunked admission** (``prefill_chunk_tokens``): a miss batch prefills
+  into its own dense cache one program per ``step``, the vision tower first,
+  then the prompt ``prefill_chunk_tokens`` tokens at a time, so an arrival
+  stalls the decode ticks by one chunk, not a whole prefill.
 - **Decode tick** (``decode_impl`` "kernel", the default): the decoder reads
   the pool through the tables (``ops/attention.py::paged_attention``, the
   paged decode kernel on the card) and returns each slot's new K/V row, which
@@ -25,14 +37,17 @@ table, so device memory scales with allocated tokens, not slots x max_len:
 
 The pools are updated in place (the JAX server donates its buffers to the
 jitted programs instead). ``image_prep`` letterboxes raw frames inside
-admission, as on the dense server (``serving/continuous_batching.py``). Not
-in this port yet: prefix caching, chunked prefill, LoRA and a TP mesh; each
-raises ``NotImplementedError`` when set.
+admission, the image chunk included, as on the dense server
+(``serving/continuous_batching.py``); the prefix-cache keys hash the raw
+frames. Not in this port yet: LoRA and a TP mesh; each raises
+``NotImplementedError`` when set.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -64,6 +79,27 @@ class _Pending:
     attention_mask: np.ndarray  # (1, bucket)
     images: Optional[np.ndarray]  # (1, 3, S, S), raw frames under image_prep | None
     bucket: int = 0
+    key: Optional[bytes] = None  # whole-prompt cache key (None: caching off)
+    # One chain hash per full prompt page: hash i commits to the frame and
+    # every prompt token through position (i + 1) * page_size.
+    page_hashes: Optional[List[bytes]] = None
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """A chunked admission in progress: the batch prefills into its own
+    dense cache, one program per ``step``; at the last chunk its rows
+    scatter into the pages and the slots activate."""
+
+    batch: List[_Pending]
+    bucket: int
+    ids: np.ndarray  # (bp, bucket) host
+    mask: np.ndarray  # (bp, bucket) host
+    images: Optional[np.ndarray]  # (bp, ...) host | None
+    cache: dict  # dense (bp, max_len) cache the chunks fill
+    last_logits: torch.Tensor  # (bp, V) running last-real-position logits
+    images_done: bool  # image chunk run (or none needed)
+    chunk_idx: int = 0  # next text chunk
 
 
 class PagedKVPool:
@@ -166,6 +202,12 @@ class PagedKVPool:
         self.page_table[slot] = 0
         self._reserved[slot] = 0
 
+    def copy_page(self, src: int, dst: int) -> None:
+        """Copy one physical page across every pool buffer, int8 scales
+        included: the copy-on-write step for a shared partial tail page."""
+        for buf in self.pools().values():
+            buf[:, dst] = buf[:, src]
+
     def pools(self) -> dict:
         """Device pools as a dict (k/v + scales when int8)."""
         out = {"k": self.pool_k, "v": self.pool_v}
@@ -207,11 +249,19 @@ class PagedGenerationServer:
         """``decode_impl``: "kernel" decodes through the model's paged path
         (the paged-attention kernel on the card, its plain version on the
         CPU); "gathered" gathers each slot's window and runs the dense decode
-        step; "auto" is "kernel"."""
-        unported = {
-            "mesh": mesh is not None, "prefix_cache_size": prefix_cache_size > 0,
-            "prefill_chunk_tokens": prefill_chunk_tokens > 0, "lora": lora is not None,
-        }
+        step; "auto" is "kernel".
+
+        ``prefix_cache_size``: > 0 caches that many distinct prompts (LRU)
+        and as many prompts' worth of full prompt pages (the page layer);
+        the default pool grows by both layers' pinned pages, so a full cache
+        never cuts admission below ``num_slots``. The first token of a
+        whole-prompt hit is sampled from the cached logits under the
+        server's generator.
+
+        ``prefill_chunk_tokens``: > 0 admits misses chunk by chunk, one
+        chunk of work a ``step`` (``flush`` and ``step_n`` admit fully).
+        Every prompt bucket must be a multiple of it."""
+        unported = {"mesh": mesh is not None, "lora": lora is not None}
         named = [k for k, on in unported.items() if on]
         if named:
             raise NotImplementedError(f"{', '.join(named)}: not ported to the PyTorch paged server yet")
@@ -230,7 +280,24 @@ class PagedGenerationServer:
         self.top_p = float(top_p)
         self._generator = torch.Generator(device=self.device).manual_seed(seed)
         self.prefill_batch = max(1, min(prefill_batch, num_slots))
+        self.prefill_chunk_tokens = int(prefill_chunk_tokens)
+        if self.prefill_chunk_tokens:
+            bad = [b for b in self.prompt_buckets if b % self.prefill_chunk_tokens]
+            if bad:
+                raise ValueError(f"prompt buckets {bad} are not multiples of "
+                                 f"prefill_chunk_tokens={self.prefill_chunk_tokens}")
+        self._inflight: Optional[_Inflight] = None
         self._pending: List[_Pending] = []
+        # Two prefix-cache layers, LRU, pinning pages through the pool's
+        # reference counts: whole prompts (key -> pages, last logits, mask,
+        # prefill_len) and full prompt pages (chain hash -> page, mask).
+        self.prefix_cache_size = int(prefix_cache_size)
+        caching = self.prefix_cache_size > 0
+        self._prefix_cache: Optional[OrderedDict] = OrderedDict() if caching else None
+        self._page_cache: Optional[OrderedDict] = OrderedDict() if caching else None
+        self.prefix_cache_hits = 0
+        self.prefix_cache_partial_hits = 0
+        self.prefix_cache_misses = 0
 
         cfg = model.cfg
         # cache_slack: extra logical positions past image + prompt + new tokens.
@@ -238,9 +305,15 @@ class PagedGenerationServer:
         logical = cfg.num_image_tokens + self.prompt_len + max_new_tokens + self._growth_slack
         page_count = -(-logical // page_size)
         self._max_len = page_count * page_size
+        prompt_pages = max(-(-(cfg.num_image_tokens + self.prompt_len) // page_size), 1)
         if num_pages is None:
             # Every slot at max length, plus the trash page.
             num_pages = num_slots * page_count + 1
+            if caching:
+                # Headroom for the pages both cache layers pin (they evict
+                # independently, so each may hold its own budget).
+                num_pages += 2 * self.prefix_cache_size * prompt_pages
+        self._page_cache_capacity = self.prefix_cache_size * prompt_pages
         self.pool = PagedKVPool(cfg.text, num_pages, page_size, num_slots, self._max_len, device=self.device)
         self._slots = [_Slot() for _ in range(num_slots)]
         self._next_rid = 0
@@ -250,8 +323,13 @@ class PagedGenerationServer:
         # Host mirror of each slot's valid-position mask.
         self._slot_mask = np.zeros((num_slots, self._max_len), bool)
         self._finished: Dict[int, List[int]] = {}
-        # Programs run so far: admission prefills and decode ticks.
+        # Programs run so far: whole-prompt admission prefills, image chunks
+        # (each a vision-tower pass, like a multimodal admission), text
+        # chunks (of chunked admissions and of partial-hit tails) and decode
+        # ticks.
         self.admissions = 0
+        self.image_chunks = 0
+        self.text_chunks = 0
         self.ticks = 0
 
     # ------------------------------------------------------------------
@@ -265,7 +343,8 @@ class PagedGenerationServer:
 
     @property
     def num_active(self) -> int:
-        return sum(s.active for s in self._slots) + len(self._pending)
+        inflight = len(self._inflight.batch) if self._inflight else 0
+        return sum(s.active for s in self._slots) + len(self._pending) + inflight
 
     def submit(self, input_ids: np.ndarray, attention_mask: np.ndarray, images: Optional[np.ndarray] = None,
                lora_index: Optional[int] = None) -> int:
@@ -291,22 +370,154 @@ class PagedGenerationServer:
         self._slots[slot_idx].claimed = True
         rid = self._next_rid
         self._next_rid += 1
-        self._pending.append(_Pending(rid, slot_idx, ids, mask, images, bucket))
+        key = page_hashes = None
+        if self._prefix_cache is not None:
+            key, page_hashes = self._prompt_hashes(ids, mask, images)
+        self._pending.append(_Pending(rid, slot_idx, ids, mask, images, bucket, key, page_hashes))
         return rid
 
-    def flush(self) -> None:
-        """Admit queued requests, ``prefill_batch`` per prefill, grouped by prompt bucket."""
-        while self._pending:
-            bucket = self._pending[0].bucket
-            batch = [p for p in self._pending if p.bucket == bucket][: self.prefill_batch]
-            taken = {id(p) for p in batch}
-            self._pending = [p for p in self._pending if id(p) not in taken]
-            self._admit(batch)
+    def _prompt_hashes(self, ids: np.ndarray, mask: np.ndarray, images: Optional[np.ndarray]):
+        """The whole-prompt key and the page chain hashes of a request.
+
+        The frame is hashed once (shape and raw bytes); both hashes branch
+        from that state. The key adds the bucket and the padded ids and
+        mask. Chain hash ``i`` adds the page index and the prompt tokens and
+        mask of the positions in full page ``i``: the K/V rows of a page
+        depend on the frame, their positions and every token up to the
+        page's end (causal attention), so pages are shared exactly when
+        their chains match. The page index keeps apart the pages that hold
+        only image rows (``num_image_tokens`` > ``page_size``), which add no
+        token; the JAX server's chain leaves it out, so its image-only pages
+        share one hash and a partial hit there installs the first image
+        page in every image page's place. The bucket is left out of the
+        chain: text position j sits at slot n_img + j and RoPE counts true
+        lengths, so a short and a long bucket share pages.
+        """
+        frame = hashlib.sha1()
+        if images is not None:
+            img = np.ascontiguousarray(images)
+            frame.update(np.asarray(img.shape, np.int64).tobytes())
+            frame.update(img)
+        whole = frame.copy()
+        whole.update(np.int64(ids.shape[1]).tobytes())
+        whole.update(ids.tobytes())
+        whole.update(mask.tobytes())
+        ps, n_img, bucket = self.pool.page_size, self.model.cfg.num_image_tokens, ids.shape[1]
+        hashes = []
+        for i in range((n_img + bucket) // ps):
+            lo, hi = max(i * ps - n_img, 0), min((i + 1) * ps - n_img, bucket)
+            frame.update(np.int64(i).tobytes())
+            if hi > lo:
+                frame.update(np.ascontiguousarray(ids[0, lo:hi]).tobytes())
+                frame.update(np.ascontiguousarray(mask[0, lo:hi]).tobytes())
+            hashes.append(frame.digest())
+        return whole.digest(), hashes
 
     def _to_device(self, array) -> torch.Tensor:
         """A device copy of a host array (never a view of it: the host
         arrays change between ticks)."""
         return torch.tensor(np.asarray(array)).to(self.device)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        return sample_tokens(logits, self._generator, self.temperature, self.top_p)
+
+    # ------------------------------------------------------------------
+    # admission
+
+    def _take_hits(self) -> bool:
+        """Admit every pending whole-prompt hit; True when there was one."""
+        if self._prefix_cache is None:
+            return False
+        hits = [p for p in self._pending if p.key in self._prefix_cache]
+        self._pending = [p for p in self._pending if p.key not in self._prefix_cache]
+        for req in hits:
+            self._admit_from_cache(req)
+        return bool(hits)
+
+    def _take_partials(self) -> bool:
+        """Admit every pending page-level partial hit, each with the match
+        length it had before any of them was admitted; True when there was
+        one. The tails prefill in programs of up to ``prefill_batch`` rows
+        that share a match length and a bucket (the JAX server runs one
+        program a hit); the cache layers then record them in arrival order,
+        as if admitted one at a time."""
+        if self._page_cache is None:
+            return False
+        partial = [(p, m) for p in self._pending if (m := self._longest_page_prefix(p)) > 0]
+        taken = {id(p) for p, _ in partial}
+        self._pending = [p for p in self._pending if id(p) not in taken]
+        groups: Dict[tuple, List[_Pending]] = {}
+        for req, m in partial:
+            groups.setdefault((m, req.bucket), []).append(req)
+        prefilled = {}
+        for (m, _), reqs in groups.items():
+            for i in range(0, len(reqs), self.prefill_batch):
+                prefilled.update(self._prefill_tails(reqs[i: i + self.prefill_batch], m))
+        for req, m in partial:
+            self.prefix_cache_partial_hits += 1
+            for h in req.page_hashes[:m]:
+                if h in self._page_cache:
+                    self._page_cache.move_to_end(h)
+            token, mask_row, logits = prefilled[id(req)]
+            prefill_len = self.model.cfg.num_image_tokens + req.bucket
+            self._activate(req, token, prefill_len, mask_row)
+            # The tail completes this prompt: both layers record it.
+            self._cache_insert(req, prefill_len, logits)
+            self._register_pages(req)
+            self._finish_if_done(req.slot)
+        return bool(partial)
+
+    def _next_batch(self) -> List[_Pending]:
+        """Take up to ``prefill_batch`` queued requests of the oldest one's bucket."""
+        bucket = self._pending[0].bucket
+        batch = [p for p in self._pending if p.bucket == bucket][: self.prefill_batch]
+        taken = {id(p) for p in batch}
+        self._pending = [p for p in self._pending if id(p) not in taken]
+        return batch
+
+    def flush(self) -> None:
+        """Admit queued requests: prefix-cache hits with no prefill, partial
+        hits by their tails, misses ``prefill_batch`` per prefill, grouped by
+        prompt bucket. Hits are looked up again after every miss batch, so a
+        prompt submitted twice in one flush prefills once. Under chunked
+        admission this drains pending and in-flight work to the end."""
+        if self.prefill_chunk_tokens:
+            while self._pending or self._inflight is not None:
+                self._admission_work()
+            return
+        while self._pending:
+            if not (self._take_hits() or self._take_partials()):
+                self._admit(self._next_batch())
+
+    def _admit_pending(self) -> None:
+        """A ``step``'s admission: one chunk of work under chunked admission,
+        else every queued request."""
+        if self.prefill_chunk_tokens:
+            self._admission_work()
+        else:
+            self.flush()
+
+    def _activate(self, req: _Pending, token: int, prefill_len: int, mask_row: np.ndarray) -> None:
+        slot = self._slots[req.slot]
+        slot.request_id = req.request_id
+        slot.claimed = False
+        slot.active = True
+        slot.tokens = [token]
+        slot.remaining = self.max_new_tokens - 1
+        slot.length = prefill_len
+        self._slot_mask[req.slot] = mask_row
+        self._pending_token[req.slot] = token
+
+    def _register_misses(self, batch: List[_Pending], tokens_host, masks_host, last_logits, prefill_len: int):
+        """Activate a prefilled miss batch's slots and record each prompt in
+        both cache layers (before a slot that is done frees its pages)."""
+        for row, req in enumerate(batch):
+            self._activate(req, int(tokens_host[row]), prefill_len, masks_host[row])
+            if self._prefix_cache is not None:
+                self.prefix_cache_misses += 1
+                self._cache_insert(req, prefill_len, last_logits[row].clone())
+                self._register_pages(req)
+            self._finish_if_done(req.slot)
 
     @torch.no_grad()
     def _admit(self, batch: List[_Pending]) -> None:
@@ -325,23 +536,10 @@ class PagedGenerationServer:
         last_logits, _, cache, _, _ = model.prefill(
             device_images(self, images), self._to_device(ids), self._to_device(mask), cache,
         )
-        tokens = sample_tokens(last_logits, self._generator, self.temperature, self.top_p)
+        tokens = self._sample(last_logits)
         self._scatter_prefill(cache, self._to_device(pages).long())
         self.admissions += 1
-        tokens_host = tokens.cpu().numpy()
-        masks_host = cache["mask"].cpu().numpy()
-
-        for row, req in enumerate(batch):
-            slot = self._slots[req.slot]
-            slot.request_id = req.request_id
-            slot.claimed = False
-            slot.active = True
-            slot.tokens = [int(tokens_host[row])]
-            slot.remaining = self.max_new_tokens - 1
-            slot.length = prefill_len
-            self._slot_mask[req.slot] = masks_host[row]
-            self._pending_token[req.slot] = int(tokens_host[row])
-            self._finish_if_done(req.slot)
+        self._register_misses(batch, tokens.cpu().numpy(), cache["mask"].cpu().numpy(), last_logits, prefill_len)
 
     def _scatter_prefill(self, cache: dict, pages: torch.Tensor) -> None:
         """Write the prefilled (L, bp, max_len, K[, D]) rows into ``pages``
@@ -356,6 +554,203 @@ class PagedGenerationServer:
         for name, buf in pool.pools().items():
             buf[:, pages] = paged(cache[name]).to(buf.dtype)
 
+    def _gather_windows(self, tables: torch.Tensor) -> dict:
+        """Each row's pages gathered into dense (L, B, max_len, K[, D])
+        windows, one per pool buffer (the trash page where a table is 0)."""
+        n_layers, b, tab = self.pool.pool_k.shape[0], tables.shape[0], tables.long()
+
+        def gather(buf):  # (L, P, K, page[, D]) -> (L, B, S, K[, D])
+            g = buf[:, tab]  # (L, B, P_slot, K, page[, D])
+            g = g.permute(0, 1, 2, 4, 3, 5) if buf.ndim == 5 else g.permute(0, 1, 2, 4, 3)
+            return g.reshape((n_layers, b, self._max_len) + tuple(buf.shape[2:3] + buf.shape[4:]))
+
+        return {name: gather(buf) for name, buf in self.pool.pools().items()}
+
+    def _text_chunk(self, ids: np.ndarray, mask: np.ndarray, cache: dict, last: torch.Tensor):
+        """One prompt chunk through ``prefill_text_chunk`` -> (running
+        last-real-position logits, cache). A row with real tokens in the
+        chunk takes its last one's logits; a row already past its prompt
+        keeps the earlier chunk's (prompts are right-padded)."""
+        mask_d = self._to_device(mask)
+        logits, cache = self.model.prefill_text_chunk(self._to_device(ids), mask_d, cache)
+        self.text_chunks += 1
+        has = mask_d.bool().any(dim=1)
+        idx = (torch.arange(mask_d.shape[1], device=mask_d.device) * mask_d).amax(dim=1)  # last real position
+        chunk_last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
+        return torch.where(has[:, None], chunk_last, last), cache
+
+    def _admission_work(self) -> None:
+        """One unit of chunked admission work: start a miss batch or run its
+        next chunk, the image chunk first; finalize at the last one. Whole
+        and partial hits admit at once (their tails are short by
+        construction, so pacing them buys nothing)."""
+        inf = self._inflight
+        if inf is None:
+            self._take_hits()
+            if self._pending:
+                self._take_partials()
+            if not self._pending:
+                return
+            inf = self._inflight = self._start_inflight(self._next_batch())
+        if not inf.images_done:
+            inf.cache = self.model.prefill_image_chunk(device_images(self, inf.images), inf.cache)
+            self.image_chunks += 1
+            inf.images_done = True
+            return
+        c = self.prefill_chunk_tokens
+        lo = inf.chunk_idx * c
+        inf.last_logits, inf.cache = self._text_chunk(inf.ids[:, lo: lo + c], inf.mask[:, lo: lo + c], inf.cache,
+                                                      inf.last_logits)
+        inf.chunk_idx += 1
+        if inf.chunk_idx * c >= inf.bucket:
+            self._inflight = None
+            self._finalize_inflight(inf)
+
+    def _start_inflight(self, batch: List[_Pending]) -> _Inflight:
+        """Host set-up of a chunked miss batch: the padded arrays of
+        ``_admit``, its pages allocated up front, a fresh dense cache and
+        zero running logits."""
+        cfg = self.model.cfg
+        bp = self.prefill_batch
+        ids, mask, images = admission_arrays(batch, bp, self.eos_token_id)
+        for req in batch:
+            self.pool.allocate(req.slot, cfg.num_image_tokens + batch[0].bucket + 1)
+        return _Inflight(
+            batch=batch, bucket=batch[0].bucket, ids=ids, mask=mask, images=images,
+            cache=init_kv_cache(cfg.text, bp, self._max_len, device=self.device),
+            last_logits=torch.zeros((bp, cfg.text.vocab_size), dtype=cfg.text.dtype, device=self.device),
+            images_done=images is None or cfg.num_image_tokens == 0,
+        )
+
+    @torch.no_grad()
+    def _finalize_inflight(self, inf: _Inflight) -> None:
+        """The last chunk landed: scatter the chunk cache into the pages,
+        sample each first token from the running logits, activate."""
+        pages = np.zeros((self.prefill_batch, self.pool.pages_per_slot), np.int32)
+        for row, req in enumerate(inf.batch):
+            pages[row] = self.pool.page_table[req.slot]
+        self._scatter_prefill(inf.cache, self._to_device(pages).long())
+        tokens = self._sample(inf.last_logits)
+        self._register_misses(inf.batch, tokens.cpu().numpy(), inf.cache["mask"].cpu().numpy(), inf.last_logits,
+                              self.model.cfg.num_image_tokens + inf.bucket)
+
+    def _cache_insert(self, req: _Pending, prefill_len: int, logits: torch.Tensor) -> None:
+        """Record ``req``'s prompt pages and last-position logits. The entry
+        holds its own page references, so it outlives the request: prompt
+        rows are write-once (the owner writes only positions >= prefill_len,
+        inside the tail page a hit copies)."""
+        cache = self._prefix_cache
+        if req.key is None or req.key in cache:
+            return
+        pages = [int(p) for p in self.pool.page_table[req.slot, : self.pool.pages_needed(prefill_len)]]
+        for p in pages:
+            self.pool.add_ref(p)
+        cache[req.key] = {"pages": pages, "logits": logits, "mask": self._slot_mask[req.slot].copy(),
+                          "prefill_len": prefill_len}
+        while len(cache) > self.prefix_cache_size:
+            _, evicted = cache.popitem(last=False)
+            for p in evicted["pages"]:
+                self.pool.release_page(p)
+
+    @torch.no_grad()
+    def _admit_from_cache(self, req: _Pending) -> None:
+        """Admit a whole-prompt hit with no prefill: the full prompt pages by
+        reference; the tail page, which this slot's decode writes, copied to
+        a private page (copy-on-write); the first token sampled from the
+        cached logits."""
+        entry = self._prefix_cache[req.key]
+        self._prefix_cache.move_to_end(req.key)
+        self.prefix_cache_hits += 1
+        prefill_len = entry["prefill_len"]
+        n_full, partial = divmod(prefill_len, self.pool.page_size)
+        for i in range(n_full):
+            self.pool.install(req.slot, i, entry["pages"][i])
+        # One fresh page: the private tail copy, or the first decode page.
+        self.pool.allocate(req.slot, prefill_len + 1)
+        if partial:
+            self.pool.copy_page(entry["pages"][n_full], int(self.pool.page_table[req.slot, n_full]))
+        token = int(self._sample(entry["logits"][None])[0])
+        self._activate(req, token, prefill_len, entry["mask"])
+        # The page layer evicts on its own: refresh this prompt's pages there.
+        self._register_pages(req)
+        self._finish_if_done(req.slot)
+
+    def _register_pages(self, req: _Pending) -> None:
+        """Record ``req``'s full prompt pages in the page layer, one pinned
+        page per chain hash; evicted entries release their page."""
+        cache = self._page_cache
+        if cache is None or not req.page_hashes:
+            return
+        ps = self.pool.page_size
+        for i, h in enumerate(req.page_hashes):
+            if h in cache:
+                cache.move_to_end(h)
+                continue
+            page = int(self.pool.page_table[req.slot, i])
+            if page <= 0:
+                break
+            self.pool.add_ref(page)
+            cache[h] = {"page": page, "mask": self._slot_mask[req.slot, i * ps: (i + 1) * ps].copy()}
+        while len(cache) > self._page_cache_capacity:
+            _, evicted = cache.popitem(last=False)
+            self.pool.release_page(evicted["page"])
+
+    def _longest_page_prefix(self, req: _Pending) -> int:
+        """Leading full prompt pages of ``req`` in the page layer; 0 when a
+        partial hit cannot help (nothing cached, the match ends inside the
+        image, or nothing would be left to prefill)."""
+        if self._page_cache is None or not req.page_hashes:
+            return 0
+        ps, n_img = self.pool.page_size, self.model.cfg.num_image_tokens
+        m = 0
+        for h in req.page_hashes:
+            if h not in self._page_cache:
+                break
+            m += 1
+        # Keep the last real prompt token in the tail: it gives the first
+        # token's logits. Capping by the padded bucket alone (as the JAX
+        # server does) lets a short prompt that a longer cached one extends
+        # match through its last real page and prefill only padding.
+        m = min(m, (n_img + int(req.attention_mask.sum()) - 1) // ps)
+        # Text chunks cannot continue a match that stops inside the image.
+        return 0 if m * ps < n_img else m
+
+    @torch.no_grad()
+    def _prefill_tails(self, batch: List[_Pending], m: int) -> dict:
+        """Prefill the tails of partial hits that share the match length
+        ``m`` and a bucket, one row each: install the ``m`` shared pages by
+        reference, then page-size text chunks against the gathered shared
+        rows; the tails scatter into the slots' own pages, the shared
+        entries into the trash page. The match covers the image, so the
+        vision tower does not run. Returns ``{id(req): (first token, mask
+        row, last-position logits)}``."""
+        ps, n_img, bucket = self.pool.page_size, self.model.cfg.num_image_tokens, batch[0].bucket
+        n = len(batch)
+        shared = np.zeros((n, self.pool.pages_per_slot), np.int32)
+        mask_host = np.zeros((n, self._max_len), bool)
+        for row, req in enumerate(batch):
+            entries = [self._page_cache[h] for h in req.page_hashes[:m]]
+            for i, entry in enumerate(entries):
+                self.pool.install(req.slot, i, entry["page"])
+            self.pool.allocate(req.slot, n_img + bucket + 1)
+            shared[row, :m] = self.pool.page_table[req.slot, :m]
+            mask_host[row, : m * ps] = np.concatenate([e["mask"] for e in entries])
+        cache = dict(self._gather_windows(self._to_device(shared)), mask=self._to_device(mask_host),
+                     index=torch.full((n,), m * ps, dtype=torch.int32, device=self.device))
+        ids = np.concatenate([req.input_ids for req in batch])
+        mask = np.concatenate([req.attention_mask for req in batch])
+        text = self.model.cfg.text
+        last = torch.zeros((n, text.vocab_size), dtype=text.dtype, device=self.device)
+        for off in range(m * ps - n_img, bucket, ps):
+            last, cache = self._text_chunk(ids[:, off: off + ps], mask[:, off: off + ps], cache, last)
+
+        pages = self.pool.page_table[[req.slot for req in batch]]  # fancy indexing: a copy
+        pages[:, :m] = 0
+        self._scatter_prefill(cache, self._to_device(pages).long())
+        tokens = self._sample(last).cpu().numpy()
+        masks = cache["mask"].cpu().numpy()
+        return {id(req): (int(tokens[row]), masks[row], last[row].clone()) for row, req in enumerate(batch)}
+
     def _finish_if_done(self, slot_idx: int) -> None:
         slot = self._slots[slot_idx]
         if not slot.active:
@@ -368,6 +763,20 @@ class PagedGenerationServer:
         self.pool.free(slot_idx)
         self._slot_mask[slot_idx] = False
         slot.length = 0
+
+    def evict_prefix_cache(self) -> None:
+        """Drop every entry of both prefix-cache layers, releasing their pages."""
+        for cache, pages_of in ((self._prefix_cache, lambda e: e["pages"]), (self._page_cache, lambda e: [e["page"]])):
+            while cache:
+                for p in pages_of(cache.popitem(last=False)[1]):
+                    self.pool.release_page(p)
+
+    def pinned_pages(self) -> set:
+        """Distinct pages the prefix-cache layers hold."""
+        if self._prefix_cache is None:
+            return set()
+        return ({p for e in self._prefix_cache.values() for p in e["pages"]}
+                | {e["page"] for e in self._page_cache.values()})
 
     # ------------------------------------------------------------------
     # decode ticks
@@ -413,17 +822,7 @@ class PagedGenerationServer:
             if w == 1:  # the decoder squeezes a decode tick's window axis
                 new = {name: r[:, :, None] for name, r in new.items()}
         else:
-            n_layers = pool.pool_k.shape[0]
-            tab = tables.long()
-
-            def gather_window(buf):  # (L, P, K, page[, D]) -> (L, B, S, K[, D])
-                g = buf[:, tab]  # (L, B, P_slot, K, page[, D])
-                g = g.permute(0, 1, 2, 4, 3, 5) if buf.ndim == 5 else g.permute(0, 1, 2, 4, 3)
-                return g.reshape((n_layers, b, self._max_len) + tuple(buf.shape[2:3] + buf.shape[4:]))
-
-            cache = {"mask": masks, "index": lengths}
-            for name, buf in pool.pools().items():
-                cache[name] = gather_window(buf)
+            cache = dict(self._gather_windows(tables), mask=masks, index=lengths)
             logits, new_cache = model.verify_step(window, cache)
             rows_b = torch.arange(b, device=dev)[:, None]
             new = {name: new_cache[name][:, rows_b, cols] for name in pool.pools()}  # (L, B, W, ...)
@@ -451,8 +850,9 @@ class PagedGenerationServer:
 
     @torch.no_grad()
     def step(self) -> Dict[int, List[int]]:
-        """Admit pending requests, then one decode tick across all slots."""
-        self.flush()
+        """Admit pending requests (one chunk of work under chunked
+        admission), then one decode tick across all slots."""
+        self._admit_pending()
         if any(s.active for s in self._slots):
             for i, slot in enumerate(self._slots):
                 if slot.active:
@@ -460,7 +860,7 @@ class PagedGenerationServer:
                     self.pool.allocate(i, slot.length + 1)
             logits = self._run_tick(self.decode_impl, *self._tick_inputs())
             self.ticks += 1
-            next_host = sample_tokens(logits, self._generator, self.temperature, self.top_p).cpu().numpy()
+            next_host = self._sample(logits).cpu().numpy()
             for i, slot in enumerate(self._slots):
                 if not slot.active:
                     continue
@@ -478,7 +878,8 @@ class PagedGenerationServer:
 
     @torch.no_grad()
     def step_n(self, n: int) -> Dict[int, List[int]]:
-        """Admit pending requests, then up to ``n`` decode ticks on the device
+        """Admit pending requests fully (chunk pacing has nothing to
+        interleave with here), then up to ``n`` decode ticks on the device
         with one host fetch at the end (``eos_token_id`` must be < 0 for
         n > 1: the ticks cannot stop at EOS in between)."""
         self.flush()
@@ -498,7 +899,7 @@ class PagedGenerationServer:
             for _ in range(n_eff):
                 logits = self._run_tick(self.decode_impl, tables, masks, lengths, tokens)
                 self.ticks += 1
-                tokens = sample_tokens(logits, self._generator, self.temperature, self.top_p)
+                tokens = self._sample(logits)
                 masks[rows, lengths.long()] = True
                 lengths = lengths + 1
                 toks.append(tokens)

@@ -24,10 +24,14 @@ and draft-verify decode ticks (each pass over the target's weights pays for
 The pool-side arrays carry one dead lane after the slots, matching the
 draft cache's trash row that dummy admission rows land in. Admission prefills
 both models: the target through the parent's paged admission, the draft
-through a dense batched prefill and a slot insert. ``cache_slack`` is
-``k + 1``: reservations and the logical window cover one whole window past
-the accepted length. ``step_n`` raises. Prefix caching and chunked admission
-come with those features of the parent server, which raises on them today.
+through a dense batched prefill and a slot insert, after every kind of
+target admission: a miss batch, a whole-prompt prefix hit, a program of
+page-level partial hits (the target prefills only the tails; the draft,
+with no page sharing, prefills the whole prompts) and a chunked batch's finalize. Under
+chunked admission the draft's prefill runs whole at finalize: chunking
+bounds the target's admission stall, and the draft's prefill is the cheap
+side. ``cache_slack`` is ``k + 1``: reservations and the logical window
+cover one whole window past the accepted length. ``step_n`` raises.
 
 At ``temperature == 0`` the tokens are the target's greedy tokens, the same
 as the plain ``PagedGenerationServer`` on the target alone (bf16 caveat in
@@ -75,8 +79,9 @@ class SpeculativePagedGenerationServer(PagedGenerationServer):
     """Paged continuous batching with speculative decode ticks.
 
     The ``PagedGenerationServer`` surface (prompt buckets, admission control,
-    ``decode_impl``) with a decode tick that is one draft-verify round,
-    emitting ``accepted_i + 1`` in ``[1, k + 1]`` tokens per active slot.
+    prefix caching, chunked admission, ``decode_impl``) with a decode tick
+    that is one draft-verify round, emitting ``accepted_i + 1`` in
+    ``[1, k + 1]`` tokens per active slot.
     ``model`` is the target and ``draft`` the draft; both hold their weights
     and must live on one device. ``paged_kwargs`` are the parent's.
     """
@@ -98,6 +103,7 @@ class SpeculativePagedGenerationServer(PagedGenerationServer):
         self.spec_tokens_emitted = 0
         self.spec_ticks = 0
         self.spec_slot_rounds = 0  # active slots summed over rounds
+        self.draft_admissions = 0  # draft prefills (each runs the draft's vision tower)
 
     @property
     def tokens_per_tick(self) -> float:
@@ -131,10 +137,24 @@ class SpeculativePagedGenerationServer(PagedGenerationServer):
             device_images(self, images), self._to_device(ids), self._to_device(mask), cache_p,
         )
         self.draft_cache = self._draft_insert(self.draft_cache, cache_p, self._to_device(slots))
+        self.draft_admissions += 1
 
     def _admit(self, batch: List[_Pending]) -> None:
         super()._admit(batch)
         self._draft_admit(batch)
+
+    def _admit_from_cache(self, req: _Pending) -> None:
+        super()._admit_from_cache(req)
+        self._draft_admit([req])
+
+    def _prefill_tails(self, batch: List[_Pending], m: int) -> dict:
+        prefilled = super()._prefill_tails(batch, m)
+        self._draft_admit(batch)
+        return prefilled
+
+    def _finalize_inflight(self, inf) -> None:
+        super()._finalize_inflight(inf)
+        self._draft_admit(inf.batch)
 
     # -- the speculative tick ----------------------------------------------
 
@@ -174,9 +194,10 @@ class SpeculativePagedGenerationServer(PagedGenerationServer):
 
     @torch.no_grad()
     def step(self):
-        """Admit pending requests, then one draft-verify round across all
-        slots; returns finished outputs."""
-        self.flush()
+        """Admit pending requests (one chunk of work under chunked
+        admission), then one draft-verify round across all slots; returns
+        finished outputs."""
+        self._admit_pending()
         if any(s.active for s in self._slots):
             k = self.k
             for i, slot in enumerate(self._slots):
