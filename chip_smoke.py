@@ -11,6 +11,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --only train    # the training phase alone, with the flash and RepMixer builds
     python3 chip_smoke.py --only closed_loop  # the closed-loop phase, after the four builds and their checks
     python3 chip_smoke.py --only serve    # the serving-CLI phase, after the RepMixer and paged builds and checks
+    python3 chip_smoke.py --only surfaces # eval_dataset, the legacy policy, the LeRobot plugin, a config.json directory
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -146,7 +147,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``--profile``: the device time of a tick and the idle share), and the
    servers' greedy agreement with the batched generation, with the
    divergence report of phase 6 for the paged server.
-9. timing: p50 step time and actions/sec of the kernel path and the plain
+9. surfaces: the reference's other policy surfaces at FastVLA-0.5B's full
+   width and depth, ``configs/train_aloha.yaml``'s settings (512 px, bf16
+   compute over fp32 parameters, ``tokenizer_max_length`` 64, hidden and
+   fusion 1024, batch 8) and random weights from the seed, on
+   ``SyntheticAlohaSource`` records of 480 x 640 frames. A FastVLA MLP
+   checkpoint and a legacy ``FastVLMPolicy`` checkpoint written by
+   ``save_policy_checkpoint`` and reloaded through the top-level
+   ``vla_fastvlm_tpu_torch.load_policy_from_checkpoint``: bit-equal
+   actions. ``python -m vla_fastvlm_tpu_torch.scripts.eval_dataset``'s
+   ``main`` in-process on each, 64 records in batches of 8: the printed MSE
+   is the mean of ``compute_loss`` over the same batches; 24 flash and 38
+   RepMixer launches a batch; the plain path (``attention_impl="xla"``,
+   ``vision_block_impl="xla"``, same weights) within ``POLICY_REL_L2`` on the
+   MSE and on a batch's actions. The LeRobot plugin
+   (``vla_fastvlm_tpu_torch.lerobot_fastvla``, LeRobot's API from
+   ``tests/lerobot_stub``): state (14,), one camera (3, 480, 640), action
+   (14,), ``device="cuda"``, ``jax_dtype="bfloat16"``, ``image_size=512``;
+   the pre-processor with the records' stats feeds 5 LeRobot-style steps
+   (``forward``, ``backward``, ``clip_grad_norm_`` at the preset's 1.0,
+   ``torch.optim.AdamW`` over ``get_optim_params()`` with the preset):
+   finite losses, the head moved, every backbone parameter bit-equal, the
+   first loss against the plain path within ``POLICY_REL_L2``, 24 + 38
+   launches a forward, ``select_action`` popping its queue. A FastVLM-0.5B
+   ``config.json`` directory (``llava_qwen2``, ``mobileclip_l_1024``)
+   resolves to the preset's config at 1024 px, warns that its weights are
+   random and runs one FastVLA forward of 16 frames through the kernels.
+   Printed: eval samples/s, the plugin's p50 train step and
+   ``select_action``, its losses and gradient norms.
+10. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
@@ -155,7 +184,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
 their checks of phase 2 and phase 4, then the card line and the last line.
 ``--only closed_loop`` runs phases 1 and 2 and phase 8, then the card line
-and the last line. ``--only serve`` runs phase 1 for the RepMixer and the
+and the last line. ``--only surfaces`` runs phase 1 for the flash-attention
+and RepMixer sources, their checks of phase 2 (which hold the phase's
+shapes: flash at T = 128 and 320, RepMixer on the 512- and 1024-px grids)
+and phase 9, then the card line and the last line. ``--only serve`` runs phase 1 for the RepMixer and the
 two paged-attention sources, their checks of phase 2 and phase 7 (on a
 FastVLM-0.5B built as in phase 5), then the card line and the last line.
 ``--profile`` adds each
@@ -526,7 +558,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/9] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/10] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -604,7 +636,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/9] kernels against their plain versions")
+    log("[2/10] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -769,7 +801,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/9] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/10] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -1039,7 +1071,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
 
-    log(f"[4/9] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+    log(f"[4/10] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
         f"dropout {TRAIN_DROPOUT}, full depth")
     out = ROOT / "build" / "train_smoke"
@@ -1298,7 +1330,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[5/9] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[5/10] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -1453,7 +1485,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[6/9] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/10] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1750,7 +1782,7 @@ def phase_serve_cli(model, profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import generate, serve
 
-    log("[7/9] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
+    log("[7/10] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
         "paged, prefix cache, chunked admission, both over int8 pools, speculative paged; then generate, and "
         "the prefix paths against whole-prompt prefills")
     summaries = {}
@@ -1988,7 +2020,7 @@ def phase_closed_loop(profile_dir: Path | None = None):
     )
     from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
 
-    log(f"[8/9] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
+    log(f"[8/10] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
         f"DummyEnvs of {LOOP['image_size']}-px frames, state/action {LOOP['state_dim']}, {LOOP['max_steps']} "
         f"control ticks a run ({SPEC_LOOP_TICKS} speculative)")
     t0 = time.perf_counter()
@@ -2087,10 +2119,354 @@ def phase_closed_loop(profile_dir: Path | None = None):
     return summaries
 
 
+# ---------------------------------------------------------------------------
+# the reference's other policy surfaces
+
+# configs/train_aloha.yaml's settings (TRAIN_* above): eval over 64 records in
+# batches of 8; the LeRobot plugin 5 steps of 8; the config.json directory's
+# forward 16 frames of 256 px at its tower's 1024 px (FLASH_LOOP's and
+# REPMIXER_LOOP's batch-16 shapes).
+SURFACE_EVAL_SAMPLES, SURFACE_PLUGIN_STEPS, SURFACE_DIR_FRAMES = 64, 5, 16
+# FastVLM-0.5B's HF config.json (apple/FastVLM-0.5B, model_type llava_qwen2).
+FASTVLM_05B_CONFIG = {
+    "model_type": "llava_qwen2", "hidden_size": 896, "num_hidden_layers": 24, "num_attention_heads": 14,
+    "num_key_value_heads": 2, "intermediate_size": 4864, "vocab_size": 151936, "rope_theta": 1000000.0,
+    "rms_norm_eps": 1e-06, "tie_word_embeddings": True, "max_position_embeddings": 32768,
+    "mm_vision_tower": "mobileclip_l_1024",
+}
+
+
+def surface_policy(kind: str, impl: str = "auto"):
+    """FastVLA-0.5B with the MLP head ("mlp") or the legacy FastVLMPolicy
+    ("legacy") at the yaml's settings, on the card."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
+    from vla_fastvlm_tpu_torch.model import FastVLMBackboneConfig, FastVLMPolicy, FastVLMPolicyConfig
+
+    if kind == "mlp":
+        return FastVLAPolicy(FastVLAConfig(
+            vlm_model_name=TRAIN_MODEL, bootstrap_model_name=TRAIN_MODEL, image_size=TRAIN_IMAGE,
+            tokenizer_max_length=TEXT_LEN, dtype="bfloat16", param_dtype="float32", attention_impl=impl,
+            vision_block_impl=impl, seed=SEED), device=TRAIN_DEVICE)
+    backbone = FastVLMBackboneConfig(
+        model_id=TRAIN_MODEL, bootstrap_model_id=TRAIN_MODEL, force_image_size=TRAIN_IMAGE,
+        tokenizer_max_length=TEXT_LEN, dtype="bfloat16", param_dtype="float32", attention_impl=impl,
+        vision_block_impl=impl, seed=SEED + 1)  # other weights than the MLP policy's
+    return FastVLMPolicy(FastVLMPolicyConfig(backbone=backbone), device=TRAIN_DEVICE)
+
+
+def surface_modules(policy):
+    """(backbone, head) of a FastVLA or a legacy policy."""
+    return (policy.model.backbone, policy.model.head) if hasattr(policy, "model") else (policy.backbone, policy.head)
+
+
+def check_surface_launches(what: str, counts: dict, forwards: int) -> None:
+    expect = {"flash_attention": FLASH_A_FORWARD * forwards, "repmixer_block": REPMIXER_A_FORWARD * forwards,
+              "paged_attention": 0, "paged_attention_window": 0}
+    log(f"  {what}: launches {counts} (expected {expect})")
+    if counts != expect:
+        fail(f"{what}: launch counts {counts} != {expect}")
+
+
+def surface_checkpoint(kind: str, records, out: Path) -> dict:
+    """Save, reload, eval_dataset and the plain path for one policy family."""
+    import contextlib
+    import io
+
+    import torch
+
+    import vla_fastvlm_tpu_torch as port
+    from vla_fastvlm_tpu_torch.data import AlohaDataset, create_aloha_dataloader
+    from vla_fastvlm_tpu_torch.io.checkpoint import save_policy_checkpoint
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts import eval_dataset
+
+    result = {}
+    policy = surface_policy(kind)
+    ckpt = out / kind
+    t0 = time.perf_counter()
+    save_policy_checkpoint(ckpt, policy.config, policy.jax_params(as_numpy=False))
+    loaded, device = port.load_policy_from_checkpoint(ckpt, device=TRAIN_DEVICE)
+    result["save_and_load_s"] = time.perf_counter() - t0
+    if type(loaded) is not type(policy) or device != torch.device(TRAIN_DEVICE):
+        fail(f"{kind}: the checkpoint loaded as {type(loaded).__name__} on {device}")
+    batch8 = aloha_batch(records[:TRAIN_BATCH])
+    obs = (batch8["images"], batch8["states"], batch8["tasks"])
+    reset_launch_counts()
+    actions = loaded.forward(*obs)
+    torch.cuda.synchronize()
+    check_surface_launches(f"{kind}: reloaded policy, one forward", launch_counts(), 1)
+    same = torch.equal(policy.forward(*obs), actions)
+    log(f"  {kind}: {type(loaded).__name__} saved and reloaded through vla_fastvlm_tpu_torch."
+        f"load_policy_from_checkpoint in {result['save_and_load_s']:.1f} s; actions bit-equal {same}")
+    if not same or tuple(actions.shape) != (TRAIN_BATCH, 14) or not bool(torch.isfinite(actions).all()):
+        fail(f"{kind}: the reloaded checkpoint's actions differ from the saving policy's (or are not finite)")
+    del policy
+
+    # The CLI in-process on the checkpoint; its printed lines echoed.
+    args = eval_dataset.EvalArgs(checkpoint_dir=str(ckpt), synthetic_data=True, synthetic_samples=SURFACE_EVAL_SAMPLES,
+                                 synthetic_image_size=TRAIN_FRAME_HW[0], batch_size=TRAIN_BATCH, num_workers=2,
+                                 seed=SEED, device=TRAIN_DEVICE)
+    printed = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        summary = eval_dataset.main(args)
+    torch.cuda.synchronize()
+    result["eval_cli_s"] = time.perf_counter() - t0
+    for line in printed.getvalue().splitlines():
+        log(f"  eval_dataset: {line}")
+    batches = SURFACE_EVAL_SAMPLES // TRAIN_BATCH
+    check_surface_launches(f"{kind}: eval_dataset, {batches} batches", launch_counts(), batches)
+
+    # The same batches through compute_loss, kernel path and plain path.
+    plain = surface_policy(kind, "xla")
+    (plain_backbone, plain_head), (backbone, head) = surface_modules(plain), surface_modules(loaded)
+    plain_backbone.model.load_state_dict(backbone.model.state_dict())
+    plain_head.load_state_dict(head.state_dict())
+    eval_records = eval_dataset._build_dataset(args)[0]
+    loader = create_aloha_dataloader(eval_records, batch_size=TRAIN_BATCH, shuffle=False, num_workers=2)
+    host_batches = list(loader)
+    means = {}
+    for name, pol in (("kernel", loaded), ("plain", plain)):
+        pol.compute_loss(port.move_batch_to_device(host_batches[0], device))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = 0.0
+        for b in host_batches:
+            total += float(pol.compute_loss(port.move_batch_to_device(b, device))["mse"]) * len(b["tasks"])
+        torch.cuda.synchronize()
+        means[name] = total / SURFACE_EVAL_SAMPLES
+        result[f"{name}_eval_samples_per_s"] = SURFACE_EVAL_SAMPLES / (time.perf_counter() - t0)
+    line = f"MSE on split 'synthetic(train-records)': {means['kernel']:.6f}"
+    log(f"  {kind}: mean of compute_loss over the same {batches} batches {means['kernel']:.6f} (the CLI: "
+        f"{summary['mse']:.6f}); eval samples/s {result['kernel_eval_samples_per_s']:.1f} kernel path, "
+        f"{result['plain_eval_samples_per_s']:.1f} plain (host clock around the synchronized loop, batches on the "
+        f"host); the CLI call {result['eval_cli_s']:.1f} s with its checkpoint load")
+    if line not in printed.getvalue().splitlines() or summary["samples"] != SURFACE_EVAL_SAMPLES:
+        fail(f"{kind}: eval_dataset printed {printed.getvalue()!r}, the mean of compute_loss gives {line!r}")
+    obs_plain = plain.forward(*obs)
+    errs = {"eval mse": rel_l2(torch.tensor(means["kernel"]), torch.tensor(means["plain"])),
+            "actions": rel_l2(actions, obs_plain)}
+    log(f"  {kind}: kernel vs plain path: eval mse {means['kernel']:.6f} vs {means['plain']:.6f} rel "
+        f"{errs['eval mse']:.3e}, actions rel_l2 {errs['actions']:.3e} (limit {POLICY_REL_L2:g})")
+    if not all(e <= POLICY_REL_L2 for e in errs.values()):
+        fail(f"{kind}: the kernel path differs from the plain path: {errs}")
+    result.update(eval_mse=means["kernel"], plain_eval_mse=means["plain"], rel=errs)
+    return result
+
+
+def surface_plugin(records) -> dict:
+    """The LeRobot plugin: 5 LeRobot-style train steps and select_action."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.fastvla import FastVLMWithExpert
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    sys.path.insert(0, str(ROOT / "tests" / "lerobot_stub"))  # the card's machine has no lerobot
+    from lerobot.configs.types import FeatureType, PolicyFeature
+
+    import vla_fastvlm_tpu_torch.lerobot_fastvla as plugin
+
+    h, w = TRAIN_FRAME_HW
+    config = plugin.FastVLAConfig(
+        input_features={"observation.state": PolicyFeature(FeatureType.STATE, (14,)),
+                        "observation.images.top": PolicyFeature(FeatureType.VISUAL, (3, h, w))},
+        output_features={"action": PolicyFeature(FeatureType.ACTION, (14,))},
+        vlm_model_name=TRAIN_MODEL, bootstrap_model_name=TRAIN_MODEL, device=TRAIN_DEVICE, jax_dtype="bfloat16",
+        image_size=TRAIN_IMAGE,
+    )
+    policy = plugin.FastVLAPolicy(config)
+    states = np.stack([r["observation.state"] for r in records])
+    actions = np.stack([r["action"] for r in records])
+    cuda = lambda x: torch.from_numpy(x).to(TRAIN_DEVICE)
+    stats = {"observation.state": {"mean": cuda(states.mean(0)), "std": cuda(states.std(0))},
+             "action": {"mean": cuda(actions.mean(0)), "std": cuda(actions.std(0))}}
+    pre, post = plugin.make_fastvla_pre_post_processors(config, stats)
+
+    def lerobot_batch(i):
+        b = aloha_batch(records[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH])
+        return pre({"observation.images.top": torch.from_numpy(b["images"]),
+                    "observation.state": torch.from_numpy(b["states"]), "action": torch.from_numpy(b["actions"]),
+                    "task": b["tasks"]})
+
+    batches = [lerobot_batch(i) for i in range(SURFACE_PLUGIN_STEPS)]
+    optim_params = list(policy.get_optim_params())
+    if {id(p) for p in optim_params} != {id(p) for p in policy.head.parameters()} or \
+            any(p.requires_grad for p in policy.vlm.parameters()):
+        fail("plugin: get_optim_params() is not the head's parameters alone, or the backbone takes gradients")
+    preset = config.get_optimizer_preset()
+    opt = torch.optim.AdamW(optim_params, lr=preset.lr, betas=preset.betas, eps=preset.eps,
+                            weight_decay=preset.weight_decay)
+    frozen = {k: v.clone() for k, v in policy.vlm.state_dict().items()}
+    head0 = {k: v.clone() for k, v in policy.head.state_dict().items()}
+
+    # The first step's loss on the plain path, same weights, before any update.
+    core = policy.model.config
+    plain = FastVLMWithExpert(dataclasses.replace(core, attention_impl="xla", vision_block_impl="xla"),
+                              device=TRAIN_DEVICE)
+    plain.backbone.model.load_state_dict(policy.vlm.state_dict())
+    plain.head.load_state_dict(policy.head.state_dict())
+    arrays = policy._arrays_from_batch(batches[0], with_actions=True)
+    preds = plain.apply_fn(arrays["images"], arrays["input_ids"], arrays["attention_mask"], arrays["states"])
+    plain_loss = torch.mean(torch.square(preds - arrays["actions"].to(preds.dtype))).float()
+    del plain, preds
+
+    losses, norms, step_ms = [], [], []
+    policy.train()
+    reset_launch_counts()
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, metrics = policy.forward(batch)
+        opt.zero_grad()
+        loss.backward()
+        norm = torch.nn.utils.clip_grad_norm_(optim_params, preset.grad_clip_norm)
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"])
+        norms.append(float(norm))
+    check_surface_launches(f"plugin: {SURFACE_PLUGIN_STEPS} train steps", launch_counts(), SURFACE_PLUGIN_STEPS)
+    moved = sum(not torch.equal(v, head0[k]) for k, v in policy.head.state_dict().items())
+    still = all(torch.equal(v, frozen[k]) for k, v in policy.vlm.state_dict().items())
+    first = rel_l2(torch.tensor(losses[0]), plain_loss.cpu())
+    log(f"  plugin: losses {[round(x, 5) for x in losses]}, gradient norms {[round(x, 4) for x in norms]} "
+        f"(clipped at {preset.grad_clip_norm}); {moved} of {len(head0)} head tensors moved; backbone "
+        f"bit-equal {still}; first loss {losses[0]:.5f} vs plain path {float(plain_loss):.5f}, rel {first:.3e} "
+        f"(limit {POLICY_REL_L2:g})")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(norms)) or moved != len(head0) or not still \
+            or not first <= POLICY_REL_L2:
+        fail("plugin: a loss or norm is not finite, the head did not move, the backbone changed, or the first "
+             "loss is off the plain path")
+
+    policy.reset()
+    sel_ms, actions = [], None
+    reset_launch_counts()
+    for batch in batches:
+        policy.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        actions = policy.select_action(batch)
+        torch.cuda.synchronize()
+        sel_ms.append((time.perf_counter() - t0) * 1e3)
+        if len(policy._action_queue) != 0:
+            fail(f"plugin: select_action left {len(policy._action_queue)} actions queued at chunk 1")
+    check_surface_launches(f"plugin: {len(batches)} select_action calls", launch_counts(), len(batches))
+    chunk = policy.predict_action_chunk(batches[-1])
+    out = post(actions)
+    if not torch.equal(actions, chunk[:, 0]) or tuple(out.shape) != (TRAIN_BATCH, 14) or out.device.type != "cpu" \
+            or not bool(torch.isfinite(out).all()):
+        fail(f"plugin: select_action {tuple(actions.shape)} is not the chunk's first step, or the "
+             f"post-processor gave {tuple(out.shape)} on {out.device}")
+    result = dict(losses=losses, grad_norms=norms, first_loss_rel=first,
+                  p50_train_step_ms=statistics.median(step_ms), train_step_ms=step_ms,
+                  p50_select_action_ms=statistics.median(sel_ms), select_action_ms=sel_ms)
+    log(f"  plugin: p50 train step {result['p50_train_step_ms']:.2f} ms (forward, backward, clip, AdamW; steps "
+        f"{[round(x, 2) for x in step_ms]}), p50 select_action {result['p50_select_action_ms']:.2f} ms "
+        f"({[round(x, 2) for x in sel_ms]}); host clock around synchronized calls, batch {TRAIN_BATCH}")
+    return result
+
+
+def surface_hf_directory() -> dict:
+    """A FastVLM-0.5B config.json directory: its config, its warning, a forward."""
+    import logging
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
+    from vla_fastvlm_tpu_torch.io.presets import resolve_fastvlm_config
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    class Records(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        (Path(tmp) / "config.json").write_text(json.dumps(FASTVLM_05B_CONFIG))
+        cfg, raw = resolve_fastvlm_config(tmp, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+        preset, _ = resolve_fastvlm_config(TRAIN_MODEL, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+        if cfg != preset or raw["model_type"] != "llava_qwen2":
+            fail(f"config.json directory resolved to {cfg}, not the preset's {preset}")
+        records = Records()
+        adapter_log = logging.getLogger("vla_fastvlm_tpu_torch.model.fastvlm_adapter")
+        adapter_log.addHandler(records)
+        try:
+            policy = FastVLAPolicy(FastVLAConfig(vlm_model_name=tmp, bootstrap_model_name=TRAIN_MODEL,
+                                                 tokenizer_max_length=TEXT_LEN, dtype="bfloat16",
+                                                 param_dtype="bfloat16", seed=SEED), device=TRAIN_DEVICE)
+        finally:
+            adapter_log.removeHandler(records)
+    warned = [m for m in records.messages if "No *.safetensors found" in m and "randomly initialized" in m]
+    mcfg = policy.model.backbone.model_config
+    log(f"  config.json directory (llava_qwen2, mobileclip_l_1024): the preset's config, image size "
+        f"{mcfg.image_size}; warning: {warned[:1]}")
+    if not warned or mcfg.image_size != preset.image_size or mcfg.text != preset.text:
+        fail(f"config.json directory: warning {records.messages}, image size {mcfg.image_size}")
+    rng = np.random.default_rng(SEED)
+    frames = rng.random((SURFACE_DIR_FRAMES, 3, 256, 256), dtype=np.float32)
+    states = rng.standard_normal((SURFACE_DIR_FRAMES, 14)).astype(np.float32)
+    reset_launch_counts()
+    actions = policy.forward(frames, states, "insert the peg")
+    torch.cuda.synchronize()
+    check_surface_launches(f"config.json directory: one forward of {SURFACE_DIR_FRAMES} frames", launch_counts(), 1)
+    if tuple(actions.shape) != (SURFACE_DIR_FRAMES, 14) or not bool(torch.isfinite(actions).all()):
+        fail(f"config.json directory: actions {tuple(actions.shape)} not finite or misshapen")
+    return {"image_size": mcfg.image_size, "warned": True}
+
+
+def phase_surfaces() -> dict:
+    import shutil
+
+    import torch
+
+    from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
+
+    log(f"[9/10] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
+        f"from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters): checkpoints, "
+        "eval_dataset, the legacy FastVLMPolicy, the LeRobot plugin, a config.json directory")
+    out = ROOT / "build" / "surfaces_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    records = SyntheticAlohaSource(num_samples=SURFACE_PLUGIN_STEPS * TRAIN_BATCH, image_hw=TRAIN_FRAME_HW, seed=SEED)
+    result = {}
+    try:
+        for kind in ("mlp", "legacy"):
+            result[kind] = surface_checkpoint(kind, records, out)
+            torch.cuda.empty_cache()
+            lap(kind)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    result["plugin"] = surface_plugin(records)
+    torch.cuda.empty_cache()
+    lap("plugin")
+    result["hf_directory"] = surface_hf_directory()
+    lap("config.json directory")
+    result["card"] = card_line()
+    log(f"  seconds by part: {laps}; card: {result['card']}")
+    log(json.dumps({"surfaces": result}))
+    return result
+
+
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[9/9] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[10/10] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -2388,7 +2764,8 @@ def main(argv=None) -> int:
                         help="directory for torch.profiler tables of three policy steps (kernel and plain "
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
-    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve"], default=None,
+    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve", "surfaces"],
+                        default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
                              "heads' and the streamed shapes and by block shape; repmixer: "
@@ -2397,7 +2774,8 @@ def main(argv=None) -> int:
                              "checks, their times at the 8 paged shapes and by part count; train: the "
                              "flash and RepMixer libraries and the training phase; closed_loop: the four "
                              "libraries, their checks and the closed-loop phase; serve: the RepMixer and paged "
-                             "libraries, their checks and the serving-CLI phase)")
+                             "libraries, their checks and the serving-CLI phase; surfaces: the flash and RepMixer "
+                             "libraries, their checks and the surfaces phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2416,9 +2794,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/9] flash-attention kernel against its plain version")
+        log("[2/10] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[9/9] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[10/10] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2427,9 +2805,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/9] RepMixer kernel against its plain version")
+        log("[2/10] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[9/9] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[10/10] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -2437,7 +2815,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "train":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/9] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/10] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         if args.profile is not None:
@@ -2463,7 +2841,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "serve":
         phase_build(("repmixer", "paged_attention", "paged_window"))
-        log("[2/9] RepMixer and paged-attention kernels against their plain versions")
+        log("[2/10] RepMixer and paged-attention kernels against their plain versions")
         check_repmixer()
         check_paged()
         if args.profile is not None:
@@ -2475,11 +2853,23 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if args.only == "surfaces":
+        phase_build(("flash_attention", "repmixer"))
+        log("[2/10] flash-attention and RepMixer kernels against their plain versions")
+        check_flash()
+        check_repmixer()
+        phase_surfaces()
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/9] paged-attention kernels against their plain versions")
+        log("[2/10] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[9/9] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[10/10] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -2507,6 +2897,8 @@ def main(argv=None) -> int:
     cli_summaries = timed("serve_cli", phase_serve_cli, model_05b, args.profile)
     del model_05b
     loop_summaries = timed("closed_loop", phase_closed_loop, args.profile)
+    torch.cuda.empty_cache()
+    timed("surfaces", phase_surfaces)
     timings = timed("timing", phase_timing, policy, plain, step)
     log(f"seconds per phase: {phase_s}")
     if args.profile is not None:

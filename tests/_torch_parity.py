@@ -6,9 +6,15 @@ dirac, layer-scale 1e-5 and ones/zeros inits hide nothing and no JAX
 initializer has to be compiled.
 """
 
+import contextlib
+import sys
+from pathlib import Path
+
 import jax
 import numpy as np
 import torch
+
+LEROBOT_STUB = str(Path(__file__).parent / "lerobot_stub")
 
 
 def t(x):
@@ -65,3 +71,34 @@ def tiny_vlm_pair(seed, kvq="none", mode="prefix", embed_scale=0.1, prompt=8):
         text=t_qwen.qwen2_tiny(kv_cache_quantization=kvq)))
     tm.load_state_dict(jax_params_to_torch(params), strict=True)
     return jm, params, tm.eval().requires_grad_(False)
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over numpy-convertible arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@contextlib.contextmanager
+def lerobot_stub(*packages):
+    """Import ``lerobot`` from ``tests/lerobot_stub`` while inside.
+
+    ``lerobot.*`` and the ``packages`` given (plugins, which register into
+    the stub's class-level registry when imported) leave ``sys.modules``
+    before and after, so each import inside is fresh; what was there
+    before comes back on exit."""
+
+    def held(name):
+        return any(name == p or name.startswith(p + ".") for p in ("lerobot",) + packages)
+
+    saved = {name: module for name, module in sys.modules.items() if held(name)}
+    for name in saved:
+        del sys.modules[name]
+    sys.path.insert(0, LEROBOT_STUB)
+    try:
+        yield
+    finally:
+        sys.path.remove(LEROBOT_STUB)
+        for name in [name for name in sys.modules if held(name)]:
+            del sys.modules[name]
+        sys.modules.update(saved)

@@ -3,13 +3,16 @@
 - The port imports without JAX and without the JAX package.
 - No file of the port, nor ``chip_smoke.py``, names the JAX package or JAX.
 - Entry points raise without CUDA unless ``device="cpu"`` is passed (the
-  policies, the trainer, the closed-loop, serve and generate CLIs); the
-  paged server runs where the backbone put its model.
+  policies, the legacy policy, the LeRobot plugin's policy, the trainer,
+  the closed-loop, eval, serve and generate CLIs, ``get_best_device``);
+  the paged server runs where the backbone put its model.
+- The top-level exports of the JAX package resolve, lazily.
 - The weight bridge covers every parameter at full ``fastvlm_0_5b`` width:
   ``jax.eval_shape`` of the JAX init against the port built on the meta
   device (nothing is allocated for either), both ways.
 """
 
+import ast
 import importlib
 import pkgutil
 import re
@@ -26,6 +29,8 @@ import torch
 import vla_fastvlm_tpu_torch
 from vla_fastvlm_tpu_torch.io.bridge import jax_params_to_torch, torch_params_to_jax
 
+from _torch_parity import LEROBOT_STUB, lerobot_stub
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "vla_fastvlm_tpu_torch"
 
@@ -37,10 +42,12 @@ def _port_modules():
 
 
 def test_imports_without_jax():
+    """Every module, the LeRobot plugin's through the stub on the path."""
     code = (
         "import sys, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'vla_fastvlm_tpu'):\n"
         "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {LEROBOT_STUB!r})\n"
         f"for mod in {_port_modules()!r}:\n"
         "    importlib.import_module(mod)\n"
         "print('ok')\n"
@@ -80,9 +87,65 @@ def test_every_module_has_a_jax_counterpart_layout():
         "training/trainer.py", "data/aloha_dataset.py", "data/prefetch.py", "io/checkpoint.py",
         "utils/cli.py", "utils/logging.py", "models/action_tokens.py", "fastvla/token_policy.py",
         "serving/policy_runtime.py", "serving/token_policy_server.py",
+        "model/policy.py", "utils/checkpoint.py", "lerobot_fastvla/__init__.py",
+        "lerobot_fastvla/configuration_fastvla.py", "lerobot_fastvla/modeling_fastvla.py",
+        "lerobot_fastvla/processor_fastvla.py",
     }
     for rel in mirrored:
         assert (PORT / rel).is_file() and (ROOT / "vla_fastvlm_tpu" / rel).is_file(), rel
+    # The CLIs' twins, against the repository's scripts/.
+    for rel in ("train.py", "eval_dataset.py", "eval_closed_loop.py", "serve.py", "generate.py"):
+        assert (PORT / "scripts" / rel).is_file() and (ROOT / "scripts" / rel).is_file(), rel
+
+
+def test_top_level_exports_resolve():
+    """The JAX package's top-level API, resolved lazily."""
+    import vla_fastvlm_tpu as jax_package
+
+    from vla_fastvlm_tpu_torch.device import get_best_device
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
+    from vla_fastvlm_tpu_torch.io.checkpoint import load_policy_from_checkpoint
+    from vla_fastvlm_tpu_torch.model.policy import FastVLMPolicy
+    from vla_fastvlm_tpu_torch.training import Trainer, TrainingConfig
+
+    expect = {"FastVLAConfig": FastVLAConfig, "FastVLAPolicy": FastVLAPolicy, "FastVLMPolicy": FastVLMPolicy,
+              "Trainer": Trainer, "TrainingConfig": TrainingConfig, "get_best_device": get_best_device,
+              "load_policy_from_checkpoint": load_policy_from_checkpoint}
+    for name, value in expect.items():
+        assert getattr(vla_fastvlm_tpu_torch, name) is value, name
+    for name in jax_package.__all__:
+        if name != "is_tpu_available":  # no TPU here
+            assert hasattr(vla_fastvlm_tpu_torch, name), name
+    for name in ("models", "ops", "io", "data", "training", "serving", "fastvla", "model", "utils"):
+        assert getattr(vla_fastvlm_tpu_torch, name).__name__ == f"vla_fastvlm_tpu_torch.{name}"
+    assert vla_fastvlm_tpu_torch.utils.load_policy_from_checkpoint is load_policy_from_checkpoint
+    with pytest.raises(AttributeError):
+        vla_fastvlm_tpu_torch.not_an_export
+    light = subprocess.run([sys.executable, "-c", "import sys, vla_fastvlm_tpu_torch; "
+                            "print(sorted(m for m in sys.modules if m.startswith('vla_fastvlm_tpu_torch.')))"],
+                           cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert light.returncode == 0, light.stderr
+    assert ast.literal_eval(light.stdout) == ["vla_fastvlm_tpu_torch.data", "vla_fastvlm_tpu_torch.data.aloha_dataset",
+                                  "vla_fastvlm_tpu_torch.data.prefetch", "vla_fastvlm_tpu_torch.device"]
+
+
+def test_device_helpers(monkeypatch):
+    from vla_fastvlm_tpu_torch.device import is_cuda_available, is_mps_available, move_batch_to_device
+
+    assert is_mps_available() is False
+    assert is_cuda_available() == torch.cuda.is_available()
+    batch = {"images": np.ones((2, 3), np.float32), "states": torch.zeros(2), "tasks": ["a", "b"],
+             "meta": {"ids": np.arange(2), "name": "x"}}
+    out = move_batch_to_device(batch, "cpu")
+    assert isinstance(out["images"], torch.Tensor) and torch.equal(out["images"], torch.ones(2, 3))
+    assert out["states"] is batch["states"] and out["tasks"] is batch["tasks"]
+    assert torch.equal(out["meta"]["ids"], torch.arange(2)) and out["meta"]["name"] == "x"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert is_cuda_available() is False
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        move_batch_to_device(batch, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        vla_fastvlm_tpu_torch.get_best_device("mps")
 
 
 def _generate_backbone(module, monkeypatch, **kw):
@@ -108,14 +171,17 @@ class TestDevice:
 
     @pytest.mark.parametrize(
         "entry", ["FastVLMBackbone", "FastVLMWithExpert", "FastVLAPolicy", "PagedGenerationServer", "Trainer",
-                  "FastVLMTokenPolicy", "eval_closed_loop", "serve", "generate"]
+                  "FastVLMTokenPolicy", "eval_closed_loop", "serve", "generate", "FastVLMPolicy", "eval_dataset",
+                  "lerobot FastVLAPolicy", "get_best_device"]
     )
-    def test_entry_points_need_cuda_unless_cpu(self, entry, monkeypatch):
+    def test_entry_points_need_cuda_unless_cpu(self, entry, monkeypatch, tmp_path):
         from types import SimpleNamespace
 
+        from vla_fastvlm_tpu_torch.device import get_best_device
         from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy, FastVLMWithExpert
-        from vla_fastvlm_tpu_torch.model import FastVLMBackbone
-        from vla_fastvlm_tpu_torch.scripts import eval_closed_loop, generate, serve
+        from vla_fastvlm_tpu_torch.io.checkpoint import save_policy_checkpoint
+        from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig, FastVLMPolicy, FastVLMPolicyConfig
+        from vla_fastvlm_tpu_torch.scripts import eval_closed_loop, eval_dataset, generate, serve
         from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
         from vla_fastvlm_tpu_torch.training import Trainer, TrainingConfig
 
@@ -143,7 +209,20 @@ class TestDevice:
                 model_id="tiny", num_slots=1, prefill_batch=1, prompt_len=4, max_new_tokens=2, num_requests=1,
                 dtype="float32", paged=True, page_size=4, **kw))["device"])),
             "generate": lambda **kw: _generate_backbone(generate, monkeypatch, **kw),
+            "FastVLMPolicy": lambda **kw: FastVLMPolicy(FastVLMPolicyConfig(
+                backbone=FastVLMBackboneConfig(model_id="tiny", tokenizer_max_length=8), hidden_dim=8, fusion_dim=8),
+                **kw),
+            # The CLI's result names the device it ran on.
+            "eval_dataset": lambda **kw: SimpleNamespace(device=torch.device(eval_dataset.main(eval_dataset.EvalArgs(
+                checkpoint_dir=str(tmp_path), synthetic_data=True, synthetic_samples=2, synthetic_image_size=32,
+                state_dim=14, action_dim=14, batch_size=2, num_workers=0, **kw))["device"])),
+            # The plugin runs on config.device, the card when it is None.
+            "lerobot FastVLAPolicy": lambda **kw: _lerobot_policy(kw.get("device")),
+            "get_best_device": lambda **kw: SimpleNamespace(device=get_best_device(kw.get("device"))),
         }[entry]
+        if entry == "eval_dataset":
+            policy = FastVLAPolicy(cfg, device="cpu")
+            save_policy_checkpoint(tmp_path, policy.config, policy.jax_params(as_numpy=False))
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
         built = build(device="cpu")
@@ -170,6 +249,22 @@ class TestDevice:
         bb = FastVLMBackbone(FastVLMBackboneConfig(model_id="tiny", tokenizer_max_length=8), device="cpu")
         with pytest.raises(ValueError, match="lives on"):
             bb.forward(np.zeros((1, 3, 64, 64), np.float32), ["x"], device="meta")
+
+
+def _lerobot_policy(device):
+    """The LeRobot plugin's policy at the tiny preset, built through the stub."""
+    with lerobot_stub("vla_fastvlm_tpu_torch.lerobot_fastvla"):
+        from lerobot.configs.types import FeatureType, PolicyFeature
+
+        from vla_fastvlm_tpu_torch.lerobot_fastvla import FastVLAConfig, FastVLAPolicy
+
+        config = FastVLAConfig(
+            input_features={"observation.state": PolicyFeature(FeatureType.STATE, (4,)),
+                            "observation.images.top": PolicyFeature(FeatureType.VISUAL, (3, 64, 64))},
+            output_features={"action": PolicyFeature(FeatureType.ACTION, (4,))},
+            vlm_model_name="tiny", hidden_dim=8, fusion_dim=8, tokenizer_max_length=8, device=device,
+        )
+        return FastVLAPolicy(config)
 
 
 class TestBridgeCoverage:
@@ -244,5 +339,6 @@ class TestBridgeCoverage:
 
 
 def test_port_module_names_match_import():
-    for name in _port_modules():
-        assert importlib.import_module(name).__name__ == name
+    with lerobot_stub("vla_fastvlm_tpu_torch.lerobot_fastvla"):
+        for name in _port_modules():
+            assert importlib.import_module(name).__name__ == name

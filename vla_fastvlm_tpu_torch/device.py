@@ -11,6 +11,8 @@ from typing import Optional, Union
 
 import torch
 
+from .data.prefetch import to_device
+
 DeviceLike = Union[str, torch.device, None]
 
 
@@ -65,3 +67,43 @@ def strict_fp32() -> None:
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+# ----------------------------------------------------------------------
+# the reference's device helpers (counterparts of ``vla_fastvlm_tpu/device.py``)
+
+
+def is_cuda_available() -> bool:
+    """True when PyTorch sees a CUDA card."""
+    return torch.cuda.is_available()
+
+
+def is_mps_available() -> bool:
+    """Always False: the port runs on an NVIDIA card or, when asked, the CPU."""
+    return False
+
+
+def get_best_device(preferred: Optional[str] = None) -> torch.device:
+    """The card: ``None``, "cuda" and "gpu" give ``cuda`` and raise without
+    one, as ``resolve_device`` does. The CPU only when ``preferred`` is
+    "cpu"; nothing falls back to it."""
+    name = (preferred or "cuda").lower()
+    if name == "gpu":
+        name = "cuda"
+    if name not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {preferred!r}; expected 'cuda' (or 'gpu') or 'cpu'")
+    return resolve_device(name)
+
+
+def move_batch_to_device(batch: dict, device: DeviceLike) -> dict:
+    """Place the tensors and numpy arrays of ``batch`` on ``device``; dicts
+    are recursed and everything else (task strings, metadata) passes
+    through untouched."""
+    device = resolve_device(device)
+    out: dict = {}
+    for key, value in batch.items():
+        if isinstance(value, dict):
+            out[key] = move_batch_to_device(value, device)
+        else:
+            out[key] = to_device(value, device)
+    return out

@@ -176,32 +176,39 @@ def load_policy_from_checkpoint(checkpoint_dir: str | Path, device: DeviceLike =
     """Build the policy a checkpoint directory describes and load its
     weights: ``(policy, device)``. The card unless ``device="cpu"``.
 
-    FastVLA checkpoints (``vlm_model_name`` in the config, the JAX rule) load:
-    ``FastVLMTokenPolicy`` when the config says ``action_head == "token"``
-    (the same layout with no ``head`` sub-tree), else ``FastVLAPolicy``; the
-    legacy ``FastVLMPolicy`` layout is not ported and raises.
+    The JAX rule dispatches: a config with ``vlm_model_name`` is FastVLA,
+    ``FastVLMTokenPolicy`` when it says ``action_head == "token"`` (the same
+    layout with no ``head`` sub-tree), else ``FastVLAPolicy``; a config
+    without it is the legacy ``FastVLMPolicy`` (its ``backbone`` sub-dict
+    and its own fields filtered to the known ones).
     ``strict=False`` lets the checkpoint leave parameters at their init.
     """
     from ..fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
+    from ..model.fastvlm_adapter import FastVLMBackboneConfig
+    from ..model.policy import FastVLMPolicy, FastVLMPolicyConfig
 
     config_dict, params = load_policy_state(checkpoint_dir)
-    if "vlm_model_name" not in config_dict:
-        raise NotImplementedError(
-            f"{checkpoint_dir}: a legacy FastVLMPolicy checkpoint; that policy is not ported to PyTorch yet"
-        )
-    config = FastVLAConfig(**_filter_known_fields(FastVLAConfig, config_dict))
-    policy_cls = FastVLMTokenPolicy if config.action_head == "token" else FastVLAPolicy
-    policy = policy_cls(config, device=device)
+    if "vlm_model_name" in config_dict:
+        config = FastVLAConfig(**_filter_known_fields(FastVLAConfig, config_dict))
+        policy_cls = FastVLMTokenPolicy if config.action_head == "token" else FastVLAPolicy
+        policy = policy_cls(config, device=device)
+    else:
+        own = dict(config_dict)
+        backbone = FastVLMBackboneConfig(**_filter_known_fields(FastVLMBackboneConfig, own.pop("backbone")))
+        policy = FastVLMPolicy(FastVLMPolicyConfig(backbone=backbone, **_filter_known_fields(FastVLMPolicyConfig, own)),
+                               device=device)
     if strict:
         policy.load_jax_params(params)
     else:
         from .bridge import jax_params_to_torch
 
-        token = policy_cls is FastVLMTokenPolicy
-        backbone = policy.backbone if token else policy.model.backbone
+        if isinstance(policy, FastVLAPolicy):
+            backbone, head = policy.model.backbone, policy.model.head
+        else:  # the token policy has no head
+            backbone, head = policy.backbone, getattr(policy, "head", None)
         backbone.model.load_state_dict(jax_params_to_torch(params.get("backbone", {})), strict=False)
-        if not token:  # the token policy has no head
-            policy.model.head.load_state_dict(jax_params_to_torch(params.get("head", {})), strict=False)
+        if head is not None:
+            head.load_state_dict(jax_params_to_torch(params.get("head", {})), strict=False)
     return policy, policy.device
 
 

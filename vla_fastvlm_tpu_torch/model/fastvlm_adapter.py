@@ -14,15 +14,21 @@ graph is recorded, the backbone's parameters take gradients when
 the decoder blocks. The eager ``forward`` runs under
 ``torch.inference_mode()``.
 
-Weights are random from ``seed`` (presets only); ``load_jax_params`` takes
-the JAX package's parameters through the weight bridge.
+Weights are random from ``seed``; ``load_jax_params`` takes the JAX
+package's parameters through the weight bridge. A ``model_id`` that names a
+local HF-layout directory resolves its ``config.json`` (``io/presets.py``)
+and the image size by JAX's priority chain; with no ``*.safetensors`` in
+it the weights are random (with JAX's warning), and with some the backbone
+raises: converting HF weights is not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import logging
 from dataclasses import dataclass
+from pathlib import Path
 from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -31,7 +37,7 @@ import torch
 from ..data.prefetch import to_device
 from ..device import DeviceLike, resolve_device, resolve_dtype, same_device
 from ..io.bridge import jax_params_to_torch
-from ..io.presets import resolve_fastvlm_config
+from ..io.presets import infer_size_from_tower_name, resolve_fastvlm_config
 from ..io.tokenizer import load_tokenizer
 from ..models.fastvlm import FastVLM, pool_hidden, pool_last_text_token
 from ..models.layers import init_weights
@@ -77,6 +83,23 @@ def _check_supported(cfg: FastVLMBackboneConfig) -> None:
         raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
     if cfg.quantization != "none":
         raise NotImplementedError("quantization: weight quantization is not ported to PyTorch yet")
+
+
+def _check_directory_weights(model_id: str) -> None:
+    """A local directory's weights: random without ``*.safetensors`` (JAX's
+    warning), and a raise with them, never random without a word."""
+    model_dir = Path(model_id)
+    if not model_dir.is_dir():
+        return
+    shards = sorted(model_dir.glob("*.safetensors"))
+    if shards:
+        raise NotImplementedError(
+            f"{model_dir} holds HF weights ({shards[0].name}, ...): converting HF "
+            "checkpoints (the decoder and projector transposes, the FastViTHD "
+            "reparameterization fold) is not ported to PyTorch yet. Convert them "
+            "with the JAX package and load the policy checkpoint it writes."
+        )
+    logger.warning("No *.safetensors found in %s; model will be randomly initialized.", model_dir)
 
 
 def as_float32(x):
@@ -130,6 +153,15 @@ class FastVLMBackbone:
             image_token_mode=cfg.image_token_mode,
         )
         self.expected_size = self._resolve_expected_image_size()
+        declared_size, tower_name = self._resolve_declared_tower_size()
+        if declared_size is not None and cfg.force_image_size is not None and self.expected_size < declared_size:
+            raise ValueError(
+                "Configured image_size is too small for this FastVLM vision tower. "
+                f"force_image_size={self.expected_size}, tower={tower_name}, "
+                f"required>={declared_size}. Set image_size to the declared tower "
+                "size (e.g. 1024) or leave it unset (None) for auto-detection."
+            )
+        _check_directory_weights(cfg.model_id)
         self.model_config = self.model_config.replace(
             image_size=int(self.expected_size),
             num_cameras=int(cfg.num_cameras),
@@ -153,10 +185,55 @@ class FastVLMBackbone:
                     self.expected_size, self.expected_size, self.device)
 
     def _resolve_expected_image_size(self) -> int:
-        """Preset chain: ``force_image_size`` when set, else the preset's size."""
-        if self.config.force_image_size is not None:
-            return int(self.config.force_image_size)
-        return int(self.model_config.image_size)
+        """JAX's priority chain: ``force_image_size``; then the directory's
+        ``vision_config.image_size``, the tower name's size, its
+        ``preprocessor_config.json``; the preset's own size; else
+        ``fallback_image_size``."""
+        cfg = self.config
+        if cfg.force_image_size is not None:
+            return int(cfg.force_image_size)
+        raw = self._raw_hf_config or {}
+        img_size = (raw.get("vision_config") or {}).get("image_size")
+        if isinstance(img_size, (int, float)):
+            return int(img_size)
+        if isinstance(img_size, (tuple, list)) and len(img_size) > 0:
+            return int(img_size[0])
+        tower_size, _ = self._resolve_declared_tower_size()
+        if tower_size is not None:
+            return int(tower_size)
+        proc_size = self._resolve_processor_size()
+        if proc_size is not None:
+            return int(proc_size)
+        if self._raw_hf_config is None:
+            return int(self.model_config.image_size)
+        return int(cfg.fallback_image_size)
+
+    def _resolve_processor_size(self) -> Optional[int]:
+        proc_path = Path(self.config.model_id) / "preprocessor_config.json"
+        if not proc_path.is_file():
+            return None
+        try:
+            with open(proc_path, encoding="utf-8") as f:
+                size = json.load(f).get("size")
+        except (OSError, ValueError, AttributeError):
+            return None
+        if isinstance(size, dict):
+            h = size.get("height") or size.get("shortest_edge") or size.get("max_height")
+            if isinstance(h, (int, float)):
+                return int(h)
+        if isinstance(size, (int, float)):
+            return int(size)
+        return None
+
+    def _resolve_declared_tower_size(self) -> Tuple[Optional[int], Optional[str]]:
+        raw = self._raw_hf_config or {}
+        vision_cfg = raw.get("vision_config") or {}
+        for tower_name in (raw.get("mm_vision_tower"), raw.get("vision_tower"),
+                           vision_cfg.get("model_name"), vision_cfg.get("name_or_path")):
+            tower_size = infer_size_from_tower_name(tower_name)
+            if tower_size is not None:
+                return tower_size, str(tower_name)
+        return None, None
 
     def load_jax_params(self, params: Mapping) -> None:
         """Load the JAX package's FastVLM parameters (numpy leaves)."""
