@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about eight minutes
+    python3 chip_smoke.py                 # the full check, about twelve minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
     python3 chip_smoke.py --only flash    # the flash-attention kernel alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
@@ -12,6 +12,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --only closed_loop  # the closed-loop phase, after the four builds and their checks
     python3 chip_smoke.py --only serve    # the serving-CLI phase, after the RepMixer and paged builds and checks
     python3 chip_smoke.py --only surfaces # eval_dataset, the legacy policy, the LeRobot plugin, a config.json directory
+    python3 chip_smoke.py --only lora     # LoRA training (0.5B both heads, 7B), multi-LoRA serving, merge_lora
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -175,7 +176,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    random and runs one FastVLA forward of 16 frames through the kernels.
    Printed: eval samples/s, the plugin's p50 train step and
    ``select_action``, its losses and gradient norms.
-10. timing: p50 step time and actions/sec of the kernel path and the plain
+10. LoRA: rank-16 adapters on the decoder's seven projections over a frozen
+   base (``io/lora.py``). ``python -m vla_fastvlm_tpu_torch.scripts.train
+   --lora-rank 16`` in-process at ``configs/train_aloha.yaml``'s settings
+   (FastVLA-0.5B, batch 8, 512 px, bf16 over fp32), the MLP and the token
+   head, 10 steps saving at the last: 48 flash launches a step (forward and
+   remat recompute), 24 flash backward calls (plain recompute), 38 RepMixer
+   and no RepMixer backward. On fresh adapters step 1 moves B, step 2 A,
+   and the base stays bit-equal; the CLI's checkpoint against the plain
+   path (bf16 loss, gradient norm, adapter and head gradients within 3e-2;
+   fp32 at batch 2 / 256 px, every leaf within 1e-4); both paths' p50
+   step, device time by part with ``--profile``. FastVLA-7B: bf16 base,
+   fp32 adapters (40.37 M), 3 steps, peak memory. ``scripts.merge_lora``
+   on the MLP checkpoint and on it with seeded B: merged against adapted
+   actions in fp32 (1e-4) and bf16. The serve CLI with ``--lora-dir`` over
+   the trained adapter and two seeded ones on phase 7's stream, with and
+   without ``--prefix-cache 16 --repeat-fraction 0.5``, against the same
+   runs without adapters; on the paged server, adapted tick logits kernel
+   against gathered, launches and device time a tick with and without
+   adapters, each row's first-token logits against a single-adapter server
+   (2e-2), a repeat under another adapter a miss; the speculative-paged
+   server with target adapters at the self-draft shape (its acceptance,
+   the window kernel against gathered verify logits).
+11. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
@@ -187,7 +210,8 @@ their checks of phase 2 and phase 4, then the card line and the last line.
 and the last line. ``--only surfaces`` runs phase 1 for the flash-attention
 and RepMixer sources, their checks of phase 2 (which hold the phase's
 shapes: flash at T = 128 and 320, RepMixer on the 512- and 1024-px grids)
-and phase 9, then the card line and the last line. ``--only serve`` runs phase 1 for the RepMixer and the
+and phase 9, then the card line and the last line. ``--only lora`` runs phases 1 and 2 and phase 10,
+then the card line and the last line. ``--only serve`` runs phase 1 for the RepMixer and the
 two paged-attention sources, their checks of phase 2 and phase 7 (on a
 FastVLM-0.5B built as in phase 5), then the card line and the last line.
 ``--profile`` adds each
@@ -216,6 +240,7 @@ the last line ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -249,6 +274,13 @@ FLASH_TRAIN = dict(b=TRAIN_BATCH, t=(TRAIN_IMAGE // 64) ** 2 + TEXT_LEN, n=14, k
 REPMIXER_TRAIN = [(TRAIN_BATCH, TRAIN_IMAGE // 4, TRAIN_IMAGE // 4, 96, 384),
                   (TRAIN_BATCH, TRAIN_IMAGE // 8, TRAIN_IMAGE // 8, 192, 768),
                   (TRAIN_BATCH, TRAIN_IMAGE // 16, TRAIN_IMAGE // 16, 384, 1536)]
+# The LoRA train steps' flash shapes (phase 10): the token head's sequence
+# (64 image + 64 prompt + 14 state + 14 action tokens; 16 image tokens at
+# the fp32 comparison's 256 px) and the 7B decoder's heads at the MLP head's.
+ALOHA_DIM = 14
+FLASH_TOKEN_TRAIN = dict(FLASH_TRAIN, t=FLASH_TRAIN["t"] + 2 * ALOHA_DIM)
+FLASH_TOKEN_FP32 = dict(FLASH_TRAIN, b=2, t=(256 // 64) ** 2 + TEXT_LEN + 2 * ALOHA_DIM)
+FLASH_7B_TRAIN = dict(FLASH_TRAIN, n=28, kh=4, d=128)
 
 # FastVLM-0.5B serving on the synthetic stream of scripts/serve.py, at the
 # preset's own 1024 px (256 image tokens): windows of 256 + 64 + 64 = 384
@@ -558,7 +590,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/10] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/11] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -606,6 +638,10 @@ FLASH_CHECKS = [
     ("flash bf16 closed loop", FLASH_LOOP, "bf16", "right"),
     ("flash bf16 closed loop, staggered group", dict(FLASH_LOOP, b=LOOP_GROUP), "bf16", "right"),
     ("flash fp32 closed loop", dict(FLASH_LOOP, b=4), "fp32", "right"),
+    ("flash bf16 LoRA token-head train", FLASH_TOKEN_TRAIN, "bf16", "right"),
+    ("flash fp32 LoRA token-head train, 256 px", FLASH_TOKEN_FP32, "fp32", "right"),
+    ("flash bf16 LoRA 7B train", FLASH_7B_TRAIN, "bf16", "right"),
+    ("flash fp32 LoRA 7B train", dict(FLASH_7B_TRAIN, b=2), "fp32", "right"),
 ] + [(f"flash {kind} S={shape['t']} d{shape['d']} (streamed)", shape, kind, "right")
      for shape in FLASH_LONG for kind in ("bf16", "fp32")]
 
@@ -636,7 +672,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/10] kernels against their plain versions")
+    log("[2/11] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -801,7 +837,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/10] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/11] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -968,7 +1004,7 @@ def compare_paths(what, kernel, plain, limits) -> dict:
     import torch
 
     out = {"loss": rel_l2(kernel["loss"], plain["loss"]), "grad_norm": rel_l2(kernel["grad_norm"], plain["grad_norm"])}
-    for part in ("head", "backbone"):
+    for part in ("head", "backbone", "lora"):
         names = [n for n in kernel["grads"] if n.startswith(part + ".")]
         if not names:
             continue
@@ -1006,7 +1042,7 @@ def aloha_batch(records) -> dict:
     return aloha_collate_fn([ds[i] for i in range(len(ds))])
 
 
-def time_train_steps(label, trainers, arrays, batch, profile_dir=None) -> dict:
+def time_train_steps(label, trainers, arrays, batch, profile_dir=None, steps=TRAIN_TIMED_STEPS) -> dict:
     """p50 train step (host clock around synchronized steps) of the kernel
     path and the plain path, in turns; under --profile each one's device
     time a step by part. The first step of each path (a warm-up, the weights
@@ -1014,7 +1050,7 @@ def time_train_steps(label, trainers, arrays, batch, profile_dir=None) -> dict:
     returns, kernel path against plain path."""
     import torch
 
-    def steps(trainer, n):
+    def timed_steps(trainer, n):
         times = []
         for _ in range(n):
             torch.cuda.synchronize()
@@ -1033,7 +1069,7 @@ def time_train_steps(label, trainers, arrays, batch, profile_dir=None) -> dict:
             fail(f"train step {label}: the first step's {key} rel_l2 {err:.3e} beyond {TRAIN_REL_L2:g}")
     ms = {"kernel": [], "plain": []}
     for path in ("kernel", "plain", "plain", "kernel"):
-        ms[path].extend(steps(trainers[path], TRAIN_TIMED_STEPS))
+        ms[path].extend(timed_steps(trainers[path], steps))
     result = {}
     for path, times in ms.items():
         p50 = statistics.median(times)
@@ -1071,7 +1107,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
 
-    log(f"[4/10] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+    log(f"[4/11] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
         f"dropout {TRAIN_DROPOUT}, full depth")
     out = ROOT / "build" / "train_smoke"
@@ -1217,18 +1253,20 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     return result
 
 
+def serving_backbone(kv="none"):
+    """FastVLM-0.5B at 1024 px, bf16, from seed 0 (KV pools of ``kv``)."""
+    from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig
+
+    return FastVLMBackbone(FastVLMBackboneConfig(
+        model_id="fastvlm-0.5b", bootstrap_model_id="fastvlm-0.5b", dtype="bfloat16",
+        param_dtype="bfloat16", kv_cache_quantization=kv, seed=SEED,
+    ))
+
+
 def make_servers():
     """The bf16 model of FastVLM-0.5B at 1024 px from seed 0, and the same
     weights under a text config with int8 KV pools."""
-    from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig
-
-    def backbone(kv):
-        return FastVLMBackbone(FastVLMBackboneConfig(
-            model_id="fastvlm-0.5b", bootstrap_model_id="fastvlm-0.5b", dtype="bfloat16",
-            param_dtype="bfloat16", kv_cache_quantization=kv, seed=SEED,
-        ))
-
-    bf16, int8 = backbone("none"), backbone("int8")
+    bf16, int8 = serving_backbone("none"), serving_backbone("int8")
     int8.model.load_state_dict(bf16.model.state_dict())
     return bf16.model, int8.model
 
@@ -1251,14 +1289,15 @@ def device_ms(avg) -> float:
 
 
 def run_stream(server, reqs, table: Path | None = None, slots: int = SERVE["num_slots"],
-               arrivals_per_tick: int = SERVE_ARRIVALS):
+               arrivals_per_tick: int = SERVE_ARRIVALS, lora_routes=None):
     """``scripts/serve.py``'s loop: up to ``arrivals_per_tick`` arrivals a
     tick while slots and pages allow, then one ``step`` (a decode tick, or a
     draft-verify round on a speculative server). Once every slot is busy and
     nothing arrives, ``IDLE_TICKS`` ticks run under the profiler for the
     device time of a tick; their time and tokens are left out of the tick
     times and the rate. With ``table`` the profile of those ticks is written
-    there, by device time and by host time."""
+    there, by device time and by host time. ``lora_routes``: each
+    request's ``lora_index`` on a multi-LoRA server."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1270,7 +1309,7 @@ def run_stream(server, reqs, table: Path | None = None, slots: int = SERVE["num_
     while len(finished) < len(reqs):
         arrivals = 0
         while submitted < len(reqs) and server.has_free_slot() and arrivals < arrivals_per_tick:
-            server.submit(*reqs[submitted])
+            server.submit(*reqs[submitted], **({} if lora_routes is None else {"lora_index": lora_routes[submitted]}))
             submitted += 1
             arrivals += 1
         if prof_ms is None and arrivals == 0 and server.num_active == slots and ticks() >= 8:
@@ -1330,7 +1369,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[5/10] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[5/11] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -1485,7 +1524,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[6/10] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/11] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1782,7 +1821,7 @@ def phase_serve_cli(model, profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import generate, serve
 
-    log("[7/10] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
+    log("[7/11] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
         "paged, prefix cache, chunked admission, both over int8 pools, speculative paged; then generate, and "
         "the prefix paths against whole-prompt prefills")
     summaries = {}
@@ -2020,7 +2059,7 @@ def phase_closed_loop(profile_dir: Path | None = None):
     )
     from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
 
-    log(f"[8/10] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
+    log(f"[8/11] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
         f"DummyEnvs of {LOOP['image_size']}-px frames, state/action {LOOP['state_dim']}, {LOOP['max_steps']} "
         f"control ticks a run ({SPEC_LOOP_TICKS} speculative)")
     t0 = time.perf_counter()
@@ -2431,7 +2470,7 @@ def phase_surfaces() -> dict:
 
     from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
 
-    log(f"[9/10] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
+    log(f"[9/11] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
         f"from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters): checkpoints, "
         "eval_dataset, the legacy FastVLMPolicy, the LeRobot plugin, a config.json directory")
     out = ROOT / "build" / "surfaces_smoke"
@@ -2463,10 +2502,611 @@ def phase_surfaces() -> dict:
     return result
 
 
+# LoRA (phase 10): rank-16 adapters on the decoder's seven projections over a
+# frozen base (vla_fastvlm_tpu_torch/io/lora.py). (a) FastVLA-0.5B at
+# configs/train_aloha.yaml's settings through ``python -m
+# vla_fastvlm_tpu_torch.scripts.train --lora-rank 16``, MLP and token heads,
+# LORA_STEPS steps saving at the last; (b) FastVLA-7B, bf16 base and fp32
+# adapters, LORA_7B_STEPS steps through Trainer; (c) multi-LoRA serving through
+# the serve CLI's ``--lora-dir`` on phase 7's stream (FastVLM-0.5B, 1024 px);
+# (d) the speculative-paged server with target adapters at phase 6's
+# self-draft shape; (e) ``python -m vla_fastvlm_tpu_torch.scripts.merge_lora``
+# on (a)'s MLP checkpoint.
+LORA_RANK, LORA_STEPS, LORA_7B_STEPS = 16, 10, 3
+# LoRA train steps timed a path and turn (kernel, plain, plain, kernel).
+LORA_TIMED_STEPS = 8
+# The two seeded adapters of (c) and (d): B ~ N(0, 0.02^2), a delta of about
+# 8% of each projection's output at rank 16 (h = x A has unit variance).
+LORA_B_STD = 0.02
+# The merged policy's actions against the adapted policy's: in fp32 the fold
+# W + A B against x A B added at run time (summation order only); in bf16
+# (the policy's limit) for an adapter whose delta bf16 can hold in W.
+LORA_MERGE_REL_L2, LORA_MERGE_FP32_REL_L2 = POLICY_REL_L2, 1e-4
+
+
+def lora_policy(head="mlp", impl="auto", image=TRAIN_IMAGE, dtype="bfloat16", model=TRAIN_MODEL,
+                param_dtype="float32"):
+    """FastVLA with LoRA adapters of rank LORA_RANK at the yaml's settings, on the card."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
+
+    cfg = FastVLAConfig(
+        vlm_model_name=model, bootstrap_model_name=model, image_size=image, tokenizer_max_length=TEXT_LEN,
+        dtype=dtype, param_dtype=param_dtype, dropout=TRAIN_DROPOUT, attention_impl=impl, vision_block_impl=impl,
+        hidden_dim=1024, fusion_dim=1024, lora_rank=LORA_RANK, action_head=head, state_dim=ALOHA_DIM, action_dim=ALOHA_DIM, seed=SEED)
+    return (FastVLMTokenPolicy if head == "token" else FastVLAPolicy)(cfg, device=TRAIN_DEVICE)
+
+
+def lora_owner(policy):
+    """The object holding ``backbone`` and ``lora`` (and the MLP ``head``)."""
+    return policy.model if hasattr(policy, "model") else policy
+
+
+def copy_lora_weights(dst, src) -> None:
+    import torch
+
+    d, s = lora_owner(dst), lora_owner(src)
+    d.backbone.model.load_state_dict(s.backbone.model.state_dict())
+    if hasattr(d, "head"):
+        d.head.load_state_dict(s.head.state_dict())
+    with torch.no_grad():
+        for name, p in dst.params["lora"].items():
+            p.copy_(src.params["lora"][name])
+
+
+def seeded_b(policy_or_tree, seed: int):
+    """Set every B of a policy's adapters (or of an adapter tree) to N(0, LORA_B_STD^2) from ``seed``."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.io.bridge import flatten_params
+
+    flat = policy_or_tree.params["lora"] if hasattr(policy_or_tree, "params") else flatten_params(policy_or_tree)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for name in sorted(flat):
+            if name.endswith(".b"):
+                p = flat[name]
+                p.copy_(torch.randn(p.shape, generator=gen) * LORA_B_STD)
+    return policy_or_tree
+
+
+@contextlib.contextmanager
+def count_backwards():
+    """Counts the backward calls of the kernels' autograd Functions while
+    inside (they recompute through the plain versions, so no launch counter
+    sees them)."""
+    functions = {"flash_attention": importlib.import_module(
+                     "vla_fastvlm_tpu_torch.ops.kernels.flash_attention")._FlashAttention,
+                 "repmixer_block": importlib.import_module("vla_fastvlm_tpu_torch.ops.kernels.repmixer")._RepMixerBlock}
+    counts = dict.fromkeys(functions, 0)
+    originals = {name: fn.backward for name, fn in functions.items()}
+
+    def counter(name):
+        def counted(ctx, *grads):
+            counts[name] += 1
+            return originals[name](ctx, *grads)
+        return staticmethod(counted)
+
+    for name, fn in functions.items():
+        fn.backward = counter(name)
+    try:
+        yield counts
+    finally:
+        for name, fn in functions.items():
+            fn.backward = staticmethod(originals[name])
+
+
+def check_lora_launches(what: str, counts: dict, backwards: dict, steps: int, layers: int = DECODER_LAYERS) -> None:
+    """A LoRA train step: the decoder's forward and its remat recompute
+    launch flash (2 x layers), its backward recomputes through the plain
+    version (layers calls), the tower runs forward only (38 RepMixer, no
+    backward: nothing in it requires a gradient)."""
+    expect = {"flash_attention": 2 * layers * steps, "repmixer_block": REPMIXER_A_FORWARD * steps,
+              "paged_attention": 0, "paged_attention_window": 0}
+    expect_bw = {"flash_attention": layers * steps, "repmixer_block": 0}
+    log(f"  {what}: launches {counts}, kernel backward calls {backwards} (expected {expect}, {expect_bw})")
+    if counts != expect or backwards != expect_bw:
+        fail(f"{what}: launches {counts} / backward calls {backwards} != {expect} / {expect_bw}")
+
+
+def lora_train_cli(head: str, out: Path) -> dict:
+    """``python -m vla_fastvlm_tpu_torch.scripts.train --lora-rank 16`` in-process
+    at the yaml's settings (their values as flags: the card's machine may
+    lack ``yaml``) on synthetic records, LORA_STEPS steps saving at the last."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.io.lora import load_lora, lora_num_params
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts import train as train_cli
+    from vla_fastvlm_tpu_torch.utils import parse_cli
+
+    flags = ["--synthetic-data", "--synthetic-samples", str(LORA_STEPS * TRAIN_BATCH), "--synthetic-image-size",
+             str(TRAIN_FRAME_HW[0]), "--model-id", TRAIN_MODEL, "--bootstrap-model-id", TRAIN_MODEL,
+             "--batch-size", str(TRAIN_BATCH), "--image-size", str(TRAIN_IMAGE), "--dtype", "bfloat16",
+             "--hidden-dim", "1024", "--fusion-dim", "1024", "--dropout", str(TRAIN_DROPOUT),
+             "--tokenizer-max-length", str(TEXT_LEN), "--learning-rate", str(TRAIN_LR), "--weight-decay",
+             str(TRAIN_WD), "--max-steps", str(LORA_STEPS), "--save-steps", str(LORA_STEPS), "--logging-steps", "1",
+             "--eval-split", "none", "--num-workers", "2", "--lora-rank", str(LORA_RANK), "--action-head", head,
+             "--output-dir", str(out), "--device", TRAIN_DEVICE, "--seed", str(TRAIN_SEED)]
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with count_backwards() as backwards:
+        train_cli.main(parse_cli(train_cli.TrainArgs, flags))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check_lora_launches(f"{head} head: scripts.train --lora-rank {LORA_RANK}, {LORA_STEPS} steps", launch_counts(),
+                        dict(backwards), LORA_STEPS)
+    lines = read_metrics(out)
+    ckpt = out / "checkpoints" / f"step-{LORA_STEPS}"
+    if [ln["step"] for ln in lines] != list(range(1, LORA_STEPS + 1)) or not ckpt.is_dir():
+        fail(f"{head} head LoRA training: logged steps {[ln['step'] for ln in lines]}, checkpoint {ckpt.is_dir()}")
+    adapters = lora_num_params(load_lora(ckpt))
+    log(f"  {head} head: loss {lines[0]['train/loss']:.4f} -> {lines[-1]['train/loss']:.4f}, grad norm "
+        f"{lines[-1]['train/grad_norm']:.4f}; {adapters / 1e6:.2f} M adapter parameters; {seconds:.1f} s with the "
+        f"build; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return dict(first_loss=lines[0]["train/loss"], last_loss=lines[-1]["train/loss"], adapter_params=adapters,
+                seconds=seconds, checkpoint=str(ckpt))
+
+
+def lora_train_checks(head: str, ckpt: Path, records, profile_dir: Path | None) -> dict:
+    """One head's LoRA step: the first updates on fresh adapters, the kernel
+    path against the plain path (bf16 at the yaml's batch, fp32 at batch 2 /
+    256 px), launches a step, peak memory, and the p50 step of both paths."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.io.checkpoint import load_policy_from_checkpoint
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.training import Trainer
+
+    result = {}
+    batch8 = aloha_batch(records[:TRAIN_BATCH])
+
+    # Fresh adapters (B = 0): step 1 moves B; A, whose gradient is zero while
+    # B is, moves at step 2; the base stays bit-equal.
+    fresh = lora_policy(head)
+    arrays8 = fresh.to_device(fresh.prepare_batch(batch8))
+    lora = fresh.params["lora"]
+    a0 = {n: p.detach().clone() for n, p in lora.items() if n.endswith(".a")}
+    base0 = {n: p.detach().clone() for n, p in fresh.params["backbone"].items()}
+    # No warmup (the first update at the full rate) and no weight decay.
+    trainer = Trainer(fresh, [], None, train_config(ROOT / "build", max_steps=LORA_STEPS, warmup_ratio=0.0,
+                                                    weight_decay=0.0))
+    trainer._train_step(arrays8)
+    b_zero = [n for n, p in lora.items() if n.endswith(".b") and not bool(p.any())]
+    a_moved1 = sum(not torch.equal(p, a0[n]) for n, p in lora.items() if n in a0)
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with count_backwards() as backwards:
+        trainer._train_step(arrays8)
+    torch.cuda.synchronize()
+    result["step_peak_gib"] = (torch.cuda.max_memory_allocated() - held) / 2**30
+    check_lora_launches(f"{head} head, one LoRA step", launch_counts(), dict(backwards), 1)
+    a_moved2 = sum(not torch.equal(p, a0[n]) for n, p in lora.items() if n in a0)
+    base_same = all(torch.equal(p, base0[n]) for n, p in fresh.params["backbone"].items())
+    log(f"  {head} head, fresh adapters: after step 1 {len(b_zero)} of {len(a0)} B all zero, {a_moved1} A moved "
+        f"(no weight decay: their gradient is zero while B is); after step 2 {a_moved2} of {len(a0)} A moved; "
+        f"{len(base0)} base tensors bit-equal: {base_same}; a step's own peak {result['step_peak_gib']:.2f} GiB")
+    if b_zero or a_moved1 or a_moved2 != len(a0) or not base_same:
+        fail(f"{head} head fresh adapters: B zero {b_zero[:3]}, A moved {a_moved1} then {a_moved2}, base {base_same}")
+    del trainer, fresh, base0
+    torch.cuda.empty_cache()
+
+    # The trained adapters of the CLI run: kernel path against plain path.
+    loaded, _ = load_policy_from_checkpoint(ckpt, device=TRAIN_DEVICE)
+    plain = lora_policy(head, "xla")
+    copy_lora_weights(plain, loaded)
+    arrays8 = loaded.to_device(loaded.prepare_batch(batch8))
+    limits = {"loss": TRAIN_REL_L2, "grad_norm": TRAIN_REL_L2, "lora grads": TRAIN_REL_L2}
+    if head == "mlp":
+        limits["head grads"] = TRAIN_REL_L2
+    result["bf16"] = compare_paths(f"{head} head, bf16 LoRA step", step_grads(loaded, arrays8),
+                                   step_grads(plain, arrays8), limits)
+    kf = seeded_b(lora_policy(head, image=TRAIN_FP32["image"], dtype="float32"), SEED + 3)
+    pf = lora_policy(head, "xla", image=TRAIN_FP32["image"], dtype="float32")
+    copy_lora_weights(pf, kf)
+    arrays2 = kf.to_device(kf.prepare_batch(aloha_batch(records[:TRAIN_FP32["batch"]])))
+    result["fp32"] = compare_paths(
+        f"{head} head, fp32 LoRA step, batch {TRAIN_FP32['batch']}, {TRAIN_FP32['image']} px",
+        step_grads(kf, arrays2), step_grads(pf, arrays2), {"loss": TRAIN_FP32_REL_L2, "leaf": TRAIN_FP32_REL_L2})
+    del kf, pf
+    torch.cuda.empty_cache()
+    result["steps"] = time_train_steps(f"LoRA {head} head, batch {TRAIN_BATCH}, {TRAIN_IMAGE} px",
+                                       step_trainers(loaded, plain), arrays8, TRAIN_BATCH, profile_dir,
+                                       LORA_TIMED_STEPS)
+    del loaded, plain
+    torch.cuda.empty_cache()
+    return result
+
+
+def lora_train_7b(records, profile_dir: Path | None) -> dict:
+    """FastVLA-7B with rank-16 adapters: bf16 base, fp32 adapters, the yaml's batch."""
+    import math
+
+    import torch
+
+    from vla_fastvlm_tpu_torch.io.lora import lora_num_params
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.training import Trainer
+
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    policy = lora_policy(model="fastvlm-7b", param_dtype="bfloat16")
+    lora = policy.params["lora"]
+    adapters = lora_num_params(lora_owner(policy).lora)
+    base = policy.params["backbone"]
+    probe = {n: base[n].detach().clone() for n in list(base)[::40]}
+    trainer = Trainer(policy, [], None, train_config(ROOT / "build", max_steps=LORA_7B_STEPS, warmup_ratio=0.0))
+    arrays = policy.to_device(policy.prepare_batch(aloha_batch(records[:TRAIN_BATCH])))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, losses = [], []
+    with count_backwards() as backwards:
+        for _ in range(LORA_7B_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer._train_step(arrays)["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    check_lora_launches(f"FastVLA-7B LoRA, {LORA_7B_STEPS} steps", launch_counts(), dict(backwards), LORA_7B_STEPS,
+                        TARGET_LAYERS)
+    b_any = all(bool(p.any()) for n, p in lora.items() if n.endswith(".b"))
+    base_same = all(torch.equal(base[n], v) for n, v in probe.items())
+    dtypes = sorted({str(p.dtype) for p in lora.values()}), sorted({str(p.dtype) for p in base.values()})
+    result = dict(adapter_params=adapters, base_params=sum(p.numel() for p in base.values()), build_s=build_s,
+                  p50_step_ms=statistics.median(times), step_ms=times, losses=losses, peak_gib=peak,
+                  adapter_dtypes=dtypes[0], base_dtypes=dtypes[1])
+    log(f"  FastVLA-7B LoRA: {adapters / 1e6:.2f} M adapter parameters ({dtypes[0]}) over "
+        f"{result['base_params'] / 1e9:.2f} B base ({dtypes[1]}); steps {[round(t, 1) for t in times]} ms "
+        f"(p50 {result['p50_step_ms']:.1f}, the first includes warm-up), losses {[round(x, 4) for x in losses]}; "
+        f"peak memory of the policy and its steps {peak:.2f} GiB; every B non-zero {b_any}, {len(probe)} sampled "
+        f"base tensors bit-equal {base_same}; built in {build_s:.1f} s")
+    if not (b_any and base_same) or not all(map(math.isfinite, losses)):
+        fail(f"FastVLA-7B LoRA: B non-zero {b_any}, base bit-equal {base_same}, losses {losses}")
+    if profile_dir is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer._train_step(arrays)
+            torch.cuda.synchronize()
+        (profile_dir / "train_lora_7b_profile.txt").write_text(
+            prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+        result["device_ms_by_part"] = step_parts(prof, 1)
+        log(f"  FastVLA-7B LoRA step device time by part: {json.dumps(result['device_ms_by_part'])}")
+    del trainer, policy, probe
+    torch.cuda.empty_cache()
+    return result
+
+
+def lora_adapter_dirs(trained: Path, out: Path) -> list:
+    """(c)'s three adapter directories: the MLP head's trained checkpoint and
+    two policy-checkpoint directories holding only a ``"lora"`` tree of the
+    trained adapter's shapes with seeded B (A kept)."""
+    from vla_fastvlm_tpu_torch.io.bridge import torch_lora_to_jax
+    from vla_fastvlm_tpu_torch.io.checkpoint import save_policy_checkpoint
+    from vla_fastvlm_tpu_torch.io.lora import load_lora
+
+    dirs = [str(trained)]
+    for i in (1, 2):
+        tree = seeded_b(load_lora(trained), SEED + 10 + i)
+        save_policy_checkpoint(out / f"adapter_{i}", {"lora_rank": LORA_RANK},
+                               {"lora": torch_lora_to_jax(tree, as_numpy=False)})
+        dirs.append(str(out / f"adapter_{i}"))
+    return dirs
+
+
+def tick_profile(server, ticks: int = 3) -> dict:
+    """Device launches and device time a decode tick, and the host p50 tick,
+    over ``ticks`` profiled ticks and 5 timed ones from the server's state."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            server.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        server.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(launches_per_tick=sum(e.count for e in kernels) / ticks,
+                device_ms_per_tick=sum(e.self_device_time_total for e in kernels) / 1e3 / ticks,
+                p50_tick_ms=statistics.median(times))
+
+
+def lora_serving_checks(model, adapters: list) -> dict:
+    """On the paged server of ``model`` at the SERVE shape: adapted tick
+    logits kernel against gathered, launches and time a tick against no
+    adapters, first-token logits of the multi-LoRA server against a
+    single-adapter server per row, prefix-cache hits by adapter."""
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
+
+    reqs = serve_stream()
+    routes = [None if i % 4 == 0 else i % 4 - 1 for i in range(len(reqs))]
+    result = {}
+
+    def new(lora, **kw):
+        return PagedGenerationServer(model, eos_token_id=-1, temperature=0.0, seed=SEED, decode_impl="kernel",
+                                     lora=lora, **dict(SERVE, **kw))
+
+    for name, lora in (("multi_lora", adapters), ("no_lora", None)):
+        server = new(lora)
+        for req, route in zip(reqs[: SERVE["num_slots"]], routes):
+            server.submit(*req, **({} if lora is None else {"lora_index": route}))
+        for _ in range(8):
+            server.step()
+        if lora is not None:
+            kernel, gathered = server.tick_logits("kernel").float(), server.tick_logits("gathered").float()
+            rel = float((kernel - gathered).norm() / gathered.norm())
+            log(f"  multi-LoRA kernel vs gathered tick logits, 64 slots over base + 3 adapters: rel_l2={rel:.3e} "
+                f"(limit {SERVE_LOGITS_REL_L2:g})")
+            if not rel <= SERVE_LOGITS_REL_L2:
+                fail(f"multi-LoRA kernel tick differs from the gathered tick: rel_l2={rel:.3e}")
+            result["tick_logits_rel_l2"] = rel
+        result[name] = tick_profile(server)
+        log(f"  {name}, 64 active slots: {json.dumps(result[name])}")
+        del server
+        torch.cuda.empty_cache()
+
+    # First-token logits (the prefix cache's entry for each prompt) of one
+    # multi-LoRA server against a single-adapter server per adapter.
+    few, few_routes = reqs[:8], [None, 0, 1, 2, 0, 1, 2, None]
+    kw = dict(num_slots=8, prefill_batch=8, prefix_cache_size=8, max_new_tokens=4)
+    multi = new(adapters, **kw)
+    for req, route in zip(few, few_routes):
+        multi.submit(*req, lora_index=route)
+    multi.flush()
+    errs = []
+    for route, lora in [(None, None)] + list(enumerate(adapters)):
+        single = new(lora, **kw)
+        rows = [i for i, r in enumerate(few_routes) if r == route]
+        for i in rows:
+            single.submit(*few[i])
+        single.flush()
+        for i in rows:
+            lidx = 0 if route is None else route + 1
+            got = multi._prefix_cache[multi._prompt_hashes(*few[i], lidx)[0]]["logits"]
+            ref = single._prefix_cache[single._prompt_hashes(*few[i])[0]]["logits"]
+            errs.append(rel_rows(got[None], ref[None]))
+        single.evict_prefix_cache()
+        del single
+    result["first_token_rel_l2"] = max(errs)
+    log(f"  first-token logits, multi-LoRA server against a single-adapter server per row: worst rel_l2 "
+        f"{max(errs):.3e} over {len(errs)} rows (limit {SERVE_LOGITS_REL_L2:g})")
+    if not max(errs) <= SERVE_LOGITS_REL_L2:
+        fail(f"multi-LoRA first-token logits differ from single-adapter ones: rel_l2={max(errs):.3e}")
+
+    # The same prompt under adapter 0, adapter 1, adapter 0: miss, miss, hit.
+    cache_server = new(adapters, **kw)
+    for route in (0, 1, 0):
+        cache_server.submit(*reqs[-1], lora_index=route)
+        cache_server.flush()
+    counts = (cache_server.prefix_cache_hits, cache_server.prefix_cache_partial_hits, cache_server.prefix_cache_misses)
+    log(f"  one prompt under adapters 0, 1, 0: (hits, partial hits, misses) = {counts}")
+    if counts != (1, 0, 2):
+        fail(f"prefix cache by adapter: (hits, partial, misses) = {counts}, expected (1, 0, 2)")
+    for server in (multi, cache_server):
+        server.run_to_completion()
+        server.evict_prefix_cache()
+        if server.pool.free_pages != server.pool.num_pages - 1:
+            fail(f"multi-LoRA server: {server.pool.free_pages} of {server.pool.num_pages - 1} pages back")
+    return result
+
+
+def lora_speculative(model, adapters: list, profile_dir: Path | None) -> dict:
+    """The speculative-paged server, FastVLM-0.5B as its own draft at the
+    SPEC shape, target adapters on base + 3 adapters round-robin."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.serving import SpeculativePagedGenerationServer
+
+    def new():
+        return SpeculativePagedGenerationServer(model, model, eos_token_id=-1, temperature=0.0, seed=SEED,
+                                                decode_impl="kernel", lora=adapters, **SPEC)
+
+    reqs = serve_stream()[:SELF_DRAFT_REQUESTS]
+    routes = [None if i % 4 == 0 else i % 4 - 1 for i in range(len(reqs))]
+    server = new()
+    for req, route in zip(reqs, routes):
+        server.submit(*req, lora_index=route)
+    for _ in range(3):
+        server.step()
+    kernel, gathered = server.verify_logits("kernel").float(), server.verify_logits("gathered").float()
+    rel = float((kernel - gathered).norm() / gathered.norm())
+    log(f"  speculative paged with target adapters: kernel vs gathered verify logits rel_l2={rel:.3e} "
+        f"(limit {SERVE_LOGITS_REL_L2:g})")
+    if not rel <= SERVE_LOGITS_REL_L2:
+        fail(f"adapted kernel verify differs from the gathered verify: rel_l2={rel:.3e}")
+    del server
+    torch.cuda.empty_cache()
+    server = new()
+    reset_launch_counts()
+    finished, summary = run_stream(server, reqs, None if profile_dir is None else profile_dir / "spec_lora_rounds.txt",
+                                   SPEC["num_slots"], SPEC_ARRIVALS, lora_routes=routes)
+    counts = launch_counts()
+    check_answers("spec-paged LoRA", server, finished, len(reqs), SPEC["max_new_tokens"])
+    expect = {"flash_attention": 0, "repmixer_block": 2 * 38 * server.admissions, "paged_attention": 0,
+              "paged_attention_window": DECODER_LAYERS * server.spec_ticks}
+    log(f"  speculative paged with target adapters: {json.dumps(summary)}; launches {counts}")
+    if counts != expect:
+        fail(f"spec-paged LoRA: launch counts {counts} != {expect}")
+    summary["verify_logits_rel_l2"] = rel
+    return summary
+
+
+def phase_lora(profile_dir: Path | None = None, base_cli: dict | None = None, self_draft: dict | None = None) -> dict:
+    """Phase 10. ``base_cli``: phase 7's summaries of the same CLI runs
+    without adapters (run here when not given); ``self_draft``: phase 6's
+    self-draft run without adapters, for the acceptance."""
+    import shutil
+
+    import torch
+
+    from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
+    from vla_fastvlm_tpu_torch.io.checkpoint import save_policy_checkpoint
+    from vla_fastvlm_tpu_torch.io.lora import load_lora
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts import serve
+
+    log(f"[10/11] LoRA: rank {LORA_RANK} on the decoder's 7 projections, frozen base: FastVLA-0.5B training at "
+        f"configs/train_aloha.yaml's settings (MLP and token heads), FastVLA-7B training, multi-LoRA serving "
+        f"(FastVLM-0.5B, 1024 px), speculative paged with target adapters, merge_lora")
+    out = ROOT / "build" / "lora_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    records = SyntheticAlohaSource(num_samples=TRAIN_BATCH, image_hw=TRAIN_FRAME_HW, seed=SEED)
+    result = {}
+    try:
+        for head in ("mlp", "token"):
+            result[f"{head}_cli"] = lora_train_cli(head, out / head)
+            torch.cuda.empty_cache()
+            lap(f"{head} cli")
+            result[f"{head}_steps"] = lora_train_checks(head, Path(result[f"{head}_cli"]["checkpoint"]), records,
+                                                        profile_dir)
+            lap(f"{head} checks")
+        result["7b"] = lora_train_7b(records, profile_dir)
+        lap("7b")
+
+        # (e) merge_lora on the MLP head's checkpoint, and on the same
+        # checkpoint with seeded B (an adapter above bf16's resolution of W).
+        ckpt = Path(result["mlp_cli"]["checkpoint"])
+        batch8 = aloha_batch(records[:TRAIN_BATCH])
+        obs = (batch8["images"], batch8["states"], batch8["tasks"])
+        result["merge_trained"] = merge_check(ckpt, out / "merged", obs, "trained adapter", bf16_limit=None)
+        seeded = seeded_b(policy_as(ckpt, "bfloat16"), SEED + 20)
+        save_policy_checkpoint(out / "seeded", seeded.config, seeded.jax_params(as_numpy=False))
+        del seeded
+        result["merge_seeded"] = merge_check(out / "seeded", out / "merged_seeded", obs, "seeded adapter",
+                                             bf16_limit=LORA_MERGE_REL_L2)
+        torch.cuda.empty_cache()
+        lap("merge")
+
+        # (c) multi-LoRA serving, (d) speculative paged with target adapters.
+        dirs = lora_adapter_dirs(ckpt, out)
+        cli = {}
+        runs = [("paged", {}), ("paged_prefix", dict(prefix_cache=16, repeat_fraction=0.5))]
+        for name, extra in runs:
+            for adapted_run in (True, False):
+                if not adapted_run and base_cli is not None and name in base_cli:
+                    cli[name] = base_cli[name]
+                    continue
+                args = serve.ServeArgs(**dict(SERVE_CLI, **extra, lora_dir=tuple(dirs) if adapted_run else ()))
+                reset_launch_counts()
+                summary = serve.main(args)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                label = f"{name}_lora" if adapted_run else name
+                check_cli_run(label, args, summary, counts)
+                if adapted_run and summary.get("lora_adapters") != 3:
+                    fail(f"serve_cli {label}: lora_adapters {summary.get('lora_adapters')}")
+                summary["launches"] = counts
+                cli[label] = summary
+                torch.cuda.empty_cache()
+        result["serve_cli"] = cli
+        for name, _ in runs:
+            a, b = cli[f"{name}_lora"], cli[name]
+            log(f"  serve_cli {name} --lora-dir x3 against no adapters: tokens/s {a['tokens_per_sec']:.1f} vs "
+                f"{b['tokens_per_sec']:.1f}, p50 tick {a['p50_tick_ms']:.2f} vs {b['p50_tick_ms']:.2f} ms, max tick "
+                f"{a['max_tick_ms']:.2f} vs {b['max_tick_ms']:.2f} ms, p50 decode tick {a['p50_decode_tick_ms']:.2f} "
+                f"vs {b['p50_decode_tick_ms']:.2f} ms, ticks {a['ticks']} vs {b['ticks']}"
+                + ("" if "prefix_cache_hits" not in a else
+                   f", hits / partial / misses {a['prefix_cache_hits']} / {a['prefix_cache_partial_hits']} / "
+                   f"{a['prefix_cache_misses']} vs {b['prefix_cache_hits']} / {b['prefix_cache_partial_hits']} / "
+                   f"{b['prefix_cache_misses']}"))
+        lap("serve cli")
+        model = serving_backbone().model
+        adapters = [load_lora(d) for d in dirs]
+        result["serving"] = lora_serving_checks(model, adapters)
+        lap("serving checks")
+        result["spec_paged"] = lora_speculative(model, adapters, profile_dir)
+        base_tps = None if self_draft is None else self_draft["tokens_per_slot_round"]
+        log(f"  speculative paged acceptance: {result['spec_paged']['tokens_per_slot_round']:.3f} tokens per slot and "
+            f"round with target adapters on 3 of 4 rows (the draft is the base)"
+            + ("" if base_tps is None else f", against {base_tps:.3f} for phase 6's self-draft without adapters"))
+        del model
+        torch.cuda.empty_cache()
+        lap("speculative")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    result["card"] = card_line()
+    log(f"  seconds by part: {laps}; card: {result['card']}")
+    log(json.dumps({"lora": result}))
+    return result
+
+
+def policy_as(ckpt: Path, dtype: str):
+    """A FastVLA MLP checkpoint's policy on the card, computing in ``dtype``
+    (its parameters as the checkpoint holds them)."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
+    from vla_fastvlm_tpu_torch.io.checkpoint import load_policy_state
+
+    config, params = load_policy_state(ckpt)
+    known = {f.name for f in dataclasses.fields(FastVLAConfig)}
+    policy = FastVLAPolicy(FastVLAConfig(**dict({k: v for k, v in config.items() if k in known}, dtype=dtype)),
+                           device=TRAIN_DEVICE)
+    policy.load_jax_params(params)
+    return policy
+
+
+def merge_check(ckpt: Path, out: Path, obs, label: str, bf16_limit) -> dict:
+    """``python -m vla_fastvlm_tpu_torch.scripts.merge_lora`` on the card, then
+    the merged policy's actions against the adapted policy's, and the base's
+    (adapters unmounted) for scale, computing in fp32 and in bf16. In fp32
+    the merged policy must be within LORA_MERGE_FP32_REL_L2 and closer than
+    the base; in bf16 the same at ``bf16_limit`` where given (else printed). In bf16 the merged
+    kernels are ``bf16(W + A B)``: a delta under half an ulp of W is rounded
+    away where the adapted path adds ``x A B`` at the activations' scale."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts import merge_lora
+
+    summary = merge_lora.main(merge_lora.MergeArgs(checkpoint=str(ckpt), output=str(out)))
+    result = dict(summary)
+    for dtype in ("float32", "bfloat16"):
+        adapted, merged = policy_as(ckpt, dtype), policy_as(out, dtype)
+        if merged.config.lora_rank != 0 or merged.model.lora is not None:
+            fail(f"merge_lora {label}: the merged checkpoint mounts adapters (lora_rank {merged.config.lora_rank})")
+        reset_launch_counts()
+        got, ref = merged.forward(*obs), adapted.forward(*obs)
+        torch.cuda.synchronize()
+        check_surface_launches(f"merge_lora {label}, {dtype}: merged and adapted forwards", launch_counts(), 2)
+        adapted.model.lora = None
+        base = adapted.forward(*obs)
+        err, base_err = rel_l2(got, ref), rel_l2(base, ref)
+        result[dtype] = dict(merged_vs_adapted=err, base_vs_adapted=base_err)
+        limit = LORA_MERGE_FP32_REL_L2 if dtype == "float32" else bf16_limit
+        log(f"  merge_lora {label}, {dtype}: merged against adapted actions rel_l2 {err:.3e} (limit "
+            f"{'none' if limit is None else f'{limit:g}'}); the base is {base_err:.3e} away")
+        if limit is not None and not (err <= limit and err < base_err):
+            fail(f"merge_lora {label}, {dtype}: merged actions rel_l2 {err:.3e} (the base {base_err:.3e})")
+        del adapted, merged
+        torch.cuda.empty_cache()
+    log(f"  merge_lora {label}: {json.dumps(summary)}")
+    return result
+
+
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[10/10] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[11/11] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -2764,7 +3404,8 @@ def main(argv=None) -> int:
                         help="directory for torch.profiler tables of three policy steps (kernel and plain "
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
-    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve", "surfaces"],
+    parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve", "surfaces",
+                                           "lora"],
                         default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
@@ -2775,7 +3416,8 @@ def main(argv=None) -> int:
                              "flash and RepMixer libraries and the training phase; closed_loop: the four "
                              "libraries, their checks and the closed-loop phase; serve: the RepMixer and paged "
                              "libraries, their checks and the serving-CLI phase; surfaces: the flash and RepMixer "
-                             "libraries, their checks and the surfaces phase)")
+                             "libraries, their checks and the surfaces phase; lora: the four libraries, their checks "
+                             "and the LoRA phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -2794,9 +3436,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/10] flash-attention kernel against its plain version")
+        log("[2/11] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[10/10] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[11/11] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2805,9 +3447,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/10] RepMixer kernel against its plain version")
+        log("[2/11] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[10/10] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[11/11] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -2815,7 +3457,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "train":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/10] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/11] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         if args.profile is not None:
@@ -2841,7 +3483,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "serve":
         phase_build(("repmixer", "paged_attention", "paged_window"))
-        log("[2/10] RepMixer and paged-attention kernels against their plain versions")
+        log("[2/11] RepMixer and paged-attention kernels against their plain versions")
         check_repmixer()
         check_paged()
         if args.profile is not None:
@@ -2855,7 +3497,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "surfaces":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/10] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/11] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         phase_surfaces()
@@ -2865,11 +3507,23 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if args.only == "lora":
+        phase_build()
+        phase_kernels()
+        if args.profile is not None:
+            args.profile.mkdir(parents=True, exist_ok=True)
+        phase_lora(args.profile)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/10] paged-attention kernels against their plain versions")
+        log("[2/11] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[10/10] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[11/11] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -2899,6 +3553,9 @@ def main(argv=None) -> int:
     loop_summaries = timed("closed_loop", phase_closed_loop, args.profile)
     torch.cuda.empty_cache()
     timed("surfaces", phase_surfaces)
+    torch.cuda.empty_cache()
+    timed("lora", phase_lora, args.profile, cli_summaries, spec_summaries.get("self_draft"))
+    torch.cuda.empty_cache()
     timings = timed("timing", phase_timing, policy, plain, step)
     log(f"seconds per phase: {phase_s}")
     if args.profile is not None:

@@ -73,6 +73,23 @@ def tiny_vlm_pair(seed, kvq="none", mode="prefix", embed_scale=0.1, prompt=8):
     return jm, params, tm.eval().requires_grad_(False)
 
 
+def jax_adapter(params, rank, seed, scale=0.05):
+    """A JAX LoRA adapter tree for the tiny FastVLM's ``params``
+    (``vla_fastvlm_tpu/io/lora.py::init_lora``'s structure, from a trace)
+    with seeded numpy values: A at JAX's init scale, B non-zero."""
+    from vla_fastvlm_tpu.io.lora import init_lora
+
+    shapes = jax.eval_shape(lambda: init_lora({"language_model": params["language_model"]}, rank,
+                                              jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        std = 1 / np.sqrt(leaf.shape[-2]) if path[-1].key == "a" else scale
+        return (rng.standard_normal(leaf.shape) * std).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
 def rel_l2(a, b) -> float:
     """||a - b|| / ||b|| over numpy-convertible arrays."""
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)

@@ -219,8 +219,9 @@ class TestSurface:
         assert set(full.jax_params()) == {"backbone"}
 
     def test_refusals(self):
-        with pytest.raises(NotImplementedError, match="LoRA"):
-            FastVLMTokenPolicy(FastVLAConfig(**TINY, lora_rank=4), device="cpu")
+        with pytest.raises(ValueError, match="contradictory"):  # LoRA over a base that trains too
+            FastVLMTokenPolicy(FastVLAConfig(**TINY, lora_rank=4, train_backbone=True, freeze_backbone=False),
+                               device="cpu")
         with pytest.raises(ValueError, match="action_head='token'"):
             FastVLMTokenPolicy(FastVLAConfig(**dict(TINY, action_head="mlp")), device="cpu")
         with pytest.raises(ValueError, match="FastVLMTokenPolicy"):
@@ -286,8 +287,11 @@ class TestTrainScript:
 
         with pytest.raises(ValueError, match="no head parameters"):
             main(parse_cli(TrainArgs, self.FLAGS + ["--output-dir", str(tmp_path / "a")]))
-        with pytest.raises(NotImplementedError, match="LoRA"):
-            main(parse_cli(TrainArgs, self.FLAGS + ["--output-dir", str(tmp_path / "b"), "--lora-rank", "4"]))
+        # --lora-rank trains the adapters alone over the frozen base.
+        main(parse_cli(TrainArgs, self.FLAGS + ["--output-dir", str(tmp_path / "b"), "--lora-rank", "4"]))
+        adapted, _ = tckpt.load_policy_from_checkpoint(tmp_path / "b" / "checkpoints" / "step-2", device="cpu")
+        assert adapted.config.lora_rank == 4 and set(adapted.trainable_params()) == {"lora"}
+        assert any(p.any() for n, p in adapted.params["lora"].items() if n.endswith(".b"))
         main(parse_cli(TrainArgs, self.FLAGS + ["--output-dir", str(tmp_path / "c"), "--train-backbone"]))
         lines = [json.loads(ln) for ln in (tmp_path / "c" / "logs" / "metrics.jsonl").read_text().splitlines()]
         assert [ln["step"] for ln in lines if "train/loss" in ln] == [1, 2]

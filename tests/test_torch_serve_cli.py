@@ -126,6 +126,10 @@ def test_generate_text_matches_jax_script(same_weights, capsys):
 def test_unported_flags_raise(script, kw):
     module = {"serve": t_serve, "generate": t_generate}[script]
     args = module.ServeArgs if script == "serve" else module.GenerateArgs
+    if "lora_dir" in kw:  # ported: a --lora-dir that is no policy checkpoint is refused
+        with pytest.raises(FileNotFoundError, match="policy_config.json"):
+            module.main(args(model_id="fastvlm-tiny", device="cpu", **kw))
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         module.main(args(model_id="fastvlm-tiny", device="cpu", **kw))
 

@@ -5,7 +5,8 @@ Greedy tokens of ``serving.generate`` and of ``PagedGenerationServer``
 ``generate`` and JAX ``PagedGenerationServer`` on the tiny FastVLM with the
 same weights (bridged), fp32; ``warp_logits`` and greedy ``sample_tokens``
 against JAX; the page pool's bookkeeping; the options not ported yet (a mesh,
-LoRA). Prefix caching and chunked admission: ``test_torch_prefix_cache.py``,
+LoRA refusals: a mesh; an empty adapter list, a ``lora_index`` without
+multi-LoRA). Prefix caching and chunked admission: ``test_torch_prefix_cache.py``,
 ``test_torch_chunked_prefill.py``.
 
 Greedy tokens are compared exactly: both sides compute the same fp32 logits
@@ -185,9 +186,11 @@ class TestPool:
 
 
 class TestServerOptions:
-    @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(lora={})])
-    def test_unported_options_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    @pytest.mark.parametrize("kw,error", [pytest.param(dict(mesh=object()), (NotImplementedError, "not ported"), id="kw0"),
+                                          pytest.param(dict(lora=[]), (ValueError, "at least one adapter"), id="kw1")])
+    def test_unported_options_raise(self, kw, error):
+        """A mesh is not ported; LoRA is, and an empty adapter list is refused."""
+        with pytest.raises(error[0], match=error[1]):
             PagedGenerationServer(t_vlm.FastVLM(t_vlm.fastvlm_tiny()), num_slots=1, prompt_len=4, **kw)
 
     def test_bad_decode_impl_and_lora_index(self):
@@ -196,7 +199,7 @@ class TestServerOptions:
             PagedGenerationServer(model, decode_impl="pallas")
         server = PagedGenerationServer(model, num_slots=1, prompt_len=4, max_new_tokens=2)
         assert server.decode_impl == "kernel"
-        with pytest.raises(NotImplementedError, match="LoRA"):
+        with pytest.raises(ValueError, match="LIST of adapters"):  # lora_index needs a multi-LoRA server
             server.submit(np.ones((1, 4), np.int32), np.ones((1, 4), np.int32), lora_index=0)
 
 

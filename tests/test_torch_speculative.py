@@ -240,10 +240,12 @@ class TestRefusals:
         server = SpeculativeGenerationServer(pair["tt"], pair["td"], k=2, num_slots=1, prompt_len=PROMPT)
         with pytest.raises(NotImplementedError, match="step_n"):
             server.step_n(4)
-        for kw in (dict(mesh=object()), dict(lora={})):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                GenerationServer(pair["tt"], num_slots=1, prompt_len=4, **kw)
-        with pytest.raises(NotImplementedError, match="LoRA"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            GenerationServer(pair["tt"], num_slots=1, prompt_len=4, mesh=object())
+        # An empty adapter tree mounts nothing; lora_index needs multi-LoRA.
+        assert SpeculativeGenerationServer(pair["tt"], pair["td"], k=2, num_slots=1, prompt_len=PROMPT,
+                                           lora={})._lora == {}
+        with pytest.raises(ValueError, match="LIST of adapters"):
             GenerationServer(pair["tt"], num_slots=1, prompt_len=4).submit(
                 np.ones((1, 4), np.int32), np.ones((1, 4), np.int32), lora_index=0)
 

@@ -208,7 +208,7 @@ class TestRefusals:
         with pytest.raises(NotImplementedError, match="step_n"):
             server.step_n(4)
 
-    @pytest.mark.parametrize("kw", [dict(lora={})])
+    @pytest.mark.parametrize("kw", [dict(mesh=object())])
     def test_unported_parent_options_raise(self, kw):
         target = t_vlm.FastVLM(t_vlm.fastvlm_tiny())
         with pytest.raises(NotImplementedError, match="not ported"):

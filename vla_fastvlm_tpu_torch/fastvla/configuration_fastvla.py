@@ -5,9 +5,10 @@ the same ``to_backbone_config()`` translation. ``train_backbone`` and
 ``gradient_checkpointing or train_backbone or lora_rank > 0``, so
 ``train_backbone`` alone rematerializes the decoder blocks. ``action_head``
 is "mlp" (``FastVLAPolicy``) or "token" (``FastVLMTokenPolicy``, actions
-decoded as tokens through the VLM's own lm_head). Fields of paths that are
-not ported yet (quantization, LoRA) are kept for config parity and rejected
-by the policies when set.
+decoded as tokens through the VLM's own lm_head). ``lora_rank`` > 0 (with
+``lora_alpha``) mounts LoRA adapters on the decoder (``io/lora.py``). The
+fields of weight quantization, not ported yet, are kept for config parity
+and rejected when set.
 """
 
 from __future__ import annotations

@@ -13,6 +13,13 @@ the backbone's device. ``params`` is the JAX package's split of them,
 ``{"backbone": {name: parameter}, "head": {...}}``, and
 ``trainable_params()`` the sub-tree the optimizer updates: the head, or
 everything with ``train_backbone`` and not ``freeze_backbone``.
+
+With ``lora_rank > 0`` LoRA adapters (``io/lora.py``, seeded from
+``seed + 2``) mount on the decoder's projections: ``params`` and the
+trainable sub-tree gain ``"lora"`` (flat names of the adapter tree), which
+trains with the head while the base stays frozen, and the JAX layout
+carries the JAX package's ``"lora"`` tree. Combined with full backbone
+training it raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,16 +29,29 @@ from typing import Dict, List, Mapping, Optional
 import torch
 
 from ..device import DeviceLike, resolve_dtype
-from ..io.bridge import jax_params_to_torch, torch_params_to_jax
+from ..io.bridge import flatten_params, jax_params_to_torch, torch_lora_to_jax, torch_params_to_jax
+from ..io.lora import init_lora, load_lora_params, lora_parameters
 from ..model.fastvlm_adapter import FastVLMBackbone, as_float32
 from ..models.action_head import ActionChunkHead, ActionExpertHead
 from ..models.layers import init_weights
 from .configuration_fastvla import FastVLAConfig
 
 
+def check_lora(cfg: FastVLAConfig) -> None:
+    if cfg.lora_rank > 0 and cfg.train_backbone and not cfg.freeze_backbone:
+        raise ValueError("lora_rank > 0 with full backbone training is contradictory: LoRA exists to avoid "
+                         "training the base")
+
+
+def build_lora(cfg: FastVLAConfig, backbone: FastVLMBackbone) -> Optional[Dict]:
+    """The policy's adapter parameters when ``lora_rank > 0``, else None."""
+    if cfg.lora_rank <= 0:
+        return None
+    return lora_parameters(init_lora(backbone.model, cfg.lora_rank, seed=cfg.seed + 2, alpha=cfg.lora_alpha))
+
+
 def _check_supported(cfg: FastVLAConfig) -> None:
-    if cfg.lora_rank > 0:
-        raise NotImplementedError("LoRA adapters are not ported to PyTorch yet")
+    check_lora(cfg)
     if cfg.action_head != "mlp":
         raise ValueError(f"FastVLMWithExpert is the MLP head's stack, got action_head={cfg.action_head!r}; "
                          "the token head is fastvla.FastVLMTokenPolicy")
@@ -64,28 +84,42 @@ class FastVLMWithExpert:
         self.head.eval()
         if self.device.type != "meta":
             init_weights(self.head, torch.Generator(device=self.device).manual_seed(cfg.seed + 1))
+        self.lora = build_lora(cfg, self.backbone)
 
     def load_jax_params(self, params: Mapping) -> None:
-        """Load ``{"backbone": ..., "head": ...}`` from the JAX package (numpy leaves)."""
+        """Load ``{"backbone": ..., "head": ...[, "lora": ...]}`` from the JAX package (numpy leaves)."""
         self.backbone.load_jax_params(params["backbone"])
         self.head.load_state_dict(jax_params_to_torch(params["head"]), strict=True)
+        if "lora" in params:
+            self.lora = load_lora_params(self.lora, params["lora"], self.device)
 
     def jax_params(self, as_numpy: bool = True) -> Dict:
-        """The JAX package's ``{"backbone": ..., "head": ...}`` tree of these
-        parameters (``io/bridge.py::torch_params_to_jax``)."""
+        """The JAX package's ``{"backbone": ..., "head": ...[, "lora": ...]}``
+        tree of these parameters (``io/bridge.py``)."""
         scanned = self.backbone.model_config.text.scan_layers
-        return {"backbone": torch_params_to_jax(self.backbone.model, scanned, as_numpy),
-                "head": torch_params_to_jax(self.head, scanned, as_numpy)}
+        out = {"backbone": torch_params_to_jax(self.backbone.model, scanned, as_numpy),
+               "head": torch_params_to_jax(self.head, scanned, as_numpy)}
+        if self.lora is not None:
+            out["lora"] = torch_lora_to_jax(self.lora, scanned, as_numpy)
+        return out
 
     @property
     def params(self) -> Dict[str, Dict[str, torch.nn.Parameter]]:
-        return {"backbone": dict(self.backbone.model.named_parameters()),
-                "head": dict(self.head.named_parameters())}
+        out = {"backbone": dict(self.backbone.model.named_parameters()),
+               "head": dict(self.head.named_parameters())}
+        if self.lora is not None:
+            out["lora"] = flatten_params(self.lora)
+        return out
 
     def trainable_params(self) -> Dict[str, Dict[str, torch.nn.Parameter]]:
+        """The head (with the adapters when mounted), or everything with
+        ``train_backbone`` and not ``freeze_backbone``."""
         if self.config.train_backbone and not self.config.freeze_backbone:
             return self.params
-        return {"head": dict(self.head.named_parameters())}
+        out = {"head": dict(self.head.named_parameters())}
+        if self.lora is not None:
+            out["lora"] = flatten_params(self.lora)
+        return out
 
     def merge_trainable(self, trainable: Mapping) -> Dict:
         return {**self.params, **trainable}
@@ -96,9 +130,9 @@ class FastVLMWithExpert:
         """Device tensors -> actions: (B, action_dim), or (B, chunk, action_dim)."""
         if not train:
             with torch.inference_mode():
-                feats = self.backbone.features_fn(images, input_ids, attention_mask)
+                feats = self.backbone.features_fn(images, input_ids, attention_mask, lora=self.lora)
                 return self.head(feats, states, train=False)
-        feats = self.backbone.features_fn(images, input_ids, attention_mask)
+        feats = self.backbone.features_fn(images, input_ids, attention_mask, lora=self.lora)
         return self.head(feats, states, train=True, generator=generator)
 
     def forward(self, images, states, tasks: List[str], device: DeviceLike = None) -> torch.Tensor:

@@ -4,8 +4,9 @@
 Actions and the robot state are discretized onto the tail of the language
 model's vocabulary (``models/action_tokens.py``), and the policy decodes
 ``chunk_size x action_dim`` tokens through the VLM's own lm_head: it has no
-head parameters, and it trains with ``train_backbone`` (LoRA is not ported
-yet). Every control tick is a short generation, so closed-loop control rides
+head parameters, and it trains LoRA adapters (``lora_rank > 0``,
+``io/lora.py``: the adapters alone are trainable, over the frozen base) or
+the full backbone (``train_backbone``). Every control tick is a short generation, so closed-loop control rides
 the serving stack (``serving/token_policy_server.py``).
 
 Sequence layout, packed on the host and right-padded (no padding inside a
@@ -22,6 +23,7 @@ log-softmax. The LM head runs on the predictor positions only (JAX applies
 the same). ``mse`` decodes the argmax tokens to bin centers against the
 continuous targets. ``forward`` decodes through ``serving/generate.py`` with
 ``eos_token_id=-1``, so exactly ``chunk_size x action_dim`` tokens come out.
+The loss and the decode mount the adapters when there are some.
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
 
@@ -34,11 +36,13 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
-from ..io.bridge import torch_params_to_jax
+from ..io.bridge import flatten_params, torch_lora_to_jax, torch_params_to_jax
+from ..io.lora import load_lora_params
 from ..model.fastvlm_adapter import FastVLMBackbone, as_float32, prepare_policy_images
 from ..models.action_tokens import ActionTokenizer
 from ..serving.generate import generate
 from .configuration_fastvla import FastVLAConfig
+from .fastvlm_with_expert import build_lora, check_lora
 from .modeling_fastvla import FastVLAPolicy
 from .processor_fastvla import FastVLAProcessor
 
@@ -58,8 +62,7 @@ class FastVLMTokenPolicy:
         cfg = self.config
         if cfg.action_head != "token":
             raise ValueError(f"FastVLMTokenPolicy requires action_head='token', got {cfg.action_head!r}")
-        if cfg.lora_rank > 0:
-            raise NotImplementedError("LoRA adapters are not ported to PyTorch yet")
+        check_lora(cfg)
         self.backbone = FastVLMBackbone(cfg.to_backbone_config(), device=device)
         self.device = self.backbone.device
         self.processor = FastVLAProcessor(cfg, self.backbone)
@@ -69,6 +72,9 @@ class FastVLMTokenPolicy:
             low=cfg.action_token_low,
             high=cfg.action_token_high,
         )
+        # Inference-only construction is fine with nothing trainable; the
+        # training-time guard lives in trainable_params.
+        self.lora = build_lora(cfg, self.backbone)
 
     @property
     def num_action_tokens(self) -> int:
@@ -80,18 +86,29 @@ class FastVLMTokenPolicy:
 
     @property
     def params(self) -> Dict[str, Dict[str, torch.nn.Parameter]]:
-        return {"backbone": dict(self.backbone.model.named_parameters())}
+        out = {"backbone": dict(self.backbone.model.named_parameters())}
+        if self.lora is not None:
+            out["lora"] = flatten_params(self.lora)
+        return out
 
     def load_jax_params(self, params: Mapping) -> None:
-        """Load ``{"backbone": ...}`` from the JAX package (numpy leaves)."""
+        """Load ``{"backbone": ...[, "lora": ...]}`` from the JAX package (numpy leaves)."""
         self.backbone.load_jax_params(params["backbone"])
+        if "lora" in params:
+            self.lora = load_lora_params(self.lora, params["lora"], self.device)
 
     def jax_params(self, as_numpy: bool = True) -> Dict:
-        """The JAX package's ``{"backbone": ...}`` tree of these parameters."""
+        """The JAX package's ``{"backbone": ...[, "lora": ...]}`` tree of these parameters."""
         scanned = self.backbone.model_config.text.scan_layers
-        return {"backbone": torch_params_to_jax(self.backbone.model, scanned, as_numpy)}
+        out = {"backbone": torch_params_to_jax(self.backbone.model, scanned, as_numpy)}
+        if self.lora is not None:
+            out["lora"] = torch_lora_to_jax(self.lora, scanned, as_numpy)
+        return out
 
     def trainable_params(self) -> Dict[str, Dict[str, torch.nn.Parameter]]:
+        """The adapters when mounted, else the backbone with ``train_backbone``."""
+        if self.lora is not None:
+            return {"lora": flatten_params(self.lora)}
         if not self.config.train_backbone:
             raise ValueError(
                 "the token policy has no head parameters: train with lora_rank > 0 (QLoRA when quantized) "
@@ -177,7 +194,7 @@ class FastVLMTokenPolicy:
         model = self.backbone.model
         with contextlib.nullcontext() if train else torch.inference_mode():
             images = prepare_policy_images(arrays["images"], self.backbone.model_config, self.backbone.config)
-            hidden, seq_mask, _ = model(images, arrays["input_ids"], arrays["attention_mask"])
+            hidden, seq_mask, _ = model(images, arrays["input_ids"], arrays["attention_mask"], lora=self.lora)
             targets = arrays["action_tokens"].long()  # (B, chunk * D)
             d_a = targets.shape[1]
             # The action token for dim j sits at index true_len - D_a + j of
@@ -210,7 +227,7 @@ class FastVLMTokenPolicy:
         with torch.inference_mode():
             prepared = prepare_policy_images(to(images), self.backbone.model_config, self.backbone.config)
             return generate(self.backbone.model, prepared, to(ids), to(mask),
-                            max_new_tokens=self.num_action_tokens, eos_token_id=-1)
+                            max_new_tokens=self.num_action_tokens, eos_token_id=-1, lora=self.lora)
 
     def forward(self, images, states, tasks: List[str] | str, device: DeviceLike = None) -> torch.Tensor:
         """Actions for a batch of observations: (B, action_dim), or

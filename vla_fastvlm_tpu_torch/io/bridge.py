@@ -198,3 +198,84 @@ def torch_params_to_jax(module: torch.nn.Module, scanned: bool = True, as_numpy:
             node = node.setdefault(part, {})
         node[leaf] = t
     return tree
+
+
+def _lora_leaf(x) -> torch.Tensor:
+    """A JAX adapter leaf (numpy, ``ml_dtypes`` bf16 included, or a tensor) -> a CPU tensor of its dtype."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def jax_lora_to_torch(tree: Mapping) -> Dict:
+    """A JAX adapter tree (``io/lora.py`` of the JAX package: single,
+    ``stack_loras``-stacked, or with ``lora_with_ids`` ids; scanned or with
+    ``layers_<i>`` nodes) -> the port's tree of CPU tensors: the layers
+    stacked on a leading axis, ids ``(B,)``."""
+
+    def walk(node):
+        out, layers = {}, {}
+        for key, child in node.items():
+            match = _UNSCANNED.match(key)
+            if match:
+                layers[int(match.group(1))] = walk(child)
+            elif key == "ids":
+                ids = _lora_leaf(child)
+                out[key] = (ids[0] if ids.ndim == 2 else ids).to(torch.int64)
+            else:
+                out[key] = walk(child) if isinstance(child, Mapping) else _lora_leaf(child)
+        if layers:
+            out["layers"] = _stack_layers([layers[i] for i in range(len(layers))])
+        return out
+
+    return walk(tree)
+
+
+def _stack_layers(trees: list) -> Dict:
+    """Per-layer trees -> one tree, each leaf stacked on a leading layer axis (ids are shared)."""
+    return {k: _stack_layers([t[k] for t in trees]) if isinstance(v, Mapping)
+            else v if k == "ids" else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+def torch_lora_to_jax(tree: Mapping, scanned: bool = True, as_numpy: bool = True) -> Dict:
+    """The port's adapter tree -> the JAX package's: the stacked ``layers``
+    as they are (``scanned``, the JAX default) or split into ``layers_<i>``;
+    ids tiled to ``(L, B)`` for a scanned stacked site, as JAX's
+    ``lora_with_ids`` does. Leaves are CPU copies, or numpy arrays with
+    ``as_numpy`` (bf16 widened to float32)."""
+
+    def leaf(t: torch.Tensor):
+        if t.is_meta:  # shapes only (as_numpy=False)
+            return t.detach()
+        t = t.detach().to("cpu", copy=True).contiguous()
+        if as_numpy:
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return t
+
+    def walk(node, in_layers=False):
+        out = {}
+        for key, child in node.items():
+            if key == "layers" and isinstance(child, Mapping) and not scanned:
+                n_layers = next(iter(flatten_params(child).values())).shape[0]
+                for i in range(n_layers):
+                    out[f"layers_{i}"] = walk(_select_layer(child, i))
+            elif key == "ids":
+                ids = child
+                if scanned and in_layers and node["a"].ndim == 4:
+                    ids = ids[None].expand(node["a"].shape[0], -1)
+                out[key] = leaf(ids.to(torch.int32))
+            elif isinstance(child, Mapping):
+                out[key] = walk(child, in_layers or key == "layers")
+            else:
+                out[key] = leaf(child)
+        return out
+
+    return walk(tree)
+
+
+def _select_layer(node: Mapping, i: int) -> Dict:
+    return {k: (_select_layer(v, i) if isinstance(v, Mapping) else (v if k == "ids" else v[i]))
+            for k, v in node.items()}

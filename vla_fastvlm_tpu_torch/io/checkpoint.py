@@ -182,6 +182,8 @@ def load_policy_from_checkpoint(checkpoint_dir: str | Path, device: DeviceLike =
     without it is the legacy ``FastVLMPolicy`` (its ``backbone`` sub-dict
     and its own fields filtered to the known ones).
     ``strict=False`` lets the checkpoint leave parameters at their init.
+    A ``"lora"`` sub-tree (a policy trained with ``lora_rank > 0``, JAX's
+    key names and scanned shapes) loads into the policy's adapters.
     """
     from ..fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
     from ..model.fastvlm_adapter import FastVLMBackboneConfig
@@ -209,6 +211,11 @@ def load_policy_from_checkpoint(checkpoint_dir: str | Path, device: DeviceLike =
         backbone.model.load_state_dict(jax_params_to_torch(params.get("backbone", {})), strict=False)
         if head is not None:
             head.load_state_dict(jax_params_to_torch(params.get("head", {})), strict=False)
+        owner = policy.model if isinstance(policy, FastVLAPolicy) else policy
+        if "lora" in params and getattr(owner, "lora", None) is not None:
+            from .lora import load_lora_params
+
+            owner.lora = load_lora_params(owner.lora, params["lora"])
     return policy, policy.device
 
 

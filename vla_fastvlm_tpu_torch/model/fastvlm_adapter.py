@@ -7,8 +7,11 @@ owns a ``FastVLM`` module on one device (the card unless ``device="cpu"`` is
 passed), its tokenizer, and the host-side input normalization.
 
 Gradients, as in JAX: ``features_fn`` runs under ``torch.no_grad()`` unless
-``train_backbone`` (the JAX ``stop_gradient`` on the pooled features; the
-reference backbone is ``@torch.no_grad()``). With ``train_backbone`` the
+``train_backbone`` or LoRA adapters are mounted (the JAX ``stop_gradient``
+on the pooled features; the reference backbone is ``@torch.no_grad()``).
+With adapters the graph reaches them through the frozen decoder; the base
+does not require gradients and the images do not, so the vision tower
+records no graph and runs no backward. With ``train_backbone`` the
 graph is recorded, the backbone's parameters take gradients when
 ``freeze_backbone`` is off, and ``gradient_checkpointing`` rematerializes
 the decoder blocks. The eager ``forward`` runs under
@@ -289,13 +292,13 @@ class FastVLMBackbone:
     # forward
 
     def features_fn(self, images: torch.Tensor, input_ids: torch.Tensor,
-                    attention_mask: torch.Tensor) -> torch.Tensor:
+                    attention_mask: torch.Tensor, lora=None) -> torch.Tensor:
         """Device tensors -> (B, H) pooled features; gradient-free unless
-        ``train_backbone``."""
+        ``train_backbone`` or ``lora`` (an adapter tree, ``io/lora.py``) is given."""
         cfg = self.config
-        with contextlib.nullcontext() if cfg.train_backbone else torch.no_grad():
+        with contextlib.nullcontext() if cfg.train_backbone or lora is not None else torch.no_grad():
             prepared = prepare_policy_images(images, self.model_config, cfg)
-            hidden, _, text_mask = self.model(prepared, input_ids, attention_mask)
+            hidden, _, text_mask = self.model(prepared, input_ids, attention_mask, lora=lora)
             if cfg.image_feature_pool == "mean_pool":
                 return pool_hidden(hidden, text_mask, "mean_pool")
             return pool_last_text_token(hidden, text_mask)

@@ -10,7 +10,10 @@ a paged pool (``serving/paged_kv.py``); ``verify_step`` and
 verify window (``serving/speculative.py``, ``serving/speculative_paged.py``);
 ``prefill_image_chunk`` and ``prefill_text_chunk`` split ``prefill`` into
 the image rows and prompt chunks (the paged server's chunked admission and
-prefix-cache tails).
+prefix-cache tails). Every method that runs the decoder takes ``lora=``:
+an adapter tree of this model (``io/lora.py``; its ``language_model``
+sub-tree mounts on the decoder), single or multi-LoRA with per-row ids, or
+None.
 """
 
 from __future__ import annotations
@@ -81,6 +84,10 @@ class MMProjector(nn.Module):
         return self.fc2(gelu(self.fc1(x)))
 
 
+def _decoder_lora(lora: Optional[dict]) -> Optional[dict]:
+    return lora["language_model"] if lora else None
+
+
 class FastVLM(nn.Module):
     """Pixels + tokenized instruction -> decoder hidden states.
 
@@ -136,15 +143,16 @@ class FastVLM(nn.Module):
         images: Optional[torch.Tensor],  # (B, 3, S, S) or (B, S, S, 3); None ok for "none"
         input_ids: torch.Tensor,  # (B, T)
         attention_mask: Optional[torch.Tensor] = None,  # (B, T), 1 = real
+        lora: Optional[dict] = None,
     ):
         inputs_embeds, seq_mask, text_mask = self._splice(images, input_ids, attention_mask)
-        hidden, _, _ = self.language_model(inputs_embeds=inputs_embeds, attention_mask=seq_mask, causal=True)
+        hidden, _, _ = self.language_model(inputs_embeds=inputs_embeds, attention_mask=seq_mask, causal=True,
+                                           lora=_decoder_lora(lora))
         return hidden, seq_mask, text_mask
 
-    def forward_logits(self, images, input_ids, attention_mask=None):
+    def forward_logits(self, images, input_ids, attention_mask=None, lora=None):
         """Full-sequence lm_head logits: ``(logits (B, N_img + T, V), seq_mask, text_mask)``."""
-        inputs_embeds, seq_mask, text_mask = self._splice(images, input_ids, attention_mask)
-        hidden, _, _ = self.language_model(inputs_embeds=inputs_embeds, attention_mask=seq_mask, causal=True)
+        hidden, seq_mask, text_mask = self(images, input_ids, attention_mask, lora=lora)
         return self._logits(hidden), seq_mask, text_mask
 
     def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -153,7 +161,7 @@ class FastVLM(nn.Module):
             return self.language_model.embed_tokens.attend(hidden)
         return self.lm_head(hidden)
 
-    def prefill(self, images, input_ids, attention_mask, cache: dict):
+    def prefill(self, images, input_ids, attention_mask, cache: dict, lora=None):
         """Multimodal prefill into a dense KV cache (written in place).
 
         Returns ``(last_logits, hidden, new_cache, seq_mask, text_mask)`` with
@@ -165,21 +173,21 @@ class FastVLM(nn.Module):
         """
         inputs_embeds, seq_mask, text_mask = self._splice(images, input_ids, attention_mask)
         hidden, new_cache, _ = self.language_model(
-            inputs_embeds=inputs_embeds, attention_mask=seq_mask, cache=cache, causal=True,
+            inputs_embeds=inputs_embeds, attention_mask=seq_mask, cache=cache, causal=True, lora=_decoder_lora(lora),
         )
         idx = (seq_mask.sum(dim=1) - 1).clamp_min(0)
         last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
         return self._logits(last), hidden, new_cache, seq_mask, text_mask
 
-    def decode_step(self, input_ids: torch.Tensor, cache: dict):
+    def decode_step(self, input_ids: torch.Tensor, cache: dict, lora=None):
         """One KV-cached decode step: (B, 1) token ids -> ((B, V) logits, new_cache)."""
         hidden, new_cache, _ = self.language_model(
             input_ids=input_ids, attention_mask=torch.ones_like(input_ids, dtype=torch.int32),
-            cache=cache, causal=True,
+            cache=cache, causal=True, lora=_decoder_lora(lora),
         )
         return self._logits(hidden[:, -1]), new_cache
 
-    def decode_step_paged(self, input_ids: torch.Tensor, cache: dict):
+    def decode_step_paged(self, input_ids: torch.Tensor, cache: dict, lora=None):
         """One decode step against a paged KV pool, which it only reads.
 
         ``cache``: ``{"pool_k","pool_v"}`` (L, P, K, page, D), ``"tables"``
@@ -191,11 +199,11 @@ class FastVLM(nn.Module):
         """
         hidden, rows, _ = self.language_model(
             input_ids=input_ids, attention_mask=torch.ones_like(input_ids, dtype=torch.int32),
-            cache=cache, causal=True,
+            cache=cache, causal=True, lora=_decoder_lora(lora),
         )
         return self._logits(hidden[:, -1]), rows
 
-    def prefill_image_chunk(self, images: torch.Tensor, cache: dict) -> dict:
+    def prefill_image_chunk(self, images: torch.Tensor, cache: dict, lora=None) -> dict:
         """Chunked prefill, stage 0: write the image rows into a dense cache.
 
         The vision encode and the projector run as their own cached step: the
@@ -206,10 +214,11 @@ class FastVLM(nn.Module):
         """
         image_embeds = self.encode_images(images)
         ones = torch.ones(image_embeds.shape[:2], dtype=torch.int32, device=image_embeds.device)
-        _, new_cache, _ = self.language_model(inputs_embeds=image_embeds, attention_mask=ones, cache=cache, causal=True)
+        _, new_cache, _ = self.language_model(inputs_embeds=image_embeds, attention_mask=ones, cache=cache, causal=True,
+                                              lora=_decoder_lora(lora))
         return new_cache
 
-    def prefill_text_chunk(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, cache: dict):
+    def prefill_text_chunk(self, input_ids: torch.Tensor, attention_mask: torch.Tensor, cache: dict, lora=None):
         """Chunked prefill, stage 1 on: one (B, C) prompt chunk against a
         dense cache -> ``((B, C, V) logits, new_cache)``.
 
@@ -220,11 +229,11 @@ class FastVLM(nn.Module):
         masked, as in the one-shot padded ``prefill``.
         """
         hidden, new_cache, _ = self.language_model(
-            input_ids=input_ids, attention_mask=attention_mask, cache=cache, causal=True,
+            input_ids=input_ids, attention_mask=attention_mask, cache=cache, causal=True, lora=_decoder_lora(lora),
         )
         return self._logits(hidden), new_cache
 
-    def verify_step(self, input_ids: torch.Tensor, cache: dict):
+    def verify_step(self, input_ids: torch.Tensor, cache: dict, lora=None):
         """The speculative verify pass: multi-token cached decode returning
         every position's logits. (B, W) window ids -> ``(logits (B, W, V),
         second)``. Window position ``i`` attends the cache plus window
@@ -246,7 +255,7 @@ class FastVLM(nn.Module):
         """
         hidden, second, _ = self.language_model(
             input_ids=input_ids, attention_mask=torch.ones_like(input_ids, dtype=torch.int32),
-            cache=cache, causal=True,
+            cache=cache, causal=True, lora=_decoder_lora(lora),
         )
         return self._logits(hidden), second
 

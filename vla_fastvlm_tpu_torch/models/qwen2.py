@@ -15,9 +15,16 @@ in numbers:
 - A dense KV cache (``init_kv_cache``) is written in place: the forward
   returns the same ``k``/``v`` (and scale) buffers with a new mask and
   cursor, where JAX returns new buffers.
-- Weight quantization and LoRA are not ported yet: ``quantization`` is
-  kept for config parity and rejected when set. ``kv_cache_quantization``
-  "int8" is ported.
+- Weight quantization is not ported yet: ``quantization`` is kept for
+  config parity and rejected when set. ``kv_cache_quantization`` "int8" is
+  ported.
+- LoRA adapters (``io/lora.py``) mount through ``lora=`` on every forward,
+  on all three attention paths and under remat: the tree holds each site's
+  ``(L, ...)`` tensors, cast to the compute dtype (and, for multi-LoRA,
+  gathered by the rows' ids) once a call for all layers, and each block
+  gets its layer's views. The q/k/v and gate/up deltas add after the fused
+  output is split, the bias staying in the base output as in JAX. With
+  ``lora=None`` nothing of it runs.
 
 Three attention paths, as in JAX: prefill without a cache takes the
 structured mask (``ops.attention.attention``, the flash kernel on the card);
@@ -42,6 +49,47 @@ from ..ops.norms import rms_norm
 from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
 from .layers import Dense, Embed
+
+# The decoder layer's seven LoRA sites (io/lora.py), JAX's projection names,
+# by the sub-module that holds them.
+LORA_SITE_PARENTS = {"q_proj": "self_attn", "k_proj": "self_attn", "v_proj": "self_attn", "o_proj": "self_attn",
+                     "gate_proj": "mlp", "up_proj": "mlp", "down_proj": "mlp"}
+
+
+def layer_loras(lora: Optional[dict], num_layers: int, dtype: torch.dtype) -> list:
+    """A decoder's adapter tree (``{"layers": {"self_attn": {site: {"a",
+    "b"[, "ids"]}}, "mlp": {...}}}``) -> one ``{site: (a, b)}`` per layer, or
+    ``None`` each without adapters. Per call and site: one cast of the
+    ``(L, ...)`` tensors to ``dtype`` (a no-op when a server stored them in
+    it) and, with ``ids``, one gather of each row's adapter over the
+    adapter axis, ``(L, N, in, r)`` -> ``(L, B, in, r)``; the layers take
+    views of those."""
+    if lora is None:
+        return [None] * num_layers
+    sites = {}
+    for parent, node in lora.get("layers", {}).items():
+        for name, site in node.items():
+            if LORA_SITE_PARENTS.get(name) != parent:
+                raise ValueError(f"unknown LoRA site {parent}.{name}")
+            a, b = site["a"], site["b"]
+            if "ids" in site:
+                a, b = a.index_select(1, site["ids"]), b.index_select(1, site["ids"])
+            sites[name] = (a.to(dtype), b.to(dtype))
+    return [{name: (a[i], b[i]) for name, (a, b) in sites.items()} for i in range(num_layers)]
+
+
+def lora_delta(y: torch.Tensor, x: torch.Tensor, site) -> torch.Tensor:
+    """``y + (x @ A) @ B`` in ``y``'s dtype (JAX ``models/qwen2.py::_lora_delta``):
+    ``x @ A`` is rounded there, then ``y + h @ B``. ``site`` is ``(A, B)``,
+    ``(in, r)``/``(r, out)`` for one adapter or ``(B, in, r)``/``(B, r, out)``
+    with each batch row's own (multi-LoRA); ``None`` leaves ``y``."""
+    if site is None:
+        return y
+    a, b = site
+    x = x.to(y.dtype)
+    if a.ndim == 3:
+        return y + torch.bmm(torch.bmm(x, a), b)
+    return y + (x @ a) @ b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +123,14 @@ class Qwen2Config:
 
     def replace(self, **kw) -> "Qwen2Config":
         return dataclasses.replace(self, **kw)
+
+
+def lora_site_fans(cfg: Qwen2Config) -> dict:
+    """Fan-in and fan-out of each LoRA site's projection (JAX's unfused ``kernel`` shapes)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_attention_heads * cfg.resolved_head_dim, cfg.num_key_value_heads * cfg.resolved_head_dim
+    return {"q_proj": (h, q), "k_proj": (h, kv), "v_proj": (h, kv), "o_proj": (q, h), "gate_proj": (h, i),
+            "up_proj": (h, i), "down_proj": (i, h)}
 
 
 def qwen2_0_5b(**kw) -> Qwen2Config:
@@ -161,8 +217,9 @@ class Qwen2Attention(nn.Module):
         self.qkv_proj = Dense(cfg.hidden_size, (n + 2 * k) * d, True, cfg.dtype, cfg.param_dtype)
         self.o_proj = Dense(n * d, cfg.hidden_size, False, cfg.dtype, cfg.param_dtype)
 
-    def forward(self, x, kv_mask, cos, sin, causal: bool = True, bias=None, cache=None):
-        """-> ``(out, new)``. ``cache`` is None (prefill), one layer of a dense
+    def forward(self, x, kv_mask, cos, sin, causal: bool = True, bias=None, cache=None, lora=None):
+        """-> ``(out, new)``. ``lora`` is this layer's ``{site: (A, B)}`` or
+        None. ``cache`` is None (prefill), one layer of a dense
         cache (``k``/``v`` (B, S, K, D), ``rows``/``cols`` write positions, int8
         scales) or of a paged pool (``pool_k``/``pool_v`` (P, K, page, D),
         ``tables``, ``mask``, ``index``, int8 scale pools). ``new`` is the
@@ -172,6 +229,8 @@ class Qwen2Attention(nn.Module):
         b, t, _ = x.shape
         n, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.resolved_head_dim
         q, k, v = self.qkv_proj(x).split([n * d, kh * d, kh * d], dim=-1)
+        if lora is not None:
+            q, k, v = (lora_delta(y, x, lora.get(name)) for y, name in ((q, "q_proj"), (k, "k_proj"), (v, "v_proj")))
         q, k = apply_rope(q.reshape(b, t, n, d), k.reshape(b, t, kh, d), cos, sin)
         q = q.contiguous()
         v = v.reshape(b, t, kh, d).contiguous()
@@ -213,7 +272,9 @@ class Qwen2Attention(nn.Module):
                 cache["v"][at] = v.to(cache["v"].dtype)
                 k, v = cache["k"], cache["v"]
             out = attention(q, k.to(q.dtype), v.to(q.dtype), bias=bias, causal=causal, impl=cfg.attention_impl)
-        return self.o_proj(out.reshape(b, t, n * d)), new
+        out = out.reshape(b, t, n * d)
+        proj = self.o_proj(out)
+        return (proj if lora is None else lora_delta(proj, out, lora.get("o_proj"))), new
 
 
 class Qwen2MLP(nn.Module):
@@ -222,9 +283,12 @@ class Qwen2MLP(nn.Module):
         self.gate_up_proj = Dense(cfg.hidden_size, 2 * cfg.intermediate_size, False, cfg.dtype, cfg.param_dtype)
         self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, False, cfg.dtype, cfg.param_dtype)
 
-    def forward(self, x):
+    def forward(self, x, lora=None):
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
-        return self.down_proj(F.silu(gate) * up)
+        if lora is None:
+            return self.down_proj(F.silu(gate) * up)
+        h = F.silu(lora_delta(gate, x, lora.get("gate_proj"))) * lora_delta(up, x, lora.get("up_proj"))
+        return lora_delta(self.down_proj(h), h, lora.get("down_proj"))
 
 
 class Qwen2Block(nn.Module):
@@ -235,10 +299,10 @@ class Qwen2Block(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.param_dtype)
         self.mlp = Qwen2MLP(cfg)
 
-    def forward(self, x, kv_mask, cos, sin, causal: bool = True, bias=None, cache=None):
-        attn_out, new = self.self_attn(self.input_layernorm(x), kv_mask, cos, sin, causal, bias, cache)
+    def forward(self, x, kv_mask, cos, sin, causal: bool = True, bias=None, cache=None, lora=None):
+        attn_out, new = self.self_attn(self.input_layernorm(x), kv_mask, cos, sin, causal, bias, cache, lora)
         x = x + attn_out
-        return x + self.mlp(self.post_attention_layernorm(x)), new
+        return x + self.mlp(self.post_attention_layernorm(x), lora), new
 
 
 class Qwen2Model(nn.Module):
@@ -273,7 +337,10 @@ class Qwen2Model(nn.Module):
         cache: Optional[dict] = None,
         causal: bool = True,
         compute_tied_logits: bool = False,
+        lora: Optional[dict] = None,
     ):
+        """``lora``: this decoder's adapter tree (``io/lora.py``, the
+        ``language_model`` sub-tree of a ``FastVLM``'s), or None."""
         cfg = self.cfg
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
@@ -326,12 +393,13 @@ class Qwen2Model(nn.Module):
         # The decoder draws no random numbers, so remat need not restore the RNG.
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         news = []
-        for layer, layer_cache in zip(self.layers, layer_caches):
+        loras = layer_loras(lora, cfg.num_hidden_layers, cfg.dtype)
+        for layer, layer_cache, layer_lora in zip(self.layers, layer_caches, loras):
             if remat:
-                x, new = checkpoint(layer, x, kv_mask, cos, sin, causal, bias, layer_cache,
+                x, new = checkpoint(layer, x, kv_mask, cos, sin, causal, bias, layer_cache, layer_lora,
                                     use_reentrant=False, preserve_rng_state=False)
             else:
-                x, new = layer(x, kv_mask, cos, sin, causal, bias, layer_cache)
+                x, new = layer(x, kv_mask, cos, sin, causal, bias, layer_cache, layer_lora)
             news.append(new)
         x = self.norm(x)
 
@@ -358,11 +426,12 @@ class Qwen2ForCausalLM(nn.Module):
             self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, False, cfg.dtype, cfg.param_dtype)
 
     def forward(self, input_ids=None, inputs_embeds=None, attention_mask=None,
-                positions=None, cache=None, causal: bool = True):
+                positions=None, cache=None, causal: bool = True, lora=None):
+        """``lora``: an adapter tree of this model (``{"model": {"layers": ...}}``) or None."""
         hidden, new_cache, tied_logits = self.model(
             input_ids=input_ids, inputs_embeds=inputs_embeds,
             attention_mask=attention_mask, positions=positions, cache=cache, causal=causal,
-            compute_tied_logits=self.cfg.tie_word_embeddings,
+            compute_tied_logits=self.cfg.tie_word_embeddings, lora=lora["model"] if lora else None,
         )
         logits = tied_logits if self.cfg.tie_word_embeddings else self.lm_head(hidden)
         return logits, hidden, new_cache

@@ -5,6 +5,7 @@ repository's ``scripts/serve.py``).
         --num-slots 64 --prefill-batch 16 --prompt-len 64 --max-new-tokens 64 --num-requests 128
     python -m vla_fastvlm_tpu_torch.scripts.serve ... --paged --prefix-cache 16 --repeat-fraction 0.5
     python -m vla_fastvlm_tpu_torch.scripts.serve ... --paged --prefill-chunk-tokens 16
+    python -m vla_fastvlm_tpu_torch.scripts.serve ... --paged --lora-dir CKPT_A CKPT_B CKPT_C
     python -m vla_fastvlm_tpu_torch.scripts.serve --device cpu --model-id fastvlm-tiny --num-requests 6 \\
         --num-slots 3 --dtype float32
 
@@ -27,10 +28,16 @@ hashes of the raw frame); the servers' program counters; and for a paged
 server its page accounting (free and cache-pinned pages, and the free pages
 once the prefix cache is emptied).
 
+``--lora-dir`` serves LoRA adapters over the random base: each directory
+is a policy checkpoint trained with ``--lora-rank`` (its ``"lora"`` tree,
+``io/lora.py::load_lora``). One directory applies to every request; with
+more, requests round-robin over the base and the adapters (multi-LoRA), and
+the summary gains ``lora_adapters``. On a speculative server they mount on
+the target only.
+
 ``--device`` is the card unless ``--device cpu`` is given; without CUDA the
-script raises. ``--tp`` above 1 (a mesh), ``--quantization`` other than
-``none`` and ``--lora-dir`` raise ``NotImplementedError``: those are not
-ported.
+script raises. ``--tp`` above 1 (a mesh) and ``--quantization`` other than
+``none`` raise ``NotImplementedError``: those are not ported.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..io.lora import load_lora
 from ..model import FastVLMBackbone, FastVLMBackboneConfig
 from ..serving import (
     GenerationServer,
@@ -93,7 +101,8 @@ class ServeArgs:
     # > 0: chunked admission of this many prompt tokens a tick (paged servers);
     # buckets must be multiples of it.
     prefill_chunk_tokens: int = 0
-    # LoRA adapter directories of the JAX script: not ported.
+    # LoRA adapters: policy checkpoint dirs trained with --lora-rank; more
+    # than one is multi-LoRA (requests round-robin over base + adapters).
     lora_dir: Tuple[str, ...] = ()
     # Speculative decoding: a same-vocab draft preset proposes spec_k tokens a tick.
     draft_model_id: Optional[str] = None
@@ -109,12 +118,14 @@ def build_backbone(args: ServeArgs, model_id: str, seed: int, image_size: Option
     ), device=device)
 
 
-def build_server(args: ServeArgs, device: torch.device):
-    """The server ``args`` name, over a random-weight model of its preset."""
+def build_server(args: ServeArgs, device: torch.device, lora=None):
+    """The server ``args`` name, over a random-weight model of its preset,
+    with ``lora`` (None, one adapter tree or a list) on the target."""
     backbone = build_backbone(args, args.model_id, args.seed, args.image_size, args.kv_cache_quantization, device)
     common = dict(num_slots=args.num_slots, prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
                   eos_token_id=-1,  # synthetic stream: run to max length
-                  prefill_batch=args.prefill_batch, temperature=args.temperature, top_p=args.top_p, seed=args.seed)
+                  prefill_batch=args.prefill_batch, temperature=args.temperature, top_p=args.top_p, seed=args.seed,
+                  lora=lora)
     paged = dict(page_size=args.page_size, num_pages=args.num_pages, prefix_cache_size=args.prefix_cache,
                  prefill_chunk_tokens=args.prefill_chunk_tokens)
     if args.draft_model_id:
@@ -135,15 +146,16 @@ def admission_work(server) -> tuple:
 
 
 def main(args: ServeArgs) -> dict:
-    unported = {"--tp > 1": args.tp > 1, "--quantization": args.quantization != "none",
-                "--lora-dir": bool(args.lora_dir)}
+    unported = {"--tp > 1": args.tp > 1, "--quantization": args.quantization != "none"}
     named = [k for k, on in unported.items() if on]
     if named:
         raise NotImplementedError(f"{', '.join(named)}: not ported to PyTorch yet; the port serves one card with "
-                                  "unquantized weights and no adapters")
+                                  "unquantized weights")
     device = resolve_device(args.device)
     configure_logging()
-    server = build_server(args, device)
+    adapters = [load_lora(d) for d in args.lora_dir]
+    num_adapters = len(adapters)
+    server = build_server(args, device, None if not adapters else adapters[0] if num_adapters == 1 else adapters)
     size = server.model.cfg.image_size
 
     rng = np.random.default_rng(args.seed)
@@ -174,8 +186,10 @@ def main(args: ServeArgs) -> dict:
         arrivals = 0
         while submitted < args.num_requests and server.has_free_slot() and arrivals < args.arrivals_per_tick:
             request = make_request()
+            # Multi-LoRA: round-robin over base + adapters.
+            cycle = submitted % (num_adapters + 1) if num_adapters > 1 else 0
             t0 = time.perf_counter()
-            server.submit(*request)
+            server.submit(*request, lora_index=None if cycle == 0 else cycle - 1)
             submit_times.append(time.perf_counter() - t0)
             submitted += 1
             arrivals += 1
@@ -216,6 +230,8 @@ def main(args: ServeArgs) -> dict:
         summary["decode_ticks"] = ticks
     if args.paged:
         summary.update(image_chunks=server.image_chunks, text_chunks=server.text_chunks)
+    if num_adapters:
+        summary["lora_adapters"] = num_adapters
     if args.prefix_cache > 0 and args.paged:
         summary["prefix_cache_hits"] = server.prefix_cache_hits
         summary["prefix_cache_misses"] = server.prefix_cache_misses

@@ -9,10 +9,14 @@ an unknown split. ``--synthetic-data`` trains on ``SyntheticAlohaSource`` record
 (offline). Flags of the port: ``--device`` (``cuda`` by default; the script raises
 without CUDA unless ``--device cpu``) and ``--train-backbone`` (with
 ``--no-freeze-backbone``: the whole policy trains, through the kernels' backward,
-decoder blocks rematerialized). ``--action-head token`` trains the action-token
-policy (``FastVLMTokenPolicy``), which has no head and trains only with
-``--train-backbone``, as in JAX. Paths not ported raise: ``--tp`` above 1 and
-``--fsdp`` (a mesh), ``--lora-rank``, ``--quantization``.
+decoder blocks rematerialized). ``--lora-rank N`` (``--lora-alpha``) trains LoRA
+adapters on the decoder's projections over the frozen base (``io/lora.py``;
+decoder blocks rematerialized), with the head for the MLP head, alone for the
+token head; checkpoints carry them as the ``"lora"`` tree, for ``scripts.serve
+--lora-dir`` and ``scripts.merge_lora``. ``--action-head token`` trains the
+action-token policy (``FastVLMTokenPolicy``), which has no head and trains with
+``--lora-rank`` or ``--train-backbone``, as in JAX. Paths not ported raise:
+``--tp`` above 1 and ``--fsdp`` (a mesh), ``--quantization``.
 """
 
 from __future__ import annotations

@@ -23,8 +23,16 @@ the device to each admission batch's images before the prefill, e.g.
 ``model/fastvlm_adapter.prepare_policy_images`` (letterbox + normalize to
 the tower resolution). Callers then submit raw frames of any one size, and
 only those cross from the host; the batch's dummy rows are zero frames of
-that size. Not in this port yet: LoRA and a TP mesh; each raises
-``NotImplementedError`` when set.
+that size.
+
+``lora`` (every server of the port takes it): adapters (``io/lora.py``)
+served over the frozen base. One tree applies to every request; a LIST of
+trees is multi-LoRA: they are stacked behind an all-zeros base adapter,
+``submit(lora_index=i)`` routes a request to adapter ``i`` (None: the
+base), and every program gets each row's adapter index (``batch_lora`` at
+admission, ``slots_lora`` in the ticks). The server keeps the adapters on
+its device in the model's compute dtype. Not in this port yet: a TP mesh,
+which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..io.lora import lora_with_ids, map_lora, stack_loras
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import init_kv_cache
 from .sampling import sample_tokens
@@ -46,6 +55,7 @@ class _Slot:
     active: bool = False
     tokens: List[int] = dataclasses.field(default_factory=list)
     remaining: int = 0
+    lora_index: int = 0  # internal stacked-adapter index (0 = base)
 
 
 @dataclasses.dataclass
@@ -55,6 +65,57 @@ class _Pending:
     attention_mask: np.ndarray  # (1, bucket)
     images: Optional[np.ndarray]  # (1, 3, S, S), raw frames under image_prep | None
     bucket: int = 0  # prompt width this request was padded to
+    lora_index: int = 0  # internal stacked-adapter index (0 = base)
+
+
+def normalize_lora(lora, device=None, dtype=None):
+    """Server ``lora=`` argument -> ``(tree, multi, num_adapters)``: None; a
+    single adapter tree, applied to every request; or a list of trees
+    (multi-LoRA), stacked behind an all-zeros base adapter at index 0. The
+    tree comes back on ``device`` in ``dtype`` (the decoder's compute
+    dtype, so no call casts it again)."""
+    if lora is None:
+        return None, False, 0
+    multi = isinstance(lora, (list, tuple))
+    tree = stack_loras(lora, include_base=True) if multi else lora
+    tree = map_lora(lambda t: t.detach().to(device=device, dtype=dtype), tree)
+    return tree, multi, len(lora) if multi else 1
+
+
+def lora_call_arg(server, indices, rows: int):
+    """A program's adapter argument on ``server``: None, its single tree, or
+    its stacked tree with the ``rows`` rows' adapter indices mounted (the
+    first ``len(indices)`` given, the rest the base)."""
+    if not server._lora_multi:
+        return server._lora
+    ids = np.zeros(rows, np.int64)
+    ids[: len(indices)] = indices
+    return lora_with_ids(server._lora, ids)
+
+
+def batch_lora(server, batch, rows: int):
+    """The adapter argument of an admission program over ``batch`` (its dummy rows: the base)."""
+    return lora_call_arg(server, [req.lora_index for req in batch], rows)
+
+
+def slots_lora(server, rows: int):
+    """The adapter argument of a tick over the server's slots (free slots and
+    the lanes past them: the base)."""
+    return lora_call_arg(server, [s.lora_index if s.active else 0 for s in server._slots], rows)
+
+
+def resolve_lora_index(multi: bool, num_adapters: int, lora_index) -> int:
+    """``submit(lora_index=...)`` -> the internal stacked index: None is the
+    zeros base adapter (0), user adapter ``i`` is ``i + 1``."""
+    if lora_index is None:
+        return 0
+    if not multi:
+        raise ValueError("lora_index requires the server to be built with a LIST of adapters (multi-LoRA); a "
+                         "single adapter applies to all requests")
+    idx = int(lora_index)
+    if not 0 <= idx < num_adapters:
+        raise ValueError(f"lora_index {idx} out of range for {num_adapters} adapters")
+    return idx + 1
 
 
 def normalize_buckets(prompt_len) -> tuple:
@@ -168,13 +229,12 @@ class GenerationServer:
         cache_slack: int = 0,
         image_prep=None,
     ) -> None:
-        unported = {"mesh": mesh is not None, "lora": lora is not None}
-        named = [k for k, on in unported.items() if on]
-        if named:
-            raise NotImplementedError(f"{', '.join(named)}: not ported to the PyTorch dense server yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh: not ported to the PyTorch dense server yet")
         self.model = model
         self.image_prep = image_prep
         self.device = next(model.parameters()).device
+        self._lora, self._lora_multi, self._num_adapters = normalize_lora(lora, self.device, model.cfg.text.dtype)
         self.num_slots = num_slots
         self.prompt_buckets = normalize_buckets(prompt_len)
         self.prompt_len = self.prompt_buckets[-1]
@@ -215,9 +275,9 @@ class GenerationServer:
                lora_index: Optional[int] = None) -> int:
         """Queue a request for admission; returns a request id. It pads to
         the smallest covering prompt bucket; the prefill runs batched per
-        bucket at the next ``step``/``flush``."""
-        if lora_index is not None:
-            raise NotImplementedError("lora_index: LoRA is not ported to the PyTorch dense server yet")
+        bucket at the next ``step``/``flush``. ``lora_index`` picks the
+        request's adapter on a multi-LoRA server (None: the base)."""
+        lidx = resolve_lora_index(self._lora_multi, self._num_adapters, lora_index)
         if self._free_slot_count() <= 0:
             raise RuntimeError("no free generation slots")
         is_mm = images is not None
@@ -231,7 +291,7 @@ class GenerationServer:
         ids, mask = _pad_to(ids, mask, bucket)
         rid = self._next_rid
         self._next_rid += 1
-        self._pending.append(_Pending(rid, ids, mask, images, bucket))
+        self._pending.append(_Pending(rid, ids, mask, images, bucket, lidx))
         return rid
 
     def flush(self) -> None:
@@ -257,12 +317,12 @@ class GenerationServer:
         slots[: len(batch)] = free[: len(batch)]
         return ids, mask, images, slots
 
-    def _prefill(self, model: FastVLM, cache_len: int, images, ids, mask):
+    def _prefill(self, model: FastVLM, cache_len: int, images, ids, mask, lora=None):
         """Batched prefill of ``model`` into a fresh cache of ``cache_len``
         positions -> (last logits (bp, V), cache)."""
         cache_p = init_kv_cache(model.cfg.text, self.prefill_batch, cache_len, device=self.device)
         last_logits, _, cache_p, _, _ = model.prefill(
-            device_images(self, images), self._to_device(ids), self._to_device(mask), cache_p,
+            device_images(self, images), self._to_device(ids), self._to_device(mask), cache_p, lora=lora,
         )
         return last_logits, cache_p
 
@@ -276,13 +336,15 @@ class GenerationServer:
             slot.active = True
             slot.tokens = [int(first_host[row])]
             slot.remaining = self.max_new_tokens - 1
+            slot.lora_index = req.lora_index
             self._pending_token[slot_idx] = int(first_host[row])
             self._finish_if_done(slot_idx)
 
     @torch.no_grad()
     def _admit(self, batch: List[_Pending]) -> None:
         ids, mask, images, slots = self._assemble_admission(batch)
-        last_logits, cache_p = self._prefill(self.model, self._cache_len, images, ids, mask)
+        last_logits, cache_p = self._prefill(self.model, self._cache_len, images, ids, mask,
+                                             batch_lora(self, batch, self.prefill_batch))
         first = sample_tokens(last_logits, self._generator, self.temperature, self.top_p)
         self.cache = self._insert(self.cache, cache_p, self._to_device(slots))
         self._register_admitted(batch, slots, first.cpu().numpy())
@@ -297,9 +359,9 @@ class GenerationServer:
         self._pending_token[slot_idx] = self.eos_token_id
         self._finished_buffer[slot.request_id] = list(slot.tokens)
 
-    def _decode(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _decode(self, tokens: torch.Tensor, lora=None) -> torch.Tensor:
         """One decode step over every slot (trash included) -> sampled (B,)."""
-        logits, self.cache = self.model.decode_step(tokens[:, None], self.cache)
+        logits, self.cache = self.model.decode_step(tokens[:, None], self.cache, lora=lora)
         return sample_tokens(logits, self._generator, self.temperature, self.top_p)
 
     def _device_tokens(self) -> torch.Tensor:
@@ -313,7 +375,7 @@ class GenerationServer:
         admission)."""
         self.flush()
         if any(s.active for s in self._slots):
-            next_host = self._decode(self._device_tokens()).cpu().numpy()
+            next_host = self._decode(self._device_tokens(), slots_lora(self, self.num_slots + 1)).cpu().numpy()
             for i, slot in enumerate(self._slots):
                 if not slot.active:
                     continue
@@ -342,9 +404,10 @@ class GenerationServer:
                 raise ValueError("step_n with n > 1 requires eos_token_id < 0 (the ticks cannot stop at "
                                  "EOS in between)")
             tokens = self._device_tokens()
+            lora = slots_lora(self, self.num_slots + 1)
             toks = []
             for _ in range(n_eff):
-                tokens = self._decode(tokens)
+                tokens = self._decode(tokens, lora)
                 toks.append(tokens)
             toks_host = torch.stack(toks, dim=1).cpu().numpy()  # (B, n_eff): one fetch
             for i in active:

@@ -33,18 +33,21 @@ def generate(
     top_p: float = 1.0,
     generator: Optional[torch.Generator] = None,
     return_last_logits: bool = False,
+    lora=None,
 ):
     """Greedy (or temperature) decoding on the model's device. Returns
     (B, max_new_tokens) int32 ids, padded with ``eos_token_id`` after each
     sequence finishes; with ``return_last_logits`` also the (B, V) logits of
     the last decode step. Inputs may be numpy or tensors; ``model`` carries
-    the weights and the device (the JAX function's ``params``)."""
+    the weights and the device (the JAX function's ``params``). ``lora``: an
+    adapter tree (``io/lora.py``), single or ``stack_loras`` +
+    ``lora_with_ids`` with one adapter a batch row, on the model's device."""
     device = next(model.parameters()).device
     as_dev = lambda x: None if x is None else torch.as_tensor(x).to(device)
     images, input_ids, attention_mask = as_dev(images), as_dev(input_ids), as_dev(attention_mask)
     b, t = input_ids.shape
     cache = build_cache(model.cfg, b, t, max_new_tokens, device=device)
-    last_logits, _, cache, _, _ = model.prefill(images, input_ids, attention_mask, cache)
+    last_logits, _, cache, _, _ = model.prefill(images, input_ids, attention_mask, cache, lora=lora)
     token = sample_tokens(last_logits, generator, temperature, top_p)
     done = token == eos_token_id
     tokens = [token]
@@ -53,7 +56,7 @@ def generate(
     # return_last_logits.
     steps = max_new_tokens if return_last_logits else max_new_tokens - 1
     for i in range(steps):
-        logits, cache = model.decode_step(token[:, None], cache)
+        logits, cache = model.decode_step(token[:, None], cache, lora=lora)
         nxt = sample_tokens(logits, generator, temperature, top_p)
         nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
         done = done | (nxt == eos_token_id)

@@ -39,8 +39,12 @@ The pools are updated in place (the JAX server donates its buffers to the
 jitted programs instead). ``image_prep`` letterboxes raw frames inside
 admission, the image chunk included, as on the dense server
 (``serving/continuous_batching.py``); the prefix-cache keys hash the raw
-frames. Not in this port yet: LoRA and a TP mesh; each raises
-``NotImplementedError`` when set.
+frames. LoRA (``lora=``, single or multi-LoRA with
+``submit(lora_index=...)``) as on the dense server: admission, chunks,
+partial-hit tails and ticks get each row's adapter, and the adapter index
+keys both prefix-cache layers (the whole-prompt key and the page chain),
+so a hit never crosses adapters. Not in this port yet: a TP mesh, which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,7 +59,17 @@ import torch
 
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import Qwen2Config, init_kv_cache
-from .continuous_batching import _pad_to, admission_arrays, device_images, normalize_buckets, pick_bucket
+from .continuous_batching import (
+    _pad_to,
+    admission_arrays,
+    batch_lora,
+    device_images,
+    normalize_buckets,
+    normalize_lora,
+    pick_bucket,
+    resolve_lora_index,
+    slots_lora,
+)
 from .sampling import sample_tokens
 
 
@@ -69,6 +83,7 @@ class _Slot:
     tokens: List[int] = dataclasses.field(default_factory=list)
     remaining: int = 0
     length: int = 0  # write cursor in the logical window
+    lora_index: int = 0  # internal stacked-adapter index (0 = base)
 
 
 @dataclasses.dataclass
@@ -80,9 +95,10 @@ class _Pending:
     images: Optional[np.ndarray]  # (1, 3, S, S), raw frames under image_prep | None
     bucket: int = 0
     key: Optional[bytes] = None  # whole-prompt cache key (None: caching off)
-    # One chain hash per full prompt page: hash i commits to the frame and
-    # every prompt token through position (i + 1) * page_size.
+    # One chain hash per full prompt page: hash i commits to the adapter,
+    # the frame and every prompt token through position (i + 1) * page_size.
     page_hashes: Optional[List[bytes]] = None
+    lora_index: int = 0  # internal stacked-adapter index (0 = base)
 
 
 @dataclasses.dataclass
@@ -99,6 +115,7 @@ class _Inflight:
     cache: dict  # dense (bp, max_len) cache the chunks fill
     last_logits: torch.Tensor  # (bp, V) running last-real-position logits
     images_done: bool  # image chunk run (or none needed)
+    lora: Optional[dict] = None  # the batch's adapter argument
     chunk_idx: int = 0  # next text chunk
 
 
@@ -261,16 +278,15 @@ class PagedGenerationServer:
         ``prefill_chunk_tokens``: > 0 admits misses chunk by chunk, one
         chunk of work a ``step`` (``flush`` and ``step_n`` admit fully).
         Every prompt bucket must be a multiple of it."""
-        unported = {"mesh": mesh is not None, "lora": lora is not None}
-        named = [k for k, on in unported.items() if on]
-        if named:
-            raise NotImplementedError(f"{', '.join(named)}: not ported to the PyTorch paged server yet")
+        if mesh is not None:
+            raise NotImplementedError("mesh: not ported to the PyTorch paged server yet")
         if decode_impl not in ("auto", "kernel", "gathered"):
             raise ValueError(f"unknown decode_impl {decode_impl!r}")
         self.decode_impl = "kernel" if decode_impl == "auto" else decode_impl
         self.model = model
         self.image_prep = image_prep
         self.device = next(model.parameters()).device
+        self._lora, self._lora_multi, self._num_adapters = normalize_lora(lora, self.device, model.cfg.text.dtype)
         self.num_slots = num_slots
         self.prompt_buckets = normalize_buckets(prompt_len)
         self.prompt_len = self.prompt_buckets[-1]
@@ -349,9 +365,10 @@ class PagedGenerationServer:
     def submit(self, input_ids: np.ndarray, attention_mask: np.ndarray, images: Optional[np.ndarray] = None,
                lora_index: Optional[int] = None) -> int:
         """Queue a request: a slot and its worst-case pages are claimed now;
-        the prefill runs batched at the next ``step``/``flush``."""
-        if lora_index is not None:
-            raise NotImplementedError("lora_index: LoRA is not ported to the PyTorch paged server yet")
+        the prefill runs batched at the next ``step``/``flush``.
+        ``lora_index`` picks the request's adapter on a multi-LoRA server
+        (None: the base); it keys the prefix cache too."""
+        lidx = resolve_lora_index(self._lora_multi, self._num_adapters, lora_index)
         is_mm = images is not None
         if self._multimodal is None:
             self._multimodal = is_mm
@@ -372,15 +389,16 @@ class PagedGenerationServer:
         self._next_rid += 1
         key = page_hashes = None
         if self._prefix_cache is not None:
-            key, page_hashes = self._prompt_hashes(ids, mask, images)
-        self._pending.append(_Pending(rid, slot_idx, ids, mask, images, bucket, key, page_hashes))
+            key, page_hashes = self._prompt_hashes(ids, mask, images, lidx)
+        self._pending.append(_Pending(rid, slot_idx, ids, mask, images, bucket, key, page_hashes, lidx))
         return rid
 
-    def _prompt_hashes(self, ids: np.ndarray, mask: np.ndarray, images: Optional[np.ndarray]):
+    def _prompt_hashes(self, ids: np.ndarray, mask: np.ndarray, images: Optional[np.ndarray], lora_index: int = 0):
         """The whole-prompt key and the page chain hashes of a request.
 
-        The frame is hashed once (shape and raw bytes); both hashes branch
-        from that state. The key adds the bucket and the padded ids and
+        The adapter index and the frame are hashed once (shape and raw
+        bytes); both hashes branch from that state, so requests under two
+        adapters never share a cached prompt or page (their K/V differ). The key adds the bucket and the padded ids and
         mask. Chain hash ``i`` adds the page index and the prompt tokens and
         mask of the positions in full page ``i``: the K/V rows of a page
         depend on the frame, their positions and every token up to the
@@ -394,6 +412,7 @@ class PagedGenerationServer:
         lengths, so a short and a long bucket share pages.
         """
         frame = hashlib.sha1()
+        frame.update(np.int64(lora_index).tobytes())
         if images is not None:
             img = np.ascontiguousarray(images)
             frame.update(np.asarray(img.shape, np.int64).tobytes())
@@ -505,6 +524,7 @@ class PagedGenerationServer:
         slot.tokens = [token]
         slot.remaining = self.max_new_tokens - 1
         slot.length = prefill_len
+        slot.lora_index = req.lora_index
         self._slot_mask[req.slot] = mask_row
         self._pending_token[req.slot] = token
 
@@ -535,6 +555,7 @@ class PagedGenerationServer:
         cache = init_kv_cache(model.cfg.text, bp, self._max_len, device=self.device)
         last_logits, _, cache, _, _ = model.prefill(
             device_images(self, images), self._to_device(ids), self._to_device(mask), cache,
+            lora=batch_lora(self, batch, bp),
         )
         tokens = self._sample(last_logits)
         self._scatter_prefill(cache, self._to_device(pages).long())
@@ -566,13 +587,13 @@ class PagedGenerationServer:
 
         return {name: gather(buf) for name, buf in self.pool.pools().items()}
 
-    def _text_chunk(self, ids: np.ndarray, mask: np.ndarray, cache: dict, last: torch.Tensor):
+    def _text_chunk(self, ids: np.ndarray, mask: np.ndarray, cache: dict, last: torch.Tensor, lora=None):
         """One prompt chunk through ``prefill_text_chunk`` -> (running
         last-real-position logits, cache). A row with real tokens in the
         chunk takes its last one's logits; a row already past its prompt
         keeps the earlier chunk's (prompts are right-padded)."""
         mask_d = self._to_device(mask)
-        logits, cache = self.model.prefill_text_chunk(self._to_device(ids), mask_d, cache)
+        logits, cache = self.model.prefill_text_chunk(self._to_device(ids), mask_d, cache, lora=lora)
         self.text_chunks += 1
         has = mask_d.bool().any(dim=1)
         idx = (torch.arange(mask_d.shape[1], device=mask_d.device) * mask_d).amax(dim=1)  # last real position
@@ -593,14 +614,14 @@ class PagedGenerationServer:
                 return
             inf = self._inflight = self._start_inflight(self._next_batch())
         if not inf.images_done:
-            inf.cache = self.model.prefill_image_chunk(device_images(self, inf.images), inf.cache)
+            inf.cache = self.model.prefill_image_chunk(device_images(self, inf.images), inf.cache, lora=inf.lora)
             self.image_chunks += 1
             inf.images_done = True
             return
         c = self.prefill_chunk_tokens
         lo = inf.chunk_idx * c
         inf.last_logits, inf.cache = self._text_chunk(inf.ids[:, lo: lo + c], inf.mask[:, lo: lo + c], inf.cache,
-                                                      inf.last_logits)
+                                                      inf.last_logits, inf.lora)
         inf.chunk_idx += 1
         if inf.chunk_idx * c >= inf.bucket:
             self._inflight = None
@@ -620,6 +641,7 @@ class PagedGenerationServer:
             cache=init_kv_cache(cfg.text, bp, self._max_len, device=self.device),
             last_logits=torch.zeros((bp, cfg.text.vocab_size), dtype=cfg.text.dtype, device=self.device),
             images_done=images is None or cfg.num_image_tokens == 0,
+            lora=batch_lora(self, batch, bp),
         )
 
     @torch.no_grad()
@@ -741,8 +763,9 @@ class PagedGenerationServer:
         mask = np.concatenate([req.attention_mask for req in batch])
         text = self.model.cfg.text
         last = torch.zeros((n, text.vocab_size), dtype=text.dtype, device=self.device)
+        lora = batch_lora(self, batch, n)
         for off in range(m * ps - n_img, bucket, ps):
-            last, cache = self._text_chunk(ids[:, off: off + ps], mask[:, off: off + ps], cache, last)
+            last, cache = self._text_chunk(ids[:, off: off + ps], mask[:, off: off + ps], cache, last, lora)
 
         pages = self.pool.page_table[[req.slot for req in batch]]  # fancy indexing: a copy
         pages[:, :m] = 0
@@ -797,10 +820,11 @@ class PagedGenerationServer:
         return (self._to_device(self.pool.page_table), self._to_device(masks), self._to_device(lengths),
                 self._to_device(tokens))
 
-    def _run_window(self, impl: str, tables, masks, lengths, window, write: bool = True) -> torch.Tensor:
+    def _run_window(self, impl: str, tables, masks, lengths, window, write: bool = True, lora=None) -> torch.Tensor:
         """One forward of a (B, W) token window over all slots -> (B, W, V)
         logits; window position i sits at ``lengths + i``. With ``write``
         the window's K/V rows are scattered into the slots' pages there.
+        ``lora``: the adapter argument of the B rows.
 
         "kernel" reads the pool through the tables (``verify_step_paged``:
         the paged decode kernel at W = 1, the window kernel at W > 1 on the
@@ -815,7 +839,7 @@ class PagedGenerationServer:
                      "index": lengths}
             if pool.quantized:
                 cache.update(pool_k_scale=pool.pool_k_scale, pool_v_scale=pool.pool_v_scale)
-            logits, rows = model.verify_step_paged(window, cache)
+            logits, rows = model.verify_step_paged(window, cache, lora=lora)
             new = {"k": rows["k_rows"], "v": rows["v_rows"]}
             if pool.quantized:
                 new.update(k_scale=rows["k_scale_rows"], v_scale=rows["v_scale_rows"])
@@ -823,7 +847,7 @@ class PagedGenerationServer:
                 new = {name: r[:, :, None] for name, r in new.items()}
         else:
             cache = dict(self._gather_windows(tables), mask=masks, index=lengths)
-            logits, new_cache = model.verify_step(window, cache)
+            logits, new_cache = model.verify_step(window, cache, lora=lora)
             rows_b = torch.arange(b, device=dev)[:, None]
             new = {name: new_cache[name][:, rows_b, cols] for name in pool.pools()}  # (L, B, W, ...)
         if write:
@@ -835,10 +859,10 @@ class PagedGenerationServer:
                 buf[:, page_ids, :, offsets] = new[name].movedim(0, 2).to(buf.dtype)
         return logits
 
-    def _run_tick(self, impl: str, tables, masks, lengths, tokens, write: bool = True) -> torch.Tensor:
+    def _run_tick(self, impl: str, tables, masks, lengths, tokens, write: bool = True, lora=None) -> torch.Tensor:
         """One decode step over all slots -> (B, V) logits. With ``write``
         each slot's new K/V row is scattered into its page at its cursor."""
-        return self._run_window(impl, tables, masks, lengths, tokens[:, None], write)[:, 0]
+        return self._run_window(impl, tables, masks, lengths, tokens[:, None], write, lora)[:, 0]
 
     @torch.no_grad()
     def tick_logits(self, impl: Optional[str] = None) -> torch.Tensor:
@@ -846,7 +870,8 @@ class PagedGenerationServer:
         ``impl`` ("kernel" or "gathered", default the server's), without
         writing the pools or advancing a slot: for holding one tick program
         against the other on the same state."""
-        return self._run_tick(impl or self.decode_impl, *self._tick_inputs(), write=False)
+        return self._run_tick(impl or self.decode_impl, *self._tick_inputs(), write=False,
+                              lora=slots_lora(self, self.num_slots))
 
     @torch.no_grad()
     def step(self) -> Dict[int, List[int]]:
@@ -858,7 +883,7 @@ class PagedGenerationServer:
                 if slot.active:
                     # Page for the K/V this tick writes at position length.
                     self.pool.allocate(i, slot.length + 1)
-            logits = self._run_tick(self.decode_impl, *self._tick_inputs())
+            logits = self._run_tick(self.decode_impl, *self._tick_inputs(), lora=slots_lora(self, self.num_slots))
             self.ticks += 1
             next_host = self._sample(logits).cpu().numpy()
             for i, slot in enumerate(self._slots):
@@ -895,9 +920,10 @@ class PagedGenerationServer:
                 self.pool.allocate(i, self._slots[i].length + n_eff)
             tables, masks, lengths, tokens = self._tick_inputs()
             rows = torch.arange(self.num_slots, device=self.device)
+            lora = slots_lora(self, self.num_slots)
             toks = []
             for _ in range(n_eff):
-                logits = self._run_tick(self.decode_impl, tables, masks, lengths, tokens)
+                logits = self._run_tick(self.decode_impl, tables, masks, lengths, tokens, lora=lora)
                 self.ticks += 1
                 tokens = self._sample(logits)
                 masks[rows, lengths.long()] = True

@@ -35,6 +35,13 @@ One round (``_speculative_round``):
 The round returns its emitted tokens and counts in one (B, k + 2) int32
 tensor, fetched to the host once per round. The draft runs on the target's
 device; a pair split over two devices raises.
+
+LoRA (``lora=`` on the server, single or multi with
+``submit(lora_index=...)``) mounts on the TARGET side only, its admission
+prefill and its verify: greedy acceptance compares the proposals with the
+adapted target's argmax, and rejection sampling needs only the target's
+distribution exact, so a base draft moves the acceptance rate, never the
+tokens or their distribution.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import torch
 
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import init_kv_cache
-from .continuous_batching import GenerationServer, _Pending
+from .continuous_batching import GenerationServer, _Pending, batch_lora, slots_lora
 from .generate import build_cache
 from .sampling import sample_tokens, speculative_accept
 
@@ -135,15 +142,16 @@ def _rewind(cache: dict, a: torch.Tensor, active: torch.Tensor, k: int) -> dict:
 
 @torch.no_grad()
 def _speculative_round(target: FastVLM, draft: FastVLM, target_cache: dict, draft_cache: dict,
-                       token: torch.Tensor, active: torch.Tensor, generator, *, k: int,
+                       token: torch.Tensor, active: torch.Tensor, generator, target_lora=None, *, k: int,
                        temperature: float = 0.0, top_p: float = 1.0):
     """One draft-verify round -> (packed (B, k + 2), target_cache,
     draft_cache, next_token). Inactive rows emit nothing (count 0) and their
-    caches do not advance."""
+    caches do not advance. ``target_lora`` mounts on the target's verify
+    only (the draft stays the base)."""
     dtoks, dlogits, draft_cache = _draft_propose(draft, draft_cache, token, generator, k=k,
                                                  temperature=temperature, top_p=top_p)
     window = torch.cat([token[:, None], dtoks], dim=1)  # (B, k + 1)
-    tlogits, target_cache = target.verify_step(window, target_cache)
+    tlogits, target_cache = target.verify_step(window, target_cache, lora=target_lora)
     a, correction = _accept(dtoks, dlogits, tlogits, generator, temperature=temperature, top_p=top_p)
     packed = _emit(dtoks, a, correction, active, k)
     target_cache = _rewind(target_cache, a, active, k)
@@ -271,7 +279,8 @@ class SpeculativeGenerationServer(GenerationServer):
     @torch.no_grad()
     def _admit(self, batch: List[_Pending]) -> None:
         ids, mask, images, slots = self._assemble_admission(batch)
-        last_logits, cache_p = self._prefill(self.model, self._cache_len, images, ids, mask)
+        last_logits, cache_p = self._prefill(self.model, self._cache_len, images, ids, mask,
+                                             batch_lora(self, batch, self.prefill_batch))
         first = sample_tokens(last_logits, self._generator, self.temperature, self.top_p)
         _, dcache_p = self._prefill(self.draft, self._draft_cache_len, images, ids, mask)
         slots_d = self._to_device(slots)
@@ -290,7 +299,8 @@ class SpeculativeGenerationServer(GenerationServer):
             active[: self.num_slots] = [s.active for s in self._slots]
             packed, self.cache, self.draft_cache, _ = _speculative_round(
                 self.model, self.draft, self.cache, self.draft_cache, self._device_tokens(),
-                self._to_device(active), self._generator, k=self.k, temperature=self.temperature,
+                self._to_device(active), self._generator, slots_lora(self, self.num_slots + 1), k=self.k,
+                temperature=self.temperature,
                 top_p=self.top_p,
             )
             packed_h = packed.cpu().numpy()  # one fetch a tick

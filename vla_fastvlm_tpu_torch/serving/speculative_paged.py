@@ -32,6 +32,9 @@ chunked admission the draft's prefill runs whole at finalize: chunking
 bounds the target's admission stall, and the draft's prefill is the cheap
 side. ``cache_slack`` is ``k + 1``: reservations and the logical window
 cover one whole window past the accepted length. ``step_n`` raises.
+LoRA (the parent's ``lora=`` and ``submit(lora_index=...)``) mounts on the
+target's admission and verify only; the draft stays the base
+(``serving/speculative.py``).
 
 At ``temperature == 0`` the tokens are the target's greedy tokens, the same
 as the plain ``PagedGenerationServer`` on the target alone (bf16 caveat in
@@ -48,7 +51,7 @@ import torch
 
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import init_kv_cache
-from .continuous_batching import admission_arrays, device_images, make_slot_insert
+from .continuous_batching import admission_arrays, device_images, make_slot_insert, slots_lora
 from .paged_kv import PagedGenerationServer, _Pending
 from .speculative import _accept, _draft_propose, _emit, _rewind, validate_draft_pair
 
@@ -190,7 +193,8 @@ class SpeculativePagedGenerationServer(PagedGenerationServer):
         dtoks, _, _ = _draft_propose(self.draft, self.draft_cache, token, self._generator, k=self.k,
                                      temperature=0.0, top_p=1.0)
         window = torch.cat([token[:, None], dtoks], dim=1)
-        return self._run_window(impl or self.decode_impl, tables, masks, lengths, window, write=False)
+        return self._run_window(impl or self.decode_impl, tables, masks, lengths, window, write=False,
+                                lora=slots_lora(self, self.num_slots + 1))
 
     @torch.no_grad()
     def step(self):
@@ -205,7 +209,8 @@ class SpeculativePagedGenerationServer(PagedGenerationServer):
                     # Pages for the window this tick writes at length .. length + k.
                     self.pool.allocate(i, slot.length + k + 1)
             tables, masks, lengths, token, active = self._round_inputs()
-            verify = lambda window: self._run_window(self.decode_impl, tables, masks, lengths, window)
+            lora = slots_lora(self, self.num_slots + 1)
+            verify = lambda window: self._run_window(self.decode_impl, tables, masks, lengths, window, lora=lora)
             packed, self.draft_cache = _paged_speculative_round(
                 verify, self.draft, self.draft_cache, token, active, self._generator, k=k,
                 temperature=self.temperature, top_p=self.top_p,

@@ -78,7 +78,7 @@ class TrainingConfig:
     prefetch_batches: int = 2
     # Keep only the newest N step-* checkpoints (None / 0: keep all).
     keep_last_n: Optional[int] = 5
-    # Not ported (a mesh is Queue 1 item 10 of ROADMAP.md); must stay False.
+    # Not ported (a mesh is Queue 1 item 7 of ROADMAP.md); must stay False.
     fsdp: bool = False
 
 
@@ -97,7 +97,7 @@ class Trainer:
         if mesh is not None or self.config.fsdp:
             raise NotImplementedError(
                 "mesh / fsdp: sharded training is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
-                "item 10); the port trains on one card"
+                "item 7); the port trains on one card"
             )
         self._validate_precision()
         self.model = model
