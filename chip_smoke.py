@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about twelve minutes
+    python3 chip_smoke.py                 # the full check, about fifteen minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
     python3 chip_smoke.py --only flash    # the flash-attention kernel alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
@@ -13,6 +13,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --only serve    # the serving-CLI phase, after the RepMixer and paged builds and checks
     python3 chip_smoke.py --only surfaces # eval_dataset, the legacy policy, the LeRobot plugin, a config.json directory
     python3 chip_smoke.py --only lora     # LoRA training (0.5B both heads, 7B), multi-LoRA serving, merge_lora
+    python3 chip_smoke.py --only quant    # int8 / int4 / w8a8 weights: ops, policy, serving, 7B target, QLoRA, quality
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -198,13 +199,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    (2e-2), a repeat under another adapter a miss; the speculative-paged
    server with target adapters at the self-draft shape (its acceptance,
    the window kernel against gathered verify logits).
-11. timing: p50 step time and actions/sec of the kernel path and the plain
+11. weight quantization (``io/quantize.py``, ``ops/quant.py``): the int8,
+   int4 (groups of 128) and w8a8 products at one FastVLM-7B layer's
+   projections (fused q/k/v 4608 x 3584, fused gate/up 37888 x 3584, down
+   3584 x 18944), bf16, at 16 tokens (int8, int4) and 2048 (all three),
+   against x @ dequant(W)^T in fp32 (QUANT_OP_REL_L2) and timed beside
+   ``F.linear`` on the bf16 weight; phase 3's policy step for float, int8,
+   int4 and w8a8 (24 flash and 38 RepMixer launches, the kernel path
+   against the plain path within ``POLICY_REL_L2``, w8a8 within
+   QUANT_W8A8_REL_L2, the actions against
+   float within QUANT_ACTION_REL_L2, the p50 step); the serve CLI of phase 7
+   with ``--quantization int8``, ``int4`` and int8 over int8 pools (every
+   request in full, every page back, paged = 24 x ticks), then the paged
+   server on phase 5's stream in float, int8 and int4 (tokens/s, the device
+   time of a decode tick, greedy agreement with float and phase 6's
+   divergence report against the first-token logit difference); the
+   speculative cell's shape with the FastVLM-7B target in bf16 and then
+   quantized to int8 in place behind the 0.5B draft (tokens per slot and
+   round, 28 window launches a round, the target's weight bytes, peak
+   memory); ``scripts.train --quantization int8 --lora-rank 16`` at the
+   yaml's settings for 10 steps (48 flash launches a step, every B moved,
+   the int8 base bit-equal to a fresh build's) and FastVLA-7B QLoRA over an
+   int8 base for 3 steps (peak memory against PR 12's bf16 base); then
+   ``python -m vla_fastvlm_tpu_torch.scripts.eval_quant_quality`` at
+   FastVLM-0.5B, 256 px, and its JSON line.
+12. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
    width's time split into a part per hidden chunk and a fixed part.
 
-``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
+``--only quant`` runs phases 1 and 2 and phase 11, then the card line and
+the last line. ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
 their checks of phase 2 and phase 4, then the card line and the last line.
 ``--only closed_loop`` runs phases 1 and 2 and phase 8, then the card line
 and the last line. ``--only surfaces`` runs phase 1 for the flash-attention
@@ -590,7 +616,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/11] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/12] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -672,7 +698,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/11] kernels against their plain versions")
+    log("[2/12] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -820,14 +846,14 @@ def policy_inputs():
     return images, states, tasks
 
 
-def build_policy(attention_impl: str, vision_block_impl: str):
+def build_policy(attention_impl: str, vision_block_impl: str, quantization: str = "none"):
     from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
 
     cfg = FastVLAConfig(
         vlm_model_name="fastvlm-0.5b", bootstrap_model_name="fastvlm-0.5b",
         image_size=IMAGE, tokenizer_max_length=TEXT_LEN, dtype="bfloat16",
         param_dtype="bfloat16", dropout=0.0, attention_impl=attention_impl,
-        vision_block_impl=vision_block_impl, seed=SEED,
+        vision_block_impl=vision_block_impl, quantization=quantization, seed=SEED,
     )
     return FastVLAPolicy(cfg)
 
@@ -837,7 +863,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/11] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/12] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -1107,7 +1133,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
 
-    log(f"[4/11] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+    log(f"[4/12] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
         f"dropout {TRAIN_DROPOUT}, full depth")
     out = ROOT / "build" / "train_smoke"
@@ -1253,13 +1279,14 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     return result
 
 
-def serving_backbone(kv="none"):
-    """FastVLM-0.5B at 1024 px, bf16, from seed 0 (KV pools of ``kv``)."""
+def serving_backbone(kv="none", quantization="none"):
+    """FastVLM-0.5B at 1024 px, bf16, from seed 0 (KV pools of ``kv``; the
+    decoder's projections quantized with ``quantization``)."""
     from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig
 
     return FastVLMBackbone(FastVLMBackboneConfig(
         model_id="fastvlm-0.5b", bootstrap_model_id="fastvlm-0.5b", dtype="bfloat16",
-        param_dtype="bfloat16", kv_cache_quantization=kv, seed=SEED,
+        param_dtype="bfloat16", kv_cache_quantization=kv, quantization=quantization, seed=SEED,
     ))
 
 
@@ -1369,7 +1396,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[5/11] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[5/12] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -1524,7 +1551,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[6/11] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/12] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1808,45 +1835,55 @@ def check_prefix_paths(model) -> dict:
     return result
 
 
-def phase_serve_cli(model, profile_dir: Path | None = None) -> dict:
-    """The serving-CLI runs, generate and the prefix paths. With
-    ``profile_dir`` each CLI run is traced whole (device activity only; the
-    trace holds the server's build too): its device time by part
-    (STEP_PARTS) and the idle share of its serving loop."""
+def serve_cli_run(name: str, extra: dict, profile_dir: Path | None) -> dict:
+    """One ``scripts.serve`` run in-process on SERVE_CLI with ``extra``,
+    checked by ``check_cli_run``; with ``profile_dir`` traced whole (device
+    activity only): its device time by part and the serving loop's idle share."""
     import contextlib
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
-    from vla_fastvlm_tpu_torch.scripts import generate, serve
+    from vla_fastvlm_tpu_torch.scripts import serve
 
-    log("[7/11] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
+    args = serve.ServeArgs(**dict(SERVE_CLI, **extra))
+    tracer = contextlib.nullcontext() if profile_dir is None else profile(activities=[ProfilerActivity.CUDA])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with tracer:
+        summary = serve.main(args)
+        torch.cuda.synchronize()
+    counts = launch_counts()
+    summary.update(run_s=time.perf_counter() - t0, launches=counts)
+    if profile_dir is not None:
+        (profile_dir / f"serve_cli_{name}.txt").write_text(
+            tracer.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
+        parts = step_parts(tracer, 1)
+        busy = sum(parts.values())
+        loop_ms = summary["total_new_tokens"] / summary["tokens_per_sec"] * 1e3
+        summary.update(device_ms_by_part={k: round(v, 2) for k, v in parts.items()}, device_busy_ms=busy,
+                       device_idle_share=1.0 - busy / loop_ms)
+    log(f"  {name}: launches {counts}")
+    check_cli_run(name, args, summary, counts)
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_serve_cli(model, profile_dir: Path | None = None) -> dict:
+    """The serving-CLI runs, generate and the prefix paths. With
+    ``profile_dir`` each CLI run is traced whole (device activity only; the
+    trace holds the server's build too): its device time by part
+    (STEP_PARTS) and the idle share of its serving loop."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts import generate
+
+    log("[7/12] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
         "paged, prefix cache, chunked admission, both over int8 pools, speculative paged; then generate, and "
         "the prefix paths against whole-prompt prefills")
-    summaries = {}
-    for name, extra in SERVE_CLI_RUNS:
-        args = serve.ServeArgs(**dict(SERVE_CLI, **extra))
-        tracer = contextlib.nullcontext() if profile_dir is None else profile(activities=[ProfilerActivity.CUDA])
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        with tracer:
-            summary = serve.main(args)
-            torch.cuda.synchronize()
-        counts = launch_counts()
-        summary.update(run_s=time.perf_counter() - t0, launches=counts)
-        if profile_dir is not None:
-            (profile_dir / f"serve_cli_{name}.txt").write_text(
-                tracer.key_averages().table(sort_by="self_cuda_time_total", row_limit=30))
-            parts = step_parts(tracer, 1)
-            busy = sum(parts.values())
-            loop_ms = summary["total_new_tokens"] / summary["tokens_per_sec"] * 1e3
-            summary.update(device_ms_by_part={k: round(v, 2) for k, v in parts.items()}, device_busy_ms=busy,
-                           device_idle_share=1.0 - busy / loop_ms)
-        log(f"  {name}: launches {counts}")
-        check_cli_run(name, args, summary, counts)
-        summaries[name] = summary
-        torch.cuda.empty_cache()
+    summaries = {name: serve_cli_run(name, extra, profile_dir) for name, extra in SERVE_CLI_RUNS}
     reset_launch_counts()
     t0 = time.perf_counter()
     text = generate.main(generate.GenerateArgs(model_id="fastvlm-0.5b", bootstrap_model_id="fastvlm-0.5b",
@@ -2059,7 +2096,7 @@ def phase_closed_loop(profile_dir: Path | None = None):
     )
     from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
 
-    log(f"[8/11] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
+    log(f"[8/12] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
         f"DummyEnvs of {LOOP['image_size']}-px frames, state/action {LOOP['state_dim']}, {LOOP['max_steps']} "
         f"control ticks a run ({SPEC_LOOP_TICKS} speculative)")
     t0 = time.perf_counter()
@@ -2470,7 +2507,7 @@ def phase_surfaces() -> dict:
 
     from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
 
-    log(f"[9/11] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
+    log(f"[9/12] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
         f"from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters): checkpoints, "
         "eval_dataset, the legacy FastVLMPolicy, the LeRobot plugin, a config.json directory")
     out = ROOT / "build" / "surfaces_smoke"
@@ -2525,14 +2562,16 @@ LORA_MERGE_REL_L2, LORA_MERGE_FP32_REL_L2 = POLICY_REL_L2, 1e-4
 
 
 def lora_policy(head="mlp", impl="auto", image=TRAIN_IMAGE, dtype="bfloat16", model=TRAIN_MODEL,
-                param_dtype="float32"):
-    """FastVLA with LoRA adapters of rank LORA_RANK at the yaml's settings, on the card."""
+                param_dtype="float32", quantization="none"):
+    """FastVLA with LoRA adapters of rank LORA_RANK at the yaml's settings, on the card
+    (over a base quantized with ``quantization``: QLoRA)."""
     from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
 
     cfg = FastVLAConfig(
         vlm_model_name=model, bootstrap_model_name=model, image_size=image, tokenizer_max_length=TEXT_LEN,
         dtype=dtype, param_dtype=param_dtype, dropout=TRAIN_DROPOUT, attention_impl=impl, vision_block_impl=impl,
-        hidden_dim=1024, fusion_dim=1024, lora_rank=LORA_RANK, action_head=head, state_dim=ALOHA_DIM, action_dim=ALOHA_DIM, seed=SEED)
+        hidden_dim=1024, fusion_dim=1024, lora_rank=LORA_RANK, action_head=head, state_dim=ALOHA_DIM,
+        action_dim=ALOHA_DIM, quantization=quantization, seed=SEED)
     return (FastVLMTokenPolicy if head == "token" else FastVLAPolicy)(cfg, device=TRAIN_DEVICE)
 
 
@@ -2608,10 +2647,11 @@ def check_lora_launches(what: str, counts: dict, backwards: dict, steps: int, la
         fail(f"{what}: launches {counts} / backward calls {backwards} != {expect} / {expect_bw}")
 
 
-def lora_train_cli(head: str, out: Path) -> dict:
+def lora_train_cli(head: str, out: Path, extra: tuple = ()) -> dict:
     """``python -m vla_fastvlm_tpu_torch.scripts.train --lora-rank 16`` in-process
     at the yaml's settings (their values as flags: the card's machine may
-    lack ``yaml``) on synthetic records, LORA_STEPS steps saving at the last."""
+    lack ``yaml``) on synthetic records, LORA_STEPS steps saving at the last;
+    ``extra``: more flags (``--quantization int8``: QLoRA)."""
     import torch
 
     from vla_fastvlm_tpu_torch.io.lora import load_lora, lora_num_params
@@ -2626,7 +2666,7 @@ def lora_train_cli(head: str, out: Path) -> dict:
              "--tokenizer-max-length", str(TEXT_LEN), "--learning-rate", str(TRAIN_LR), "--weight-decay",
              str(TRAIN_WD), "--max-steps", str(LORA_STEPS), "--save-steps", str(LORA_STEPS), "--logging-steps", "1",
              "--eval-split", "none", "--num-workers", "2", "--lora-rank", str(LORA_RANK), "--action-head", head,
-             "--output-dir", str(out), "--device", TRAIN_DEVICE, "--seed", str(TRAIN_SEED)]
+             "--output-dir", str(out), "--device", TRAIN_DEVICE, "--seed", str(TRAIN_SEED), *extra]
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2634,8 +2674,8 @@ def lora_train_cli(head: str, out: Path) -> dict:
         train_cli.main(parse_cli(train_cli.TrainArgs, flags))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    check_lora_launches(f"{head} head: scripts.train --lora-rank {LORA_RANK}, {LORA_STEPS} steps", launch_counts(),
-                        dict(backwards), LORA_STEPS)
+    check_lora_launches(f"{head} head: scripts.train --lora-rank {LORA_RANK} {' '.join(extra)}, {LORA_STEPS} steps",
+                        launch_counts(), dict(backwards), LORA_STEPS)
     lines = read_metrics(out)
     ckpt = out / "checkpoints" / f"step-{LORA_STEPS}"
     if [ln["step"] for ln in lines] != list(range(1, LORA_STEPS + 1)) or not ckpt.is_dir():
@@ -2719,8 +2759,9 @@ def lora_train_checks(head: str, ckpt: Path, records, profile_dir: Path | None) 
     return result
 
 
-def lora_train_7b(records, profile_dir: Path | None) -> dict:
-    """FastVLA-7B with rank-16 adapters: bf16 base, fp32 adapters, the yaml's batch."""
+def lora_train_7b(records, profile_dir: Path | None, quantization: str = "none") -> dict:
+    """FastVLA-7B with rank-16 adapters: bf16 base (quantized with
+    ``quantization``: QLoRA), fp32 adapters, the yaml's batch."""
     import math
 
     import torch
@@ -2731,10 +2772,10 @@ def lora_train_7b(records, profile_dir: Path | None) -> dict:
 
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    policy = lora_policy(model="fastvlm-7b", param_dtype="bfloat16")
+    policy = lora_policy(model="fastvlm-7b", param_dtype="bfloat16", quantization=quantization)
     lora = policy.params["lora"]
     adapters = lora_num_params(lora_owner(policy).lora)
-    base = policy.params["backbone"]
+    base = lora_owner(policy).backbone.model.state_dict()  # a quantized base's codes and scales too
     probe = {n: base[n].detach().clone() for n in list(base)[::40]}
     trainer = Trainer(policy, [], None, train_config(ROOT / "build", max_steps=LORA_7B_STEPS, warmup_ratio=0.0))
     arrays = policy.to_device(policy.prepare_batch(aloha_batch(records[:TRAIN_BATCH])))
@@ -2751,7 +2792,8 @@ def lora_train_7b(records, profile_dir: Path | None) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-    check_lora_launches(f"FastVLA-7B LoRA, {LORA_7B_STEPS} steps", launch_counts(), dict(backwards), LORA_7B_STEPS,
+    label = "FastVLA-7B LoRA" if quantization == "none" else f"FastVLA-7B QLoRA ({quantization} base)"
+    check_lora_launches(f"{label}, {LORA_7B_STEPS} steps", launch_counts(), dict(backwards), LORA_7B_STEPS,
                         TARGET_LAYERS)
     b_any = all(bool(p.any()) for n, p in lora.items() if n.endswith(".b"))
     base_same = all(torch.equal(base[n], v) for n, v in probe.items())
@@ -2759,23 +2801,24 @@ def lora_train_7b(records, profile_dir: Path | None) -> dict:
     result = dict(adapter_params=adapters, base_params=sum(p.numel() for p in base.values()), build_s=build_s,
                   p50_step_ms=statistics.median(times), step_ms=times, losses=losses, peak_gib=peak,
                   adapter_dtypes=dtypes[0], base_dtypes=dtypes[1])
-    log(f"  FastVLA-7B LoRA: {adapters / 1e6:.2f} M adapter parameters ({dtypes[0]}) over "
+    log(f"  {label}: {adapters / 1e6:.2f} M adapter parameters ({dtypes[0]}) over "
         f"{result['base_params'] / 1e9:.2f} B base ({dtypes[1]}); steps {[round(t, 1) for t in times]} ms "
         f"(p50 {result['p50_step_ms']:.1f}, the first includes warm-up), losses {[round(x, 4) for x in losses]}; "
         f"peak memory of the policy and its steps {peak:.2f} GiB; every B non-zero {b_any}, {len(probe)} sampled "
         f"base tensors bit-equal {base_same}; built in {build_s:.1f} s")
     if not (b_any and base_same) or not all(map(math.isfinite, losses)):
-        fail(f"FastVLA-7B LoRA: B non-zero {b_any}, base bit-equal {base_same}, losses {losses}")
+        fail(f"{label}: B non-zero {b_any}, base bit-equal {base_same}, losses {losses}")
     if profile_dir is not None:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer._train_step(arrays)
             torch.cuda.synchronize()
-        (profile_dir / "train_lora_7b_profile.txt").write_text(
+        name = "train_lora_7b" if quantization == "none" else f"train_qlora_7b_{quantization}"
+        (profile_dir / f"{name}_profile.txt").write_text(
             prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
         result["device_ms_by_part"] = step_parts(prof, 1)
-        log(f"  FastVLA-7B LoRA step device time by part: {json.dumps(result['device_ms_by_part'])}")
+        log(f"  {label} step device time by part: {json.dumps(result['device_ms_by_part'])}")
     del trainer, policy, probe
     torch.cuda.empty_cache()
     return result
@@ -2959,7 +3002,7 @@ def phase_lora(profile_dir: Path | None = None, base_cli: dict | None = None, se
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import serve
 
-    log(f"[10/11] LoRA: rank {LORA_RANK} on the decoder's 7 projections, frozen base: FastVLA-0.5B training at "
+    log(f"[10/12] LoRA: rank {LORA_RANK} on the decoder's 7 projections, frozen base: FastVLA-0.5B training at "
         f"configs/train_aloha.yaml's settings (MLP and token heads), FastVLA-7B training, multi-LoRA serving "
         f"(FastVLM-0.5B, 1024 px), speculative paged with target adapters, merge_lora")
     out = ROOT / "build" / "lora_smoke"
@@ -3103,10 +3146,347 @@ def merge_check(ckpt: Path, out: Path, obs, label: str, bf16_limit) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# weight quantization
+
+# One FastVLM-7B decoder layer's projections (out, in): the fused q/k/v
+# (28 + 2 x 4 heads of 128), the fused gate/up, and down.
+QUANT_OPS = [("qkv_proj", 4608, 3584), ("gate_up_proj", 2 * 18944, 3584), ("down_proj", 3584, 18944)]
+# Tokens of a decode tick (16 slots) and of a prefill; w8a8 engages at 1024.
+QUANT_DECODE_TOKENS, QUANT_PREFILL_TOKENS = 16, 2048
+# A product against x @ dequant(W)^T in fp32 on the same bf16 inputs,
+# relative L2: the weight-only paths round only in bf16 (the output, the
+# scale, the scaled int4 weights; 2^-8 = 3.9e-3 per rounding); w8a8 also
+# rounds each token's activations to 127 steps of its absmax, 0.9% of a
+# unit-variance input at K = 3584 (absmax near 4 sigma, error of a step over
+# sqrt(12)).
+QUANT_OP_REL_L2 = {"int8": 1e-2, "int4": 1e-2, "w8a8": 3e-2}
+# The quantized policy's actions against the float policy's, relative L2, on
+# random weights. The init truncates at 2 std, so a row's (int8) or a
+# 128-group's (int4) absmax is near 2.2 sigma: a rounding error of 0.52%
+# rms of a weight for int8 and 8.7% for int4 (a step over sqrt(12)); w8a8
+# adds about 1% on each projection's input. The 48 quantized sublayers
+# carry it to the actions about 7-fold (measured on an H100: int8 3.97e-2,
+# int4 0.554). Bounds at about twice that, under the sqrt(2) of unrelated
+# actions; the products themselves are held against the dequantized
+# reference above (QUANT_OP_REL_L2) and the kernel path against the plain path.
+QUANT_ACTION_REL_L2 = {"int8": 1e-1, "w8a8": 2e-1, "int4": 1.0}
+# w8a8's kernel path against its plain path: each projection rounds its
+# input to 127 steps of the token's absmax, a step function, so any
+# difference between the paths moves some codes by a step, and the moved
+# codes move more in the next layers: over 48 quantized sublayers the gap
+# grows to the scale of w8a8's own error against float (6.2e-2). Measured on
+# an H100: 4.92e-2 in bf16, and 2.73e-2 in fp32, where the paths differ by
+# 1e-6 per op. Held at 1e-1, about the sum of the two paths' distances to
+# float; int8 and int4, continuous in their inputs, keep POLICY_REL_L2.
+QUANT_W8A8_REL_L2 = 1e-1
+# The serving CLI runs of the phase: SERVE_CLI's stream, whole-prompt admission.
+QUANT_CLI_RUNS = [("paged_int8", dict(quantization="int8")), ("paged_int4", dict(quantization="int4")),
+                  ("paged_int8_kv_int8", dict(quantization="int8", kv_cache_quantization="int8"))]
+# FastVLM-7B's QLoRA steps against PR 12's bf16 base on the same card (16.89 GiB).
+QLORA_BF16_PEAK_GIB = 16.89
+
+
+def weight_bytes(module) -> int:
+    """Bytes of a module's parameters and buffers (codes and scales of a quantized one)."""
+    return sum(t.numel() * t.element_size() for t in module.state_dict().values())
+
+
+def quant_ops() -> dict:
+    """Each product of QUANT_OPS in bf16 against the fp32 dequantized
+    reference, and its time beside ``F.linear`` on the bf16 weight."""
+    import torch
+    import torch.nn.functional as F
+
+    from vla_fastvlm_tpu_torch.ops import quant
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for name, n, k in QUANT_OPS:
+        w = (torch.randn((n, k), generator=gen, device="cuda") / k ** 0.5).to(torch.bfloat16)
+        leaves = {"int8": quant.quantize_kernel(w), "int4": quant.quantize_kernel_int4(w)}
+        deq = {"int8": leaves["int8"]["qweight"].float() * leaves["int8"]["scale"][:, None],
+               "int4": (quant.unpack_int4(leaves["int4"]["qweight"]).float().reshape(n, leaves["int4"]["scale"].shape[0], -1)
+                        * leaves["int4"]["scale"].t()[:, :, None]).reshape(n, k)}
+        sizes = {"bf16": w.numel() * 2, **{m: sum(t.numel() * t.element_size() for t in leaves[m].values())
+                                           for m in leaves}}
+        for tokens in (QUANT_DECODE_TOKENS, QUANT_PREFILL_TOKENS):
+            x = torch.randn((tokens, k), generator=gen, device="cuda").to(torch.bfloat16)
+            iters = 50 if tokens == QUANT_DECODE_TOKENS else 10
+            row = {"bf16_ms": time_ms(lambda: F.linear(x, w), iters)}
+            for mode in ("int8", "int4", "w8a8"):
+                if mode == "w8a8" and tokens < quant.W8A8_MIN_TOKENS:
+                    continue
+                leaf, aq = leaves["int4" if mode == "int4" else "int8"], mode == "w8a8"
+                y = quant.dense_apply(x, leaf, torch.bfloat16, act_quant=aq)
+                ref = x.float() @ deq["int4" if mode == "int4" else "int8"].t()
+                err = rel_l2(y, ref)
+                row[f"{mode}_rel_l2"] = err
+                row[f"{mode}_ms"] = time_ms(lambda: quant.dense_apply(x, leaf, torch.bfloat16, act_quant=aq), iters)
+                if not (bool(torch.isfinite(y).all()) and err <= QUANT_OP_REL_L2[mode]):
+                    fail(f"{name} {mode} at {tokens} tokens: rel_l2 {err:.3e} (limit {QUANT_OP_REL_L2[mode]:g})")
+            out[f"{name} M={tokens}"] = row
+            log(f"  7B {name} ({n} x {k}) at {tokens} tokens: " + ", ".join(
+                f"{key} {v:.4f}" if key.endswith("_ms") else f"{key} {v:.2e}" for key, v in row.items()))
+        out[f"{name} bytes"] = sizes
+        log(f"  7B {name} weight bytes: {sizes}")
+        del w, leaves, deq
+        torch.cuda.empty_cache()
+    return out
+
+
+def quant_policy_steps() -> dict:
+    """FastVLA-0.5B at phase 3's shape per mode: launches, the kernel path
+    against the plain path, actions against float, the p50 step."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.io.quantize import count_quantized
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    images, states, tasks = policy_inputs()
+    out, float_actions = {}, None
+    for mode in ("none", "int8", "int4", "w8a8"):
+        policy = build_policy("auto", "auto", mode)
+        bb = policy.model.backbone
+        reset_launch_counts()
+        actions = policy.forward(images, states, tasks)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expect = {"flash_attention": 24, "repmixer_block": 38, "paged_attention": 0, "paged_attention_window": 0}
+        if counts != expect or tuple(actions.shape) != (BATCH, 14) or not bool(torch.isfinite(actions).all()):
+            fail(f"policy {mode}: launches {counts} (expected {expect}), actions {tuple(actions.shape)}")
+        row = dict(quantized_kernels=count_quantized(bb.model), weight_bytes=weight_bytes(bb.model), launches=counts)
+        if mode == "none":
+            float_actions = actions.float()
+        else:
+            plain = build_policy("xla", "xla", mode)
+            row["kernel_vs_plain"] = rel_l2(actions, plain.forward(images, states, tasks))
+            row["vs_float"] = rel_l2(actions, float_actions)
+            del plain
+            limit = QUANT_W8A8_REL_L2 if mode == "w8a8" else POLICY_REL_L2
+            if not (row["quantized_kernels"] == 7 and row["kernel_vs_plain"] <= limit
+                    and row["vs_float"] <= QUANT_ACTION_REL_L2[mode]):
+                fail(f"policy {mode}: {row}")
+        ids, mask = (bb.to_device(a) for a in bb._prep_text(policy.processor.prepare_tasks(tasks, BATCH)))
+        img, st = bb.to_device(bb._as_bchw(images)), bb.to_device(states)
+        times = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            policy.model.apply_fn(img, ids, mask, st)
+            torch.cuda.synchronize()
+            if i >= 2:  # two warm-up steps
+                times.append((time.perf_counter() - t0) * 1e3)
+        row.update(p50_step_ms=statistics.median(times), min_step_ms=min(times), max_step_ms=max(times))
+        out[mode] = row
+        log(f"  policy step {mode}: {json.dumps(row)}")
+        del policy, bb, img, ids, mask, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def quant_serving(profile_dir: Path | None) -> dict:
+    """The serve CLI quantized, then the paged server on the stream per mode
+    (tokens/s, device time a decode tick, greedy agreement with float)."""
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.models.qwen2 import init_kv_cache
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    out = {name: serve_cli_run(name, extra, profile_dir) for name, extra in QUANT_CLI_RUNS}
+    for name, s in out.items():
+        log(f"  serve_cli {name}: tokens/s {s['tokens_per_sec']:.1f}, p50 tick {s['p50_tick_ms']:.2f} ms, p50 decode "
+            f"tick {s['p50_decode_tick_ms']:.2f} ms, max tick {s['max_tick_ms']:.2f} ms, ticks {s['ticks']}"
+            + ("" if "device_idle_share" not in s else f", device idle share {s['device_idle_share']:.3f}"))
+    reqs = serve_stream()
+    models = {mode: serving_backbone(quantization=mode).model for mode in ("none", "int8", "int4")}
+    # The largest |quantized - float| first-token logit over 8 requests: the
+    # scale of a divergence quantization alone explains.
+    ids, mask, images = (torch.from_numpy(np.concatenate([r[j] for r in reqs[:8]])).cuda() for j in range(3))
+    first = {}
+    with torch.no_grad():
+        for mode, m in models.items():
+            cache = init_kv_cache(m.cfg.text, 8, N_IMG + ids.shape[1] + 1, device="cuda")
+            first[mode] = m.prefill(images, ids, mask, cache)[0].float()
+    outputs = {}
+    for mode, m in models.items():
+        server = new_server(m, "kernel")
+        reset_launch_counts()
+        table = None if profile_dir is None else profile_dir / f"serve_quant_{mode}_ticks.txt"
+        finished, summary = run_stream(server, reqs, table)
+        counts = launch_counts()
+        check_answers(f"paged {mode}", server, finished, SERVE_REQUESTS, SERVE["max_new_tokens"])
+        expect = {"flash_attention": 0, "repmixer_block": 38 * server.admissions,
+                  "paged_attention": DECODER_LAYERS * server.ticks, "paged_attention_window": 0}
+        if counts != expect:
+            fail(f"paged {mode}: launch counts {counts} != {expect}")
+        outputs[mode] = finished
+        if mode != "none":
+            summary["greedy_agreement_with_float"] = same_tokens(finished, outputs["none"])
+            summary["first_token_logit_err"] = float((first[mode] - first["none"]).abs().max())
+            summary["first_token_rel_l2"] = rel_rows(first[mode], first["none"])
+        out[f"stream_{mode}"] = summary
+        log(f"  paged {mode}: {json.dumps(summary)}")
+        del server
+        torch.cuda.empty_cache()
+    for mode in ("int8", "int4"):
+        divergence_report(models["none"], reqs, outputs[mode], outputs["none"],
+                          out[f"stream_{mode}"]["first_token_logit_err"], f"paged {mode} against float")
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_speculative() -> dict:
+    """The speculative cell's shape with the FastVLM-7B target in bf16 and
+    then quantized to int8 in place: acceptance, window launches, the
+    weights' bytes and the peak memory of each run."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.io.quantize import quantize_params
+    from vla_fastvlm_tpu_torch.models import FastVLMConfig, fastvithd, qwen2_0_5b, qwen2_7b
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    bf16 = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    target = build_model(FastVLMConfig(vision=fastvithd(**bf16), text=qwen2_7b(**bf16), image_size=1024), SEED)
+    draft = build_model(FastVLMConfig(vision=fastvithd(**bf16), text=qwen2_0_5b(vocab_size=TARGET_VOCAB, **bf16),
+                                      image_size=1024), SEED + 1)
+    reqs = serve_stream()[:SPEC_REQUESTS]
+    out, outputs = {}, {}
+    for mode in ("bf16", "int8"):
+        if mode == "int8":
+            t0 = time.perf_counter()
+            quantize_params(target, mode="int8")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            out["quantize_s"] = time.perf_counter() - t0
+        server = new_spec_server(target, draft, "kernel")
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        finished, summary = run_stream(server, reqs, None, SPEC["num_slots"], SPEC_ARRIVALS)
+        counts = launch_counts()
+        check_answers(f"spec {mode}", server, finished, SPEC_REQUESTS, SPEC["max_new_tokens"])
+        expect = {"flash_attention": 0, "repmixer_block": 2 * 38 * server.admissions, "paged_attention": 0,
+                  "paged_attention_window": TARGET_LAYERS * server.spec_ticks}
+        if counts != expect:
+            fail(f"spec {mode}: launch counts {counts} != {expect}")
+        summary.update(target_weight_bytes=weight_bytes(target), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       window_launches_per_round=counts["paged_attention_window"] / server.spec_ticks)
+        outputs[mode] = finished
+        out[mode] = summary
+        log(f"  7B {mode} target, 0.5B draft: {json.dumps(summary)}")
+        del server
+        torch.cuda.empty_cache()
+    out["greedy_agreement"] = same_tokens(outputs["int8"], outputs["bf16"])
+    log(f"  7B int8 against bf16 target: weights {out['int8']['target_weight_bytes'] / 2**30:.2f} GiB against "
+        f"{out['bf16']['target_weight_bytes'] / 2**30:.2f} GiB, peak {out['int8']['peak_gib']:.2f} against "
+        f"{out['bf16']['peak_gib']:.2f} GiB, tokens per slot and round {out['int8']['tokens_per_slot_round']:.3f} "
+        f"against {out['bf16']['tokens_per_slot_round']:.3f}, greedy agreement {out['greedy_agreement']:.4f}")
+    del target, draft
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_qlora(records, profile_dir: Path | None, out_dir: Path) -> dict:
+    """``scripts.train --quantization int8 --lora-rank 16`` at the yaml's
+    settings (B moves, the int8 base bit-equal to a fresh build), then
+    FastVLA-7B QLoRA over an int8 base."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAPolicy
+    from vla_fastvlm_tpu_torch.io.checkpoint import load_policy_from_checkpoint
+    from vla_fastvlm_tpu_torch.io.quantize import count_quantized
+
+    result = {"cli": lora_train_cli("mlp", out_dir / "qlora", ("--quantization", "int8"))}
+    loaded, _ = load_policy_from_checkpoint(result["cli"]["checkpoint"], device=TRAIN_DEVICE)
+    fresh = FastVLAPolicy(loaded.config, device=TRAIN_DEVICE)
+    got, ref = loaded.model.backbone.model.state_dict(), fresh.model.backbone.model.state_dict()
+    base_same = sorted(got) == sorted(ref) and all(torch.equal(got[k], ref[k]) for k in ref)
+    b_moved = all(bool(p.any()) for n, p in loaded.params["lora"].items() if n.endswith(".b"))
+    quantized = count_quantized(loaded.model.backbone.model)
+    codes = sum(t.dtype == torch.int8 for t in got.values())
+    log(f"  QLoRA checkpoint: {quantized} quantized kernels ({codes} int8 tensors), every B moved {b_moved}, the "
+        f"int8 base bit-equal to a fresh build's {base_same}")
+    if not (base_same and b_moved and quantized == 7):
+        fail(f"QLoRA checkpoint: base bit-equal {base_same}, B moved {b_moved}, {quantized} quantized kernels")
+    result.update(base_bit_equal=base_same, b_moved=b_moved)
+    del loaded, fresh, got, ref
+    torch.cuda.empty_cache()
+    result["7b"] = lora_train_7b(records, profile_dir, quantization="int8")
+    log(f"  FastVLA-7B QLoRA peak memory {result['7b']['peak_gib']:.2f} GiB against the bf16 base's "
+        f"{QLORA_BF16_PEAK_GIB} GiB (PR 12)")
+    return result
+
+
+def quant_quality() -> dict:
+    """``python -m vla_fastvlm_tpu_torch.scripts.eval_quant_quality`` at
+    FastVLM-0.5B, 256 px, in-process (its w8a8 gate restored after)."""
+    import math
+
+    from vla_fastvlm_tpu_torch.ops import quant
+    from vla_fastvlm_tpu_torch.scripts import eval_quant_quality
+
+    gate = quant.W8A8_MIN_TOKENS
+    try:
+        summary = eval_quant_quality.main(eval_quant_quality.Args(model_id="fastvlm-0.5b", image_size=256,
+                                                                  device="cuda"))
+    finally:
+        quant.W8A8_MIN_TOKENS = gate
+    bad = [k for k, v in summary.items() if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        fail(f"eval_quant_quality: non-finite {bad}")
+    return summary
+
+
+def phase_quant(profile_dir: Path | None = None) -> dict:
+    """Phase 11."""
+    import shutil
+
+    import torch
+
+    from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
+
+    log("[11/12] weight quantization: int8 / int4 / w8a8 products at FastVLM-7B's layer shapes, the FastVLA-0.5B "
+        "policy step, paged serving and the serve CLI, the 7B int8 target behind a 0.5B draft, QLoRA (0.5B CLI, "
+        "7B), eval_quant_quality")
+    out_dir = ROOT / "build" / "quant_smoke"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    result = {}
+    try:
+        result["ops"] = quant_ops()
+        lap("ops")
+        result["policy"] = quant_policy_steps()
+        lap("policy")
+        result["serving"] = quant_serving(profile_dir)
+        lap("serving")
+        result["speculative"] = quant_speculative()
+        lap("speculative")
+        records = SyntheticAlohaSource(num_samples=TRAIN_BATCH, image_hw=TRAIN_FRAME_HW, seed=SEED)
+        result["qlora"] = quant_qlora(records, profile_dir, out_dir)
+        lap("qlora")
+        result["quality"] = quant_quality()
+        lap("quality")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    result["card"] = card_line()
+    log(f"  seconds by part: {laps}; card: {result['card']}")
+    log(json.dumps({"quant": result}))
+    return result
+
+
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[11/11] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[12/12] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -3405,7 +3785,7 @@ def main(argv=None) -> int:
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
     parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve", "surfaces",
-                                           "lora"],
+                                           "lora", "quant"],
                         default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
@@ -3417,7 +3797,8 @@ def main(argv=None) -> int:
                              "libraries, their checks and the closed-loop phase; serve: the RepMixer and paged "
                              "libraries, their checks and the serving-CLI phase; surfaces: the flash and RepMixer "
                              "libraries, their checks and the surfaces phase; lora: the four libraries, their checks "
-                             "and the LoRA phase)")
+                             "and the LoRA phase; quant: the four libraries, their checks and the weight-quantization "
+                             "phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -3436,9 +3817,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/11] flash-attention kernel against its plain version")
+        log("[2/12] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[11/11] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[12/12] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3447,9 +3828,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/11] RepMixer kernel against its plain version")
+        log("[2/12] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[11/11] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[12/12] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -3457,7 +3838,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "train":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/11] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/12] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         if args.profile is not None:
@@ -3483,7 +3864,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "serve":
         phase_build(("repmixer", "paged_attention", "paged_window"))
-        log("[2/11] RepMixer and paged-attention kernels against their plain versions")
+        log("[2/12] RepMixer and paged-attention kernels against their plain versions")
         check_repmixer()
         check_paged()
         if args.profile is not None:
@@ -3497,7 +3878,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "surfaces":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/11] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/12] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         phase_surfaces()
@@ -3519,11 +3900,23 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if args.only == "quant":
+        phase_build()
+        phase_kernels()
+        if args.profile is not None:
+            args.profile.mkdir(parents=True, exist_ok=True)
+        phase_quant(args.profile)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/11] paged-attention kernels against their plain versions")
+        log("[2/12] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[11/11] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[12/12] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -3555,6 +3948,8 @@ def main(argv=None) -> int:
     timed("surfaces", phase_surfaces)
     torch.cuda.empty_cache()
     timed("lora", phase_lora, args.profile, cli_summaries, spec_summaries.get("self_draft"))
+    torch.cuda.empty_cache()
+    timed("quant", phase_quant, args.profile)
     torch.cuda.empty_cache()
     timings = timed("timing", phase_timing, policy, plain, step)
     log(f"seconds per phase: {phase_s}")

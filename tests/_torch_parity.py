@@ -119,3 +119,27 @@ def lerobot_stub(*packages):
         for name in [name for name in sys.modules if held(name)]:
             del sys.modules[name]
         sys.modules.update(saved)
+
+
+def random_quantized_params(tree, seed=0):
+    """Seeded numpy parameters shaped like ``tree`` (``random_params``), with
+    every node whose kernel ``tree`` holds quantized (int8, or int4 with the
+    group its scales imply) quantized from its random float kernel by the
+    JAX package's ``quantize_kernel`` / ``quantize_kernel_int4``."""
+    from vla_fastvlm_tpu.ops.quant import quantize_kernel, quantize_kernel_int4
+
+    floats = random_params(tree, seed)
+
+    def walk(node, fnode):
+        if not isinstance(node, dict):
+            return fnode
+        kernel = node.get("kernel")
+        kind = getattr(getattr(kernel, "dtype", None), "name", None)
+        if kind == "int8":
+            return dict(fnode, **quantize_kernel(fnode["kernel"]))
+        if kind == "int4":
+            group = kernel.shape[-2] // node["scale"].shape[-2]
+            return dict(fnode, **quantize_kernel_int4(fnode["kernel"], group))
+        return {k: walk(v, fnode[k]) for k, v in node.items()}
+
+    return walk(tree, floats)

@@ -308,10 +308,15 @@ class TestCLI:
         assert summary["total_actions"] == 6 and summary["server_ticks_per_control_tick"] == 1.0
 
     @pytest.mark.parametrize("kw,err", [(dict(dp=2), NotImplementedError), (dict(tp=2), NotImplementedError),
-                                        (dict(quantization="int8"), NotImplementedError),
+                                        (dict(quantization="int8"), None),
                                         (dict(serving="paged"), ValueError),
                                         (dict(action_head="token", serving="sharded"), ValueError),
-                                        (dict(env="mujoco"), ValueError)])
+                                        (dict(env="mujoco"), ValueError),
+                                        (dict(quantization="int3"), ValueError)])
     def test_refusals(self, kw, err):
+        if err is None:  # ported: --quantization int8 runs
+            summary = main(ClosedLoopArgs(**dict(CLI, **kw)))
+            assert summary["total_actions"] == 6 and summary["device"] == "cpu"
+            return
         with pytest.raises(err):
             main(ClosedLoopArgs(**dict(CLI, **kw)))

@@ -594,3 +594,40 @@ def test_whole_prefix_hit_leaves_shared_pages_on_the_card(cuda):
         assert torch.equal(buf[:, pages], before[name]), name
     ref = _prefill_logits(model, [req], cuda)[0]
     assert float((entry["logits"] - ref).norm() / ref.norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("mode,tokens", [("int8", 16), ("int4", 16), ("int4", 512), ("w8a8", 1024)])
+def test_quantized_products_on_the_card(cuda, mode, tokens):
+    """The quantized products (plain torch: the codes converted each call;
+    w8a8 through ``torch._int_mm`` at 1024 tokens) on the card in fp32
+    against the same call on the CPU, within 1e-5 relative (the int32
+    accumulation of w8a8 is exact on both)."""
+    from vla_fastvlm_tpu_torch.ops import quant
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    w = torch.randn(384, 512, generator=g) / 512 ** 0.5
+    x = torch.randn(tokens, 512, generator=g)
+    leaf = quant.quantize_kernel_int4(w) if mode == "int4" else quant.quantize_kernel(w)
+    ref = quant.dense_apply(x, leaf, torch.float32, act_quant=mode == "w8a8")
+    got = quant.dense_apply(x.to(cuda), {k: v.to(cuda) for k, v in leaf.items()}, torch.float32,
+                            act_quant=mode == "w8a8")
+    assert float((got.cpu() - ref).norm() / ref.norm()) <= 1e-5
+
+
+def test_quantized_paged_server_on_the_card(cuda):
+    """An int8 FastVLM-0.5B decoder (64 px, fp32) on the paged server over
+    the kernels: 24 paged launches a tick, and the tokens of the int8
+    model's own ``generate``."""
+    from vla_fastvlm_tpu_torch.io.quantize import quantize_params
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer, generate
+
+    model = quantize_params(_card_vlm(cuda), mode="int8")
+    req = _template_requests(1)[0]
+    server = PagedGenerationServer(model, num_slots=2, prompt_len=48, max_new_tokens=4, eos_token_id=-1,
+                                   page_size=16, prefill_batch=1)
+    reset_launch_counts()
+    rid = server.submit(*req)
+    out = server.run_to_completion()
+    assert launch_counts()["paged_attention"] == 24 * server.ticks
+    ref = generate(model, req[2], req[0], req[1], max_new_tokens=4, eos_token_id=-1)
+    assert out[rid] == ref[0].tolist()

@@ -167,8 +167,19 @@ class TestQwen2:
             np.testing.assert_allclose(a(t(ids))[0].numpy(), b(t(ids))[0].numpy(), atol=1e-6)
 
     def test_rejects_unported_quantization(self):
-        with pytest.raises(NotImplementedError):
-            t_qwen.Qwen2Model(t_qwen.qwen2_tiny(quantization="int8"))
+        """An unknown mode raises; an int8 model builds, quantizes and runs."""
+        with pytest.raises(ValueError, match="unknown quantization"):
+            t_qwen.Qwen2Model(t_qwen.qwen2_tiny(quantization="int5"))
+        from vla_fastvlm_tpu_torch.io.quantize import count_quantized, quantize_params
+        from vla_fastvlm_tpu_torch.models import init_weights
+
+        model = t_qwen.Qwen2ForCausalLM(t_qwen.qwen2_tiny(quantization="int8"))
+        init_weights(model, torch.Generator().manual_seed(0))
+        quantize_params(model, mode="int8")
+        assert count_quantized(model) == 7
+        with torch.no_grad():
+            logits = model(t(np.arange(5, dtype=np.int32)[None]))[0]
+        assert logits.shape == (1, 5, 512) and bool(torch.isfinite(logits).all())
 
 
 class TestHeads:

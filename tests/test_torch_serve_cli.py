@@ -5,14 +5,18 @@
 admission, and speculative paged servers, against ``scripts/serve.py``'s
 ``main`` run in-process on the same arguments and weights: the summary's
 ``total_new_tokens``, ``ticks``, prefix-cache hits and misses and the
-speculative ``tokens_per_tick`` are equal. ``... .generate`` prints the same
-text as ``scripts/generate.py`` on the zero image. The flags that are not
-ported raise.
+speculative ``tokens_per_tick`` are equal, and so with ``--quantization
+int8`` on the paged server. ``... .generate`` prints the same text as
+``scripts/generate.py`` on the zero image, float and with ``--quantization
+int4``. The flags that are not ported raise, as does an unknown
+quantization mode.
 
 Both sides build their backbones from the same presets and seeds; the test
 replaces the JAX backbones' parameters with numpy values from seeds (the
-token embedding scaled by 0.1, ``tests/_torch_parity.py``) and loads the
-same values into the port's backbones, in the order the scripts build them.
+token embedding scaled by 0.1, ``tests/_torch_parity.py``; a quantized
+backbone's kernels quantized from seeded float kernels by the JAX package)
+and loads the same values into the port's backbones, in the order the
+scripts build them.
 """
 
 import importlib.util
@@ -27,7 +31,7 @@ import vla_fastvlm_tpu.model.fastvlm_adapter as j_adapter
 from vla_fastvlm_tpu_torch.scripts import generate as t_generate
 from vla_fastvlm_tpu_torch.scripts import serve as t_serve
 
-from _torch_parity import random_params
+from _torch_parity import random_quantized_params
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
@@ -52,7 +56,7 @@ def same_weights(monkeypatch):
     class Seeded(j_adapter.FastVLMBackbone):
         def __init__(self, config=None):
             super().__init__(config)
-            params = random_params(self.params, seed=len(made))
+            params = random_quantized_params(self.params, seed=len(made))
             embed = params["language_model"]["embed_tokens"]
             embed["embedding"] = embed["embedding"] * 0.1
             self.params = params
@@ -80,6 +84,7 @@ SERVE_RUNS = {
     "paged": dict(paged=True),
     "paged_prefix_chunk": dict(paged=True, prefix_cache=2, repeat_fraction=0.5, prefill_chunk_tokens=4),
     "spec_paged": dict(paged=True, draft_model_id="fastvlm-tiny", spec_k=2),
+    "paged_int8": dict(paged=True, quantization="int8"),
 }
 
 
@@ -119,15 +124,39 @@ def test_generate_text_matches_jax_script(same_weights, capsys):
     assert capsys.readouterr().out.splitlines()[-1] == text == ref
 
 
+def test_generate_int4_matches_jax_script(same_weights, capsys):
+    made, loaded = same_weights
+    jax_generate = jax_script("generate")
+    kw = dict(model_id="fastvlm-tiny", bootstrap_model_id="fastvlm-tiny", prompt="pick up the red cube",
+              max_new_tokens=6, tokenizer_max_length=16, dtype="float32", quantization="int4")
+    jax_generate.main(jax_generate.GenerateArgs(**kw))
+    ref = capsys.readouterr().out.splitlines()[-1]
+    text = t_generate.main(t_generate.GenerateArgs(device="cpu", **kw))
+    assert capsys.readouterr().out.splitlines()[-1] == text == ref
+    assert loaded[0].model.language_model.layers[0].mlp.down_proj.mode == "int4"
+
+
 @pytest.mark.parametrize("script,kw", [
     ("serve", dict(tp=2)), ("serve", dict(quantization="int8")), ("serve", dict(lora_dir=("adapter",))),
     ("generate", dict(dp=2)), ("generate", dict(tp=2)), ("generate", dict(quantization="int8")),
+    ("serve", dict(quantization="int3")), ("generate", dict(quantization="int3")),
 ])
 def test_unported_flags_raise(script, kw):
     module = {"serve": t_serve, "generate": t_generate}[script]
     args = module.ServeArgs if script == "serve" else module.GenerateArgs
     if "lora_dir" in kw:  # ported: a --lora-dir that is no policy checkpoint is refused
         with pytest.raises(FileNotFoundError, match="policy_config.json"):
+            module.main(args(model_id="fastvlm-tiny", device="cpu", **kw))
+        return
+    if kw.get("quantization") == "int8":  # ported: a quantized run
+        small = dict(SERVE, paged=True) if script == "serve" else dict(
+            model_id="fastvlm-tiny", bootstrap_model_id="fastvlm-tiny", max_new_tokens=3, tokenizer_max_length=16,
+            dtype="float32")
+        out = module.main(args(**dict(small, device="cpu", **kw)))
+        assert out["total_new_tokens"] == 6 * 4 if script == "serve" else isinstance(out, str)
+        return
+    if "quantization" in kw:  # an unknown mode
+        with pytest.raises(ValueError, match="unknown quantization"):
             module.main(args(model_id="fastvlm-tiny", device="cpu", **kw))
         return
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -6,9 +6,10 @@ the same ``to_backbone_config()`` translation. ``train_backbone`` and
 ``train_backbone`` alone rematerializes the decoder blocks. ``action_head``
 is "mlp" (``FastVLAPolicy``) or "token" (``FastVLMTokenPolicy``, actions
 decoded as tokens through the VLM's own lm_head). ``lora_rank`` > 0 (with
-``lora_alpha``) mounts LoRA adapters on the decoder (``io/lora.py``). The
-fields of weight quantization, not ported yet, are kept for config parity
-and rejected when set.
+``lora_alpha``) mounts LoRA adapters on the decoder (``io/lora.py``).
+``quantization`` ("int8", "int4", "w8a8") quantizes the frozen decoder's
+projections (``io/quantize.py``); with ``lora_rank > 0`` that is QLoRA:
+float adapters train over the quantized base.
 """
 
 from __future__ import annotations

@@ -21,6 +21,15 @@ and are widened to float32). Per leaf:
 Prefixes pass through, so ``{"backbone": ..., "head": ...}`` maps to
 ``backbone.*`` and ``head.*`` names.
 
+Quantized projections (``io/quantize.py``) cross too: an int8 ``kernel``
+``(L, K, N)`` with its ``scale`` ``(L, 1, N)`` becomes a ``QuantDense``'s
+``qweight`` ``(N, K)`` and ``scale`` ``(N,)`` per layer; an
+``ml_dtypes.int4`` kernel, packed two codes a byte, ``qweight`` ``(N, K/2)``
+with ``scale`` ``(K/G, N)`` as it is; fused groups concatenate their scales
+along the output axis. Back in the JAX layout int4 kernels are
+``ml_dtypes.int4`` arrays (numpy, even with ``as_numpy=False``: torch has no
+int4 tensor), which no safetensors file holds, as in JAX.
+
 ``torch_params_to_jax(module)`` is the inverse: a module's state_dict ->
 the JAX tree (nested dict), the decoder's layers stacked again along a
 leading axis (``scanned``, the JAX default) or named ``layers_<i>``. The
@@ -62,9 +71,36 @@ def _as_numpy(x) -> np.ndarray:
         x = x.detach().cpu()
         x = x.float() if x.dtype == torch.bfloat16 else x
     arr = np.asarray(x)
+    if arr.dtype.name == "int4":  # ml_dtypes: the codes, widened
+        return arr.astype(np.int8)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)
     return arr
+
+
+def _quant_kind(arr) -> str | None:
+    """"int8" or "int4" for a quantized JAX kernel, else None."""
+    name = getattr(getattr(arr, "dtype", None), "name", None) or str(getattr(arr, "dtype", ""))
+    if name == "int4":
+        return "int4"
+    if name in ("int8", "torch.int8"):
+        return "int8"
+    return None
+
+
+def _quant_leaf(path: str, arr: np.ndarray, kind: str):
+    """A quantized Dense's JAX leaf -> the ``QuantDense`` buffer or bias."""
+    parts = path.split(".")
+    if parts[-1] == "kernel":
+        q = np.ascontiguousarray(arr.T)
+        if kind == "int4":
+            from ..ops.quant import pack_int4
+
+            q = pack_int4(torch.from_numpy(q)).numpy()
+        return ".".join(parts[:-1] + ["qweight"]), q
+    if parts[-1] == "scale" and kind == "int8":
+        return path, arr[0]
+    return path, arr
 
 
 def _unstack_layers(path: str, arr: np.ndarray):
@@ -102,10 +138,14 @@ def _leaf(path: str, arr: np.ndarray):
 def jax_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameters (nested or flat, numpy leaves) -> the port's state_dict."""
     flat = flatten_params(params)
+    # A quantized Dense: an integer kernel beside a "scale" (no float Dense has one).
+    quantized = {path[:-7]: kind for path, value in flat.items()
+                 if path.endswith(".kernel") and path[:-7] + ".scale" in flat and (kind := _quant_kind(value))}
     mapped: Dict[str, np.ndarray] = {}
     for path, value in flat.items():
+        kind = quantized.get(path.rpartition(".")[0])
         for p, a in _unstack_layers(path, _as_numpy(value)):
-            name, arr = _leaf(p, a)
+            name, arr = _quant_leaf(p, a, kind) if kind else _leaf(p, a)
             mapped[name] = arr
 
     out: Dict[str, np.ndarray] = {}
@@ -123,7 +163,8 @@ def jax_params_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
         missing = [p for p in order if p not in pieces]
         if missing:
             raise KeyError(f"{key}: missing {missing} to fuse")
-        out[key] = np.concatenate([pieces[p] for p in order], axis=0)
+        # Scales are per output column: (N,) for int8, (K/G, N) for int4.
+        out[key] = np.concatenate([pieces[p] for p in order], axis=-1 if key.endswith(".scale") else 0)
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in out.items()}
 
 
@@ -142,14 +183,38 @@ def _split_fused(module: torch.nn.Module, owner: str, leaf: str, t: torch.Tensor
         yield owner, leaf, t
         return
     names = _SPLIT[parts[-1]][1]
+    dim = -1 if leaf == "scale" else 0  # scales run along the output axis last
     if parts[-1] == "qkv_proj":
         cfg = module.get_submodule(".".join(parts[:-1])).cfg
         n, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.resolved_head_dim
         sizes = [n * d, kh * d, kh * d]
     else:
-        sizes = [t.shape[0] // 2] * 2
-    for name, piece in zip(names, t.split(sizes, dim=0)):
+        sizes = [t.shape[dim] // 2] * 2
+    for name, piece in zip(names, t.split(sizes, dim=dim)):
         yield ".".join(parts[:-1] + [name]), leaf, piece
+
+
+def _jax_quant_leaf(leaf: str, t: torch.Tensor):
+    """A ``QuantDense`` buffer -> (JAX leaf name, value): the kernel ``(K, N)``
+    (int8, or int4 codes to be cast), an int8 scale ``(1, N)``."""
+    if leaf == "qweight":
+        if t.dtype == torch.uint8:
+            from ..ops.quant import unpack_int4
+
+            t = unpack_int4(t)
+        return "kernel", t.t()
+    if leaf == "scale" and t.ndim == 1:
+        return "scale", t[None]
+    return leaf, t
+
+
+def _int4_array(t: torch.Tensor):
+    try:
+        import ml_dtypes
+    except ImportError as err:
+        raise TypeError("int4 kernels cross to the JAX layout as ml_dtypes.int4 arrays; ml_dtypes is not "
+                        "installed") from err
+    return t.numpy().astype(ml_dtypes.int4)
 
 
 def torch_params_to_jax(module: torch.nn.Module, scanned: bool = True, as_numpy: bool = True) -> Dict:
@@ -161,6 +226,7 @@ def torch_params_to_jax(module: torch.nn.Module, scanned: bool = True, as_numpy:
     """
     owners = {name: type(m).__name__ for name, m in module.named_modules()}
     flat: Dict[str, torch.Tensor] = {}
+    int4 = set()
     for name, value in module.state_dict().items():
         t = value.detach()
         if not t.is_meta:
@@ -168,7 +234,11 @@ def torch_params_to_jax(module: torch.nn.Module, scanned: bool = True, as_numpy:
         owner, _, leaf = name.rpartition(".")
         cls = owners.get(owner)
         for owner_, leaf_, piece in _split_fused(module, owner, leaf, t):
-            if leaf_ == "weight" and cls in _JAX_WEIGHT:
+            if cls == "QuantDense":
+                if leaf_ == "qweight" and piece.dtype == torch.uint8:
+                    int4.add(f"{owner_}.kernel")
+                leaf_, piece = _jax_quant_leaf(leaf_, piece)
+            elif leaf_ == "weight" and cls in _JAX_WEIGHT:
                 leaf_ = _JAX_WEIGHT[cls]
                 if leaf_ == "kernel":
                     piece = piece.t() if piece.ndim == 2 else piece.permute(2, 3, 1, 0)
@@ -176,21 +246,29 @@ def torch_params_to_jax(module: torch.nn.Module, scanned: bool = True, as_numpy:
 
     stacked: Dict[str, Dict[int, torch.Tensor]] = {}
     out: Dict[str, torch.Tensor] = {}
+    out_int4 = set()
     for name, t in flat.items():
         match = _LAYER.match(name)
         if match is None:
+            new = name
             out[name] = t
         elif scanned:
-            stacked.setdefault(f"{match.group(1) or ''}layers.{match.group(3)}", {})[int(match.group(2))] = t
+            new = f"{match.group(1) or ''}layers.{match.group(3)}"
+            stacked.setdefault(new, {})[int(match.group(2))] = t
         else:
-            out[f"{match.group(1) or ''}layers_{match.group(2)}.{match.group(3)}"] = t
+            new = f"{match.group(1) or ''}layers_{match.group(2)}.{match.group(3)}"
+            out[new] = t
+        if name in int4:
+            out_int4.add(new)
     for name, layers in stacked.items():
         out[name] = torch.stack([layers[i] for i in range(len(layers))])
 
     tree: Dict = {}
     for name, t in out.items():
         t = t.contiguous()
-        if as_numpy:
+        if name in out_int4 and not t.is_meta:
+            t = _int4_array(t)
+        elif as_numpy:
             t = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         node = tree
         *path, leaf = name.split(".")

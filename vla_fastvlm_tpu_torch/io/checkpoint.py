@@ -72,6 +72,9 @@ def save_safetensors(tensors: Mapping[str, Any], path: str | Path,
     arrays, header, offset = {}, {}, 0
     for name in sorted(tensors):
         value = tensors[name]
+        if not isinstance(value, torch.Tensor) and np.asarray(value).dtype.name == "int4":
+            # ml_dtypes' int4 (a quantized policy's kernels): safetensors has no such dtype.
+            raise TypeError(f"{name}: dtype {np.asarray(value).dtype} has no safetensors name")
         t = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value, copy=None, order="C"))
         if t.dtype not in _ST_NAMES:
             raise TypeError(f"{name}: dtype {t.dtype} has no safetensors name")

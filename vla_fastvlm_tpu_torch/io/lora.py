@@ -98,7 +98,7 @@ def merge_lora(params: Mapping, lora: Mapping) -> Dict:
         pchild = params[key]
         if _is_site(lchild) and "kernel" in pchild:
             kernel = pchild["kernel"]
-            if not kernel.is_floating_point():
+            if not (isinstance(kernel, torch.Tensor) and kernel.is_floating_point()):
                 raise TypeError(f"cannot merge LoRA into quantized kernel ({kernel.dtype}) at {key!r}; merge "
                                 "into the float checkpoint and re-quantize")
             a = lchild["a"].to(device=kernel.device, dtype=torch.float32)

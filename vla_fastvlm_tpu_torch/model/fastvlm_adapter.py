@@ -18,7 +18,11 @@ the decoder blocks. The eager ``forward`` runs under
 ``torch.inference_mode()``.
 
 Weights are random from ``seed``; ``load_jax_params`` takes the JAX
-package's parameters through the weight bridge. A ``model_id`` that names a
+package's parameters through the weight bridge. ``quantization`` ("int8",
+"int4", "w8a8") quantizes the decoder's projections after the weights are
+made, on the model's device (``io/quantize.py``; JAX quantizes after load,
+int4 on the host), and refuses ``train_backbone``; the quantized backbone
+loads a JAX tree quantized the same way. A ``model_id`` that names a
 local HF-layout directory resolves its ``config.json`` (``io/presets.py``)
 and the image size by JAX's priority chain; with no ``*.safetensors`` in
 it the weights are random (with JAX's warning), and with some the backbone
@@ -41,6 +45,7 @@ from ..data.prefetch import to_device
 from ..device import DeviceLike, resolve_device, resolve_dtype, same_device
 from ..io.bridge import jax_params_to_torch
 from ..io.presets import infer_size_from_tower_name, resolve_fastvlm_config
+from ..io.quantize import quantize_params
 from ..io.tokenizer import load_tokenizer
 from ..models.fastvlm import FastVLM, pool_hidden, pool_last_text_token
 from ..models.layers import init_weights
@@ -84,8 +89,8 @@ class FastVLMBackboneConfig:
 def _check_supported(cfg: FastVLMBackboneConfig) -> None:
     if cfg.kv_cache_quantization not in ("none", "int8"):
         raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
-    if cfg.quantization != "none":
-        raise NotImplementedError("quantization: weight quantization is not ported to PyTorch yet")
+    if cfg.quantization != "none" and cfg.train_backbone:
+        raise ValueError("quantization is inference-only: incompatible with train_backbone=True")
 
 
 def _check_directory_weights(model_id: str) -> None:
@@ -172,6 +177,7 @@ class FastVLMBackbone:
                 attention_impl=cfg.attention_impl,
                 remat=cfg.gradient_checkpointing,
                 fused_projections=cfg.fused_projections,
+                quantization=cfg.quantization,
                 kv_cache_quantization=cfg.kv_cache_quantization,
             ),
             vision=self.model_config.vision.replace(block_impl=cfg.vision_block_impl),
@@ -182,6 +188,10 @@ class FastVLMBackbone:
         if self.device.type != "meta":
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
             init_weights(self.model, generator)
+        if cfg.quantization != "none":
+            # On the model's device, projection by projection: the card holds
+            # the float 7B, and each float weight goes once it is replaced.
+            quantize_params(self.model, mode=cfg.quantization)
         self.tokenizer = load_tokenizer(cfg.model_id, padding_side=cfg.tokenizer_padding_side)
         self.output_dim = int(self.model_config.text.hidden_size)
         logger.info("[FastVLMBackbone] expected (S,S) = (%d,%d) on %s",

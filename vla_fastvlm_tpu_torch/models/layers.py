@@ -12,6 +12,8 @@ models from these instead:
   a pixel. Grouped convs keep Flax's grouping of output channels (output
   channel o belongs to group o // (out / groups), as in torch).
 - ``LayerNorm`` defaults to Flax's ``epsilon=1e-6`` (torch's is 1e-5).
+- ``QuantDense`` is a ``Dense`` whose weight ``io/quantize.py`` replaced by
+  int8 or int4 codes and scales.
 
 Every module with parameters has ``init_(generator)``, which fills them the
 way the JAX initializers do; ``init_weights`` walks a model and calls it.
@@ -20,13 +22,14 @@ way the JAX initializers do; ``init_weights`` walks a model and calls it.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.norms import layer_norm
+from ..ops.quant import INT4_GROUP, dense_apply, quantize_kernel, quantize_kernel_int4
 
 # Flax's truncated-normal variance scaling divides by this so the truncated
 # distribution keeps the requested variance.
@@ -81,6 +84,51 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class QuantDense(nn.Module):
+    """A frozen ``Dense`` with int8 or packed int4 weights (``ops/quant.py``).
+
+    The codes (``qweight``) and the float32 ``scale`` are buffers, and the
+    bias a frozen float parameter, as the JAX tree keeps it. ``module.to(dtype)``
+    leaves the codes as they are and keeps ``scale`` in float32 (it moves to
+    the new device only). ``act_quant`` takes the w8a8 product.
+    """
+
+    def __init__(self, in_features: int, out_features: int, qweight: torch.Tensor, scale: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None, dtype: torch.dtype = torch.float32, act_quant: bool = False):
+        super().__init__()
+        self.in_features, self.out_features, self.dtype, self.act_quant = in_features, out_features, dtype, act_quant
+        self.register_buffer("qweight", qweight)
+        self.register_buffer("scale", scale.float())
+        self.bias = None if bias is None else nn.Parameter(bias.detach(), requires_grad=False)
+
+    @classmethod
+    def from_dense(cls, dense: Dense, mode: str, group_size: int = INT4_GROUP, act_quant: bool = False):
+        """Quantize ``dense``'s weight on its device ("int8" / "w8a8" or "int4")."""
+        with torch.no_grad():
+            if mode in ("int8", "w8a8"):
+                q = quantize_kernel(dense.weight)
+            elif mode == "int4":
+                q = quantize_kernel_int4(dense.weight, group_size)
+            else:
+                raise ValueError(f"unknown quantization mode {mode!r}")
+        return cls(dense.in_features, dense.out_features, q["qweight"], q["scale"], dense.bias, dense.dtype,
+                   act_quant)
+
+    @property
+    def mode(self) -> str:
+        return "int8" if self.qweight.dtype == torch.int8 else "int4"
+
+    def _apply(self, fn, recurse=True):
+        scale = self.scale
+        super()._apply(fn, recurse)
+        self.scale = scale.to(self.qweight.device)
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        leaf = {"qweight": self.qweight, "scale": self.scale, "bias": self.bias}
+        return dense_apply(x, leaf, self.dtype, self.act_quant)
 
 
 class Conv2d(nn.Module):

@@ -15,9 +15,12 @@ in numbers:
 - A dense KV cache (``init_kv_cache``) is written in place: the forward
   returns the same ``k``/``v`` (and scale) buffers with a new mask and
   cursor, where JAX returns new buffers.
-- Weight quantization is not ported yet: ``quantization`` is kept for
-  config parity and rejected when set. ``kv_cache_quantization`` "int8" is
-  ported.
+- Weight quantization ("int8", "int4", "w8a8") is a transform of the built
+  model, ``io/quantize.py::quantize_params``, which swaps the projections'
+  ``Dense`` for ``QuantDense``; with ``quantization == "w8a8"`` they take
+  the int8 x int8 product (``ops/quant.py``). The LoRA deltas add to the
+  quantized product's output, from the same float input.
+  ``kv_cache_quantization`` "int8" stores the KV cache in int8.
 - LoRA adapters (``io/lora.py``) mount through ``lora=`` on every forward,
   on all three attention paths and under remat: the tree holds each site's
   ``(L, ...)`` tensors, cast to the compute dtype (and, for multi-LoRA,
@@ -114,7 +117,7 @@ class Qwen2Config:
     remat: bool = False
     attention_impl: str = "auto"  # "auto" | "xla" | "flash"
     fused_projections: bool = True
-    quantization: str = "none"  # not ported yet: must stay "none"
+    quantization: str = "none"  # "none" | "int8" | "int4" | "w8a8" (io/quantize.py)
     kv_cache_quantization: str = "none"  # "none" | "int8"
 
     @property
@@ -162,8 +165,8 @@ def qwen2_tiny(**kw) -> Qwen2Config:
 
 
 def _check_supported(cfg: Qwen2Config) -> None:
-    if cfg.quantization != "none":
-        raise NotImplementedError("quantized weights are not ported to PyTorch yet")
+    if cfg.quantization not in ("none", "int8", "int4", "w8a8"):
+        raise ValueError(f"unknown quantization {cfg.quantization!r}")
     if cfg.kv_cache_quantization not in ("none", "int8"):
         raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
 
@@ -280,6 +283,7 @@ class Qwen2Attention(nn.Module):
 class Qwen2MLP(nn.Module):
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
+        self.cfg = cfg
         self.gate_up_proj = Dense(cfg.hidden_size, 2 * cfg.intermediate_size, False, cfg.dtype, cfg.param_dtype)
         self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, False, cfg.dtype, cfg.param_dtype)
 

@@ -20,8 +20,9 @@ Prints one JSON summary: returns and lengths, ``actions_per_sec``,
 ``p50_control_latency_ms``, the device, and for a token server the server
 calls and decode ticks per control tick. ``--device`` is the card unless
 ``--device cpu`` is given; without CUDA the script raises. ``--dp`` / ``--tp``
-above 1 (a mesh) raise; ``--quantization`` raises in the backbone, as the
-weight quantization is not ported.
+above 1 (a mesh) raise. ``--quantization int8|int4|w8a8`` quantizes the
+policy's decoder (``io/quantize.py``); a ``--draft-model-id`` preset stays
+float, and ``self`` drafts with the quantized target.
 """
 
 from __future__ import annotations

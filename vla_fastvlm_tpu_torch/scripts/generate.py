@@ -9,8 +9,9 @@ is a zero frame) go through ``serving/generate.py``: one prefill into a dense
 KV cache, then one decode step per new token. The decoded text is printed
 and returned from ``main``. Weights are random from ``seed`` until real
 checkpoints load. ``--device`` is the card unless ``--device cpu`` is given;
-without CUDA the script raises. ``--dp`` / ``--tp`` above 1 (a mesh) and
-``--quantization`` other than ``none`` raise ``NotImplementedError``.
+without CUDA the script raises. ``--quantization int8|int4|w8a8`` quantizes
+the decoder's projections (``io/quantize.py``). ``--dp`` / ``--tp`` above 1
+(a mesh) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ class GenerateArgs:
     # Mesh factors of the JAX script; the port generates on one card.
     dp: int = 1
     tp: int = 1
-    # Weight quantization of the JAX script: not ported.
+    # "int8" | "int4" | "w8a8": quantized decoder projections (io/quantize.py).
     quantization: str = "none"
 
 
@@ -54,13 +55,12 @@ def main(args: GenerateArgs) -> str:
     if args.dp * args.tp > 1:
         raise NotImplementedError("--dp / --tp: a device mesh is not ported to PyTorch yet; the port generates on "
                                   "one card")
-    if args.quantization != "none":
-        raise NotImplementedError("--quantization: weight quantization is not ported to PyTorch yet")
     device = resolve_device(args.device)
     configure_logging()
     backbone = FastVLMBackbone(FastVLMBackboneConfig(
         model_id=args.model_id, bootstrap_model_id=args.bootstrap_model_id, force_image_size=args.image_size,
-        tokenizer_max_length=args.tokenizer_max_length, dtype=args.dtype, param_dtype=args.dtype, seed=args.seed,
+        tokenizer_max_length=args.tokenizer_max_length, dtype=args.dtype, param_dtype=args.dtype,
+        quantization=args.quantization, seed=args.seed,
     ), device=device)
     mcfg = backbone.model_config
     size = mcfg.image_size

@@ -35,9 +35,12 @@ more, requests round-robin over the base and the adapters (multi-LoRA), and
 the summary gains ``lora_adapters``. On a speculative server they mount on
 the target only.
 
-``--device`` is the card unless ``--device cpu`` is given; without CUDA the
-script raises. ``--tp`` above 1 (a mesh) and ``--quantization`` other than
-``none`` raise ``NotImplementedError``: those are not ported.
+``--quantization int8|int4|w8a8`` quantizes the target's decoder
+(``io/quantize.py``); a draft stays float, as in the JAX script (the
+deployment: ``--model-id fastvlm-7b --quantization int8 --draft-model-id
+fastvlm-0.5b --paged``). ``--device`` is the card unless ``--device cpu`` is
+given; without CUDA the script raises. ``--tp`` above 1 (a mesh) raises
+``NotImplementedError``: it is not ported.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ class ServeArgs:
     seed: int = 0
     # Mesh size of the JAX script; the port serves on one card.
     tp: int = 1
-    # Weight quantization of the JAX script: not ported.
+    # "int8" | "int4" | "w8a8": quantized decoder projections of the target (io/quantize.py).
     quantization: str = "none"
     # "int8": int8 KV cache storage (dense and paged servers).
     kv_cache_quantization: str = "none"
@@ -110,18 +113,19 @@ class ServeArgs:
 
 
 def build_backbone(args: ServeArgs, model_id: str, seed: int, image_size: Optional[int], kv: str,
-                   device: torch.device) -> FastVLMBackbone:
+                   device: torch.device, quantization: str = "none") -> FastVLMBackbone:
     """A preset's backbone on ``device``, weights random from ``seed``."""
     return FastVLMBackbone(FastVLMBackboneConfig(
         model_id=model_id, bootstrap_model_id=model_id, force_image_size=image_size, dtype=args.dtype,
-        param_dtype=args.dtype, quantization=args.quantization, kv_cache_quantization=kv, seed=seed,
+        param_dtype=args.dtype, quantization=quantization, kv_cache_quantization=kv, seed=seed,
     ), device=device)
 
 
 def build_server(args: ServeArgs, device: torch.device, lora=None):
     """The server ``args`` name, over a random-weight model of its preset,
     with ``lora`` (None, one adapter tree or a list) on the target."""
-    backbone = build_backbone(args, args.model_id, args.seed, args.image_size, args.kv_cache_quantization, device)
+    backbone = build_backbone(args, args.model_id, args.seed, args.image_size, args.kv_cache_quantization, device,
+                              args.quantization)
     common = dict(num_slots=args.num_slots, prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
                   eos_token_id=-1,  # synthetic stream: run to max length
                   prefill_batch=args.prefill_batch, temperature=args.temperature, top_p=args.top_p, seed=args.seed,
@@ -146,11 +150,8 @@ def admission_work(server) -> tuple:
 
 
 def main(args: ServeArgs) -> dict:
-    unported = {"--tp > 1": args.tp > 1, "--quantization": args.quantization != "none"}
-    named = [k for k, on in unported.items() if on]
-    if named:
-        raise NotImplementedError(f"{', '.join(named)}: not ported to PyTorch yet; the port serves one card with "
-                                  "unquantized weights")
+    if args.tp > 1:
+        raise NotImplementedError("--tp > 1: not ported to PyTorch yet; the port serves one card")
     device = resolve_device(args.device)
     configure_logging()
     adapters = [load_lora(d) for d in args.lora_dir]

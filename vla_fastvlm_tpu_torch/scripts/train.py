@@ -15,8 +15,12 @@ decoder blocks rematerialized), with the head for the MLP head, alone for the
 token head; checkpoints carry them as the ``"lora"`` tree, for ``scripts.serve
 --lora-dir`` and ``scripts.merge_lora``. ``--action-head token`` trains the
 action-token policy (``FastVLMTokenPolicy``), which has no head and trains with
-``--lora-rank`` or ``--train-backbone``, as in JAX. Paths not ported raise:
-``--tp`` above 1 and ``--fsdp`` (a mesh), ``--quantization``.
+``--lora-rank`` or ``--train-backbone``, as in JAX. ``--quantization
+int8|int4|w8a8`` quantizes the frozen base (``io/quantize.py``): with
+``--lora-rank`` that is QLoRA, float adapters over int8 or int4 codes; with
+``--train-backbone`` it raises, as in JAX. An int4 policy's checkpoint
+cannot be written (safetensors has no int4), as in JAX. Paths not ported
+raise: ``--tp`` above 1 and ``--fsdp`` (a mesh).
 """
 
 from __future__ import annotations
