@@ -14,6 +14,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --only surfaces # eval_dataset, the legacy policy, the LeRobot plugin, a config.json directory
     python3 chip_smoke.py --only lora     # LoRA training (0.5B both heads, 7B), multi-LoRA serving, merge_lora
     python3 chip_smoke.py --only quant    # int8 / int4 / w8a8 weights: ops, policy, serving, 7B target, QLoRA, quality
+    python3 chip_smoke.py --only hf       # an Apple FastVLM-0.5B HF directory: load, folds, policy, convert, serve
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -223,14 +224,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    int8 base for 3 steps (peak memory against PR 12's bf16 base); then
    ``python -m vla_fastvlm_tpu_torch.scripts.eval_quant_quality`` at
    FastVLM-0.5B, 256 px, and its JSON line.
-12. timing: p50 step time and actions/sec of the kernel path and the plain
+12. Apple FastVLM checkpoints (``io/model_loader.py``, ``io/weights.py``,
+   ``io/reparam.py``, ``io/vision_convert.py``): a FastVLM-0.5B HF
+   directory (``FASTVLM_05B_CONFIG``, full width and depth) written from
+   seeds, the decoder and projector of a seeded port model under HF names
+   in two bf16 shards, the FastViTHD tower in Apple's train-mode layout
+   (every branch kind, random BatchNorm statistics) in an fp32 shard.
+   ``FastVLAPolicy(vlm_model_name=dir)`` on the card with no fallback
+   warning (load seconds by part: read, decoder, fold, copy), decoder and
+   projector bit-equal to the source; one module of each kind (the three
+   stem blocks, RepMixer at C = 96, 192, 384, a large-kernel patch embed,
+   RepCPE, the ConvFFN's conv + BN, ``conv_exp``) fused against its branch
+   sum in fp32 (``HF_FOLD_REL_L2``); the policy at phase 9's directory
+   shape (16 frames, 1024 px): 24 flash + 38 RepMixer launches, the plain
+   path within ``POLICY_REL_L2``, the p50 step; the same fused weights
+   under inference-mode names (``reparam_conv``, ``lkb_reparam``): the
+   state_dict and the actions bit-equal; ``python -m
+   vla_fastvlm_tpu_torch.scripts.convert_checkpoint`` on the directory and
+   ``load_policy_from_checkpoint`` of its output: actions bit-equal; the
+   serve CLI with ``--model-id DIR --paged`` on 16 requests of 16 new tokens
+   (paged = 24 x ticks, every page back, tokens/s); the native letterbox
+   (``vla_fastvlm_tpu_torch/native``, built with ``g++``) against its numpy
+   plain version and the card's letterbox, ms a frame.
+13. timing: p50 step time and actions/sec of the kernel path and the plain
    path (in turns), each kernel's time per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
    width's time split into a part per hidden chunk and a fixed part.
 
 ``--only quant`` runs phases 1 and 2 and phase 11, then the card line and
-the last line. ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
+the last line; ``--only hf`` phases 1 and 2 and phase 12. ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
 their checks of phase 2 and phase 4, then the card line and the last line.
 ``--only closed_loop`` runs phases 1 and 2 and phase 8, then the card line
 and the last line. ``--only surfaces`` runs phase 1 for the flash-attention
@@ -251,9 +274,9 @@ bound and the launch alone with the L2 emptied first; at the policy's shape
 also with every key valid, and at the first two shapes by block shape (tiles
 of 16 packed rows and warps a block, with the blocks an SM holds); then the
 card line and a JSON line of the numbers. ``--only repmixer`` does the same
-for the RepMixer source: its checks of phase 2 and its timing of phase 9.
+for the RepMixer source: its checks of phase 2 and its timing of phase 13.
 ``--only paged`` does the same for the two paged-attention sources: their
-checks of phase 2, then at each of the 8 paged shapes of phase 9 the wrapper
+checks of phase 2, then at each of the 8 paged shapes of phase 13 the wrapper
 call (``ms``), the kernel's launch alone (``kernel_ms``: mask and tables
 already int32), the plain version, the bound, the planned parts, the launch
 alone with the L2 emptied first, and the launch alone at 1, 2, 3 and 6
@@ -616,7 +639,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/12] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/13] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -698,7 +721,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/12] kernels against their plain versions")
+    log("[2/13] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -863,7 +886,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/12] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/13] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -1133,7 +1156,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
 
-    log(f"[4/12] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+    log(f"[4/13] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
         f"dropout {TRAIN_DROPOUT}, full depth")
     out = ROOT / "build" / "train_smoke"
@@ -1396,7 +1419,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[5/12] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log("[5/13] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -1551,7 +1574,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[6/12] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/13] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1880,7 +1903,7 @@ def phase_serve_cli(model, profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import generate
 
-    log("[7/12] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
+    log("[7/13] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
         "paged, prefix cache, chunked admission, both over int8 pools, speculative paged; then generate, and "
         "the prefix paths against whole-prompt prefills")
     summaries = {name: serve_cli_run(name, extra, profile_dir) for name, extra in SERVE_CLI_RUNS}
@@ -2096,7 +2119,7 @@ def phase_closed_loop(profile_dir: Path | None = None):
     )
     from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
 
-    log(f"[8/12] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
+    log(f"[8/13] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
         f"DummyEnvs of {LOOP['image_size']}-px frames, state/action {LOOP['state_dim']}, {LOOP['max_steps']} "
         f"control ticks a run ({SPEC_LOOP_TICKS} speculative)")
     t0 = time.perf_counter()
@@ -2448,7 +2471,6 @@ def surface_plugin(records) -> dict:
 
 def surface_hf_directory() -> dict:
     """A FastVLM-0.5B config.json directory: its config, its warning, a forward."""
-    import logging
     import tempfile
 
     import numpy as np
@@ -2458,14 +2480,6 @@ def surface_hf_directory() -> dict:
     from vla_fastvlm_tpu_torch.io.presets import resolve_fastvlm_config
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    class Records(logging.Handler):
-        def __init__(self):
-            super().__init__(logging.WARNING)
-            self.messages = []
-
-        def emit(self, record):
-            self.messages.append(record.getMessage())
-
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         (Path(tmp) / "config.json").write_text(json.dumps(FASTVLM_05B_CONFIG))
@@ -2473,15 +2487,10 @@ def surface_hf_directory() -> dict:
         preset, _ = resolve_fastvlm_config(TRAIN_MODEL, dtype=torch.bfloat16, param_dtype=torch.bfloat16)
         if cfg != preset or raw["model_type"] != "llava_qwen2":
             fail(f"config.json directory resolved to {cfg}, not the preset's {preset}")
-        records = Records()
-        adapter_log = logging.getLogger("vla_fastvlm_tpu_torch.model.fastvlm_adapter")
-        adapter_log.addHandler(records)
-        try:
+        with WarningRecords() as records:
             policy = FastVLAPolicy(FastVLAConfig(vlm_model_name=tmp, bootstrap_model_name=TRAIN_MODEL,
                                                  tokenizer_max_length=TEXT_LEN, dtype="bfloat16",
                                                  param_dtype="bfloat16", seed=SEED), device=TRAIN_DEVICE)
-        finally:
-            adapter_log.removeHandler(records)
     warned = [m for m in records.messages if "No *.safetensors found" in m and "randomly initialized" in m]
     mcfg = policy.model.backbone.model_config
     log(f"  config.json directory (llava_qwen2, mobileclip_l_1024): the preset's config, image size "
@@ -2507,7 +2516,7 @@ def phase_surfaces() -> dict:
 
     from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
 
-    log(f"[9/12] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
+    log(f"[9/13] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
         f"from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters): checkpoints, "
         "eval_dataset, the legacy FastVLMPolicy, the LeRobot plugin, a config.json directory")
     out = ROOT / "build" / "surfaces_smoke"
@@ -3002,7 +3011,7 @@ def phase_lora(profile_dir: Path | None = None, base_cli: dict | None = None, se
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import serve
 
-    log(f"[10/12] LoRA: rank {LORA_RANK} on the decoder's 7 projections, frozen base: FastVLA-0.5B training at "
+    log(f"[10/13] LoRA: rank {LORA_RANK} on the decoder's 7 projections, frozen base: FastVLA-0.5B training at "
         f"configs/train_aloha.yaml's settings (MLP and token heads), FastVLA-7B training, multi-LoRA serving "
         f"(FastVLM-0.5B, 1024 px), speculative paged with target adapters, merge_lora")
     out = ROOT / "build" / "lora_smoke"
@@ -3447,7 +3456,7 @@ def phase_quant(profile_dir: Path | None = None) -> dict:
 
     from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
 
-    log("[11/12] weight quantization: int8 / int4 / w8a8 products at FastVLM-7B's layer shapes, the FastVLA-0.5B "
+    log("[11/13] weight quantization: int8 / int4 / w8a8 products at FastVLM-7B's layer shapes, the FastVLA-0.5B "
         "policy step, paged serving and the serve CLI, the 7B int8 target behind a 0.5B draft, QLoRA (0.5B CLI, "
         "7B), eval_quant_quality")
     out_dir = ROOT / "build" / "quant_smoke"
@@ -3483,10 +3492,530 @@ def phase_quant(profile_dir: Path | None = None) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Apple FastVLM checkpoints (phase 12): a FastVLM-0.5B HF directory
+# (FASTVLM_05B_CONFIG: full width and depth, 1024 px) written here from
+# seeds, nothing downloaded: the decoder and projector of a seeded port
+# model under HF names in two bf16 shards, and the FastViTHD tower in
+# Apple's train-mode layout (every branch kind, random BatchNorm statistics,
+# layer scales near 1e-2) in an fp32 shard. Loaded through FastVLAPolicy;
+# the policy step at phase 9's directory shape (16 frames of 256 px at the
+# tower's 1024 px); the serve CLI on 16 requests of 16 new tokens; the
+# native letterbox on phase 7's 1024-px frames and ALOHA's 480 x 640 frames
+# as uint8.
+HF_STEPS, HF_SERVE = 10, dict(num_requests=16, max_new_tokens=16)
+# A fused module against its branch sum, both fp32 on the card: relative
+# L2 error. Only the order of the sums differs.
+HF_FOLD_REL_L2 = 1e-4
+# The native letterbox against its numpy plain version (fp32 arithmetic in
+# another order) and against the card's letterbox (two fp32 matmuls), on
+# [0, 1] pixels: the JAX package's own bounds.
+HF_LETTERBOX_ATOL, HF_DEVICE_LETTERBOX_ATOL = 1e-5, 2e-3
+HF_FALLBACK_WARNINGS = ("randomly initialized", "could not be converted")
+APPLE_PREFIX = "model.vision_tower.vision_tower.model."
+
+
+class WarningRecords:
+    """The package's warnings while inside (``with``)."""
+
+    def __init__(self):
+        import logging
+
+        self.logger, self.messages = logging.getLogger("vla_fastvlm_tpu_torch"), []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = lambda record: self.messages.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+    def fallbacks(self) -> list:
+        return [m for m in self.messages if any(w in m for w in HF_FALLBACK_WARNINGS)]
+
+
+def hf_tower(cfg, gen):
+    """Apple's train-mode FastViTHD names (the mobileclip layout) for
+    ``cfg``, fp32 values from ``gen`` on the card; and where each of the
+    port's modules sits in it. MobileOne blocks carry a conv branch, a 1x1
+    scale branch where k > 1 and a BN skip where C_in = C_out at stride 1."""
+    import math
+
+    import torch
+
+    sd, where = {}, {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    def weight(*shape):
+        return randn(*shape) / math.sqrt(math.prod(shape[1:]))
+
+    def bn(base, c):
+        sd[f"{base}.weight"], sd[f"{base}.bias"] = 1 + 0.1 * randn(c), 0.1 * randn(c)
+        sd[f"{base}.running_mean"] = 0.1 * randn(c)
+        sd[f"{base}.running_var"] = 0.5 + torch.rand(c, generator=gen, device=gen.device)
+
+    def mobileone(base, out, in_per_group, k, conv=True, skip=False):
+        if conv:
+            sd[f"{base}.rbr_conv.0.conv.weight"] = weight(out, in_per_group, k, k)
+            bn(f"{base}.rbr_conv.0.bn", out)
+        if conv and k > 1:
+            sd[f"{base}.rbr_scale.conv.weight"] = weight(out, in_per_group, 1, 1)
+            bn(f"{base}.rbr_scale.bn", out)
+        if skip:
+            bn(f"{base}.rbr_skip", out)
+
+    def layer_scale(c):
+        return 0.01 * (1 + 0.1 * randn(c, 1, 1))
+
+    d0 = cfg.embed_dims[0]
+    for i, (in_per_group, k, skip) in enumerate([(3, 3, False), (1, 3, False), (d0, 1, True)]):
+        mobileone(f"patch_embed.{i}", d0, in_per_group, k, skip=skip)
+        where[f"stem_{i}"] = f"patch_embed.{i}"
+    net, prev = 0, d0
+    for stage, (dim, depth, mixer, ratio, cpe) in enumerate(
+            zip(cfg.embed_dims, cfg.depths, cfg.token_mixers, cfg.mlp_ratios, cfg.pos_embs)):
+        if stage > 0:
+            groups = math.gcd(prev, dim)
+            for part, k in (("lkb_origin", 7), ("small_conv", 3)):
+                sd[f"network.{net}.proj.0.{part}.conv.weight"] = weight(dim, prev // groups, k, k)
+                bn(f"network.{net}.proj.0.{part}.bn", dim)
+            mobileone(f"network.{net}.proj.1", dim, dim, 1, skip=True)
+            where[f"patch_embed_{stage}"] = f"network.{net}"
+            net += 1
+        if cpe:
+            sd[f"network.{net}.pe.weight"], sd[f"network.{net}.pe.bias"] = weight(dim, 1, 7, 7), 0.1 * randn(dim)
+            where[f"pos_emb_{stage}"] = f"network.{net}"
+            net += 1
+        for blk in range(depth):
+            base = f"network.{net}.{blk}"
+            where[f"stage{stage}_block{blk}"] = base
+            if mixer == "repmixer":
+                mobileone(f"{base}.token_mixer.norm", dim, 1, 3, conv=False, skip=True)
+                mobileone(f"{base}.token_mixer.mixer", dim, 1, 3, skip=True)
+                sd[f"{base}.token_mixer.layer_scale"] = layer_scale(dim)
+                sd[f"{base}.layer_scale"] = layer_scale(dim)
+            else:
+                bn(f"{base}.norm", dim)
+                sd[f"{base}.token_mixer.qkv.weight"] = weight(3 * dim, dim)
+                sd[f"{base}.token_mixer.proj.weight"] = weight(dim, dim)
+                sd[f"{base}.token_mixer.proj.bias"] = 0.1 * randn(dim)
+                sd[f"{base}.layer_scale_1"], sd[f"{base}.layer_scale_2"] = layer_scale(dim), layer_scale(dim)
+            hidden = int(dim * ratio)
+            sd[f"{base}.convffn.conv.conv.weight"] = weight(dim, 1, 7, 7)
+            bn(f"{base}.convffn.conv.bn", dim)
+            sd[f"{base}.convffn.fc1.weight"], sd[f"{base}.convffn.fc1.bias"] = weight(hidden, dim, 1, 1), 0.1 * randn(hidden)
+            sd[f"{base}.convffn.fc2.weight"], sd[f"{base}.convffn.fc2.bias"] = weight(dim, hidden, 1, 1), 0.1 * randn(dim)
+        net += 1
+        prev = dim
+    mobileone("conv_exp", cfg.out_channels, 1, 3)
+    where["conv_exp"] = "conv_exp"
+    return {APPLE_PREFIX + k: v for k, v in sd.items()}, where
+
+
+def hf_decoder(model) -> dict:
+    """A port FastVLM's decoder and projector under HF llava_qwen2 names:
+    ``qkv_proj`` split into q/k/v and ``gate_up_proj`` into gate/up."""
+    text = model.cfg.text
+    d = text.resolved_head_dim
+    sizes = {"qkv_proj": (("q_proj", "k_proj", "v_proj"),
+                          [text.num_attention_heads * d, text.num_key_value_heads * d, text.num_key_value_heads * d]),
+             "gate_up_proj": (("gate_proj", "up_proj"), [text.intermediate_size] * 2)}
+    out = {}
+    for name, t in model.language_model.state_dict().items():
+        owner, leaf = name.rsplit(".", 1)
+        parent, _, module = owner.rpartition(".")
+        if module in sizes:
+            for part, piece in zip(sizes[module][0], t.split(sizes[module][1])):
+                out[f"model.{parent}.{part}.{leaf}"] = piece
+        else:
+            out[f"model.{name}"] = t
+    for name, t in model.mm_projector.state_dict().items():
+        module, leaf = name.split(".")
+        out[f"model.mm_projector.{dict(fc1=0, fc2=2)[module]}.{leaf}"] = t
+    return out
+
+
+def hf_write_directory(path: Path) -> tuple:
+    """FASTVLM_05B_CONFIG's directory at ``path``: shards 1-2 the decoder and
+    projector (bf16) of a port FastVLM seeded with SEED, shard 3 the
+    train-mode tower (fp32). Returns (the source model on the card, the
+    tower's Apple names on the card, where the port's modules sit)."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.io.checkpoint import save_safetensors
+    from vla_fastvlm_tpu_torch.io.presets import resolve_fastvlm_config
+    from vla_fastvlm_tpu_torch.models.fastvlm import FastVLM
+    from vla_fastvlm_tpu_torch.models.layers import init_weights
+
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(FASTVLM_05B_CONFIG))
+    cfg, _ = resolve_fastvlm_config(str(path), dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(SEED)
+    with torch.device(TRAIN_DEVICE):
+        model = FastVLM(cfg)
+    init_weights(model.eval().requires_grad_(False), gen)
+    decoder = hf_decoder(model)
+    half = cfg.text.num_hidden_layers // 2
+    second = {k: v for k, v in decoder.items() if k == "model.norm.weight" or
+              (k.startswith("model.layers.") and int(k.split(".")[2]) >= half)}
+    save_safetensors({k: v for k, v in decoder.items() if k not in second}, path / "model-00001-of-00003.safetensors")
+    save_safetensors(second, path / "model-00002-of-00003.safetensors")
+    tower, where = hf_tower(cfg.vision, gen)
+    save_safetensors(tower, path / "model-00003-of-00003.safetensors")
+    return model, tower, where
+
+
+def hf_fold_checks(tower: dict, fused: dict, where: dict, vcfg) -> dict:
+    """One module of each kind at full width: the fused conv's fp32 output
+    against the sum of its train-time branches (``F.conv2d`` +
+    ``F.batch_norm`` in eval on the shard's own tensors), on the card."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    src = {k[len(APPLE_PREFIX):]: v.float() for k, v in tower.items()}
+    gen = torch.Generator(device=TRAIN_DEVICE).manual_seed(SEED + 7)
+
+    def bn(x, base):
+        return F.batch_norm(x, src[f"{base}.running_mean"], src[f"{base}.running_var"], src[f"{base}.weight"],
+                            src[f"{base}.bias"], False, 0.0, 1e-5)
+
+    def conv(x, w, b=None, stride=1, groups=1):
+        return F.conv2d(x, w, b, stride, w.shape[-1] // 2, 1, groups)
+
+    def mobileone(x, base, stride, groups):
+        out = 0
+        if f"{base}.rbr_conv.0.conv.weight" in src:
+            out = out + bn(conv(x, src[f"{base}.rbr_conv.0.conv.weight"], None, stride, groups), f"{base}.rbr_conv.0.bn")
+        if f"{base}.rbr_scale.conv.weight" in src:
+            out = out + bn(conv(x, src[f"{base}.rbr_scale.conv.weight"], None, stride, groups), f"{base}.rbr_scale.bn")
+        if f"{base}.rbr_skip.weight" in src:
+            out = out + bn(x, f"{base}.rbr_skip")
+        return out
+
+    def fused_conv(x, name, stride=1, groups=1):
+        w = fused[f"{name}.conv.weight"].to(TRAIN_DEVICE)
+        w = w[:, :, None, None] if w.ndim == 2 else w
+        return conv(x, w, fused[f"{name}.conv.bias"].to(TRAIN_DEVICE), stride, groups)
+
+    def rand(c, hw):
+        return torch.randn((2, c, hw, hw), generator=gen, device=TRAIN_DEVICE)
+
+    d = vcfg.embed_dims
+    cases = {}
+    for i, (c_in, stride, groups) in enumerate([(3, 2, 1), (d[0], 2, d[0]), (d[0], 1, 1)]):
+        x = rand(c_in, 64)
+        cases[f"stem_{i}"] = (mobileone(x, where[f"stem_{i}"], stride, groups), fused_conv(x, f"stem_{i}", stride, groups))
+    for stage, c in enumerate(d[:3]):
+        x, base = rand(c, 32), where[f"stage{stage}_block0"] + ".token_mixer"
+        ls = src[f"{base}.layer_scale"].reshape(1, -1, 1, 1)
+        ref = x + ls * (mobileone(x, f"{base}.mixer", 1, c) - mobileone(x, f"{base}.norm", 1, c))
+        cases[f"RepMixer C={c}"] = (ref, fused_conv(x, f"stage{stage}_block0.token_mixer", 1, c))
+    x, base, groups = rand(d[0], 32), where["patch_embed_1"] + ".proj.0", math.gcd(d[0], d[1])
+    ref = bn(conv(x, src[f"{base}.lkb_origin.conv.weight"], None, 2, groups), f"{base}.lkb_origin.bn") + \
+        bn(conv(x, src[f"{base}.small_conv.conv.weight"], None, 2, groups), f"{base}.small_conv.bn")
+    cases["large-kernel patch embed"] = (ref, fused_conv(x, "patch_embed_1.large_kernel", 2, groups))
+    x, base = rand(d[3], 16), where["pos_emb_3"]
+    cases["RepCPE"] = (x + conv(x, src[f"{base}.pe.weight"], src[f"{base}.pe.bias"], 1, d[3]),
+                       fused_conv(x, "pos_emb_3", 1, d[3]))
+    x, base = rand(d[0], 32), where["stage0_block0"] + ".convffn.conv"
+    cases["ConvFFN conv+BN"] = (bn(conv(x, src[f"{base}.conv.weight"], None, 1, d[0]), f"{base}.bn"),
+                                fused_conv(x, "stage0_block0.convffn.dw", 1, d[0]))
+    x = rand(d[-1], 16)
+    cases["conv_exp"] = (mobileone(x, "conv_exp", 1, d[-1]), fused_conv(x, "conv_exp", 1, d[-1]))
+    errs = {}
+    for kind, (ref, out) in cases.items():
+        errs[kind] = rel_l2(out, ref)
+        log(f"  fold {kind}: fused conv vs branch sum, fp32, {tuple(ref.shape)}: rel_l2 {errs[kind]:.3e}, max_abs_err "
+            f"{float((out - ref).abs().max()):.3e} (limit {HF_FOLD_REL_L2:g})")
+    if not all(e <= HF_FOLD_REL_L2 for e in errs.values()):
+        fail(f"hf: a fused module differs from its branch sum: {errs}")
+    return errs
+
+
+def hf_inference_names(fused: dict, where: dict) -> dict:
+    """The fused tower under Apple's inference-mode names (``reparam_conv``,
+    ``lkb_reparam``), fp32. The ConvFFN's conv and the attention blocks'
+    norm have no fused form there: they keep ``conv.bn`` / ``norm`` with an
+    identity BatchNorm (mean 0, var + eps == 1 in fp32), so each fold gives
+    back the stored values exactly."""
+    import torch
+
+    one = torch.tensor(1.0 - 1e-5, dtype=torch.float32)
+    if float(one + 1e-5) != 1.0:
+        fail("hf: no fp32 variance folds to an exact identity")
+    out = {}
+
+    def conv_weight(t):
+        return t[:, :, None, None] if t.ndim == 2 else t
+
+    def identity_bn(base, c, weight=None, bias=None):
+        out[f"{base}.weight"] = torch.ones(c) if weight is None else weight
+        out[f"{base}.bias"] = torch.zeros(c) if bias is None else bias
+        out[f"{base}.running_mean"], out[f"{base}.running_var"] = torch.zeros(c), one.expand(c).clone()
+
+    for key, t in fused.items():
+        module, rest = key.split(".", 1)
+        base = where.get(module)
+        if module.startswith(("stem_", "conv_exp", "pos_emb_")):
+            out[f"{base}.reparam_conv.{rest.rsplit('.', 1)[1]}"] = conv_weight(t)
+        elif module.startswith("patch_embed_"):
+            part, _, leaf = rest.split(".")
+            out[f"{base}.proj.{0 if part == 'large_kernel' else 1}."
+                f"{'lkb_reparam' if part == 'large_kernel' else 'reparam_conv'}.{leaf}"] = conv_weight(t)
+        elif rest.startswith("token_mixer.conv."):
+            out[f"{base}.token_mixer.reparam_conv.{rest.rsplit('.', 1)[1]}"] = conv_weight(t)
+        elif rest.startswith("convffn.dw.conv."):
+            out[f"{base}.convffn.conv.conv.{rest.rsplit('.', 1)[1]}"] = t
+            identity_bn(f"{base}.convffn.conv.bn", t.shape[0])
+        elif rest.startswith(("convffn.fc1.", "convffn.fc2.")):
+            out[f"{base}.{rest.replace('.conv.', '.')}"] = conv_weight(t)
+        elif rest.endswith(".gamma"):
+            out[f"{base}.{rest[:-len('.gamma')]}"] = t.reshape(-1, 1, 1)
+        elif rest.startswith("norm."):
+            if rest == "norm.weight":
+                identity_bn(f"{base}.norm", t.shape[0], weight=t, bias=fused[f"{module}.norm.bias"])
+        else:  # token_mixer.qkv / proj
+            out[f"{base}.{rest}"] = t
+    return {APPLE_PREFIX + k: v.float().contiguous() for k, v in out.items()}
+
+
+def hf_policy(path, impl="auto"):
+    """FastVLAPolicy on the card from ``path`` (a directory or a preset), the
+    configuration ``scripts.convert_checkpoint`` writes with ``--dtype
+    bfloat16`` (bf16 parameters, seed 0, the tower's 1024 px)."""
+    from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
+
+    return FastVLAPolicy(FastVLAConfig(vlm_model_name=str(path), bootstrap_model_name=str(path), dtype="bfloat16",
+                                       param_dtype="bfloat16", attention_impl=impl, vision_block_impl=impl,
+                                       seed=SEED), device=TRAIN_DEVICE)
+
+
+def hf_load(path, what: str, impl="auto"):
+    """``hf_policy`` of a directory, failing on any fallback warning; the
+    policy and its load seconds by part."""
+    import torch
+
+    with WarningRecords() as records:
+        t0 = time.perf_counter()
+        policy = hf_policy(path, impl)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if records.fallbacks():
+        fail(f"hf: {what}: {records.fallbacks()}")
+    parts = {k: round(v, 3) for k, v in policy.model.backbone.load_seconds.items()}
+    log(f"  {what}: FastVLAPolicy built in {seconds:.2f} s, the directory's load by part {parts} s; no fallback warning")
+    return policy, dict(parts, policy_s=seconds)
+
+
+def hf_letterbox() -> dict:
+    """The native letterbox: built, against its numpy plain version and the
+    port's letterbox on the card, ms a frame."""
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch import native
+    from vla_fastvlm_tpu_torch.ops.image import resize_with_pad
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        fail("hf: the native letterbox did not build")
+    result = {"build_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(SEED)
+    frame_sets = {
+        "phase 7's 1024x1024 frames": np.stack([np.rint(r[2][0] * 255).astype(np.uint8) for r in serve_stream(n=8)]),
+        "ALOHA's 480x640 frames": rng.integers(0, 256, (16, 3) + TRAIN_FRAME_HW, dtype=np.uint8),
+    }
+    for name, frames in frame_sets.items():
+        out = native.letterbox_batch(frames, LOOP_IMAGE)
+        plain = native._letterbox_numpy(frames, LOOP_IMAGE, 0.0, 1.0 / 255.0)
+        card = resize_with_pad(torch.from_numpy(frames).to(TRAIN_DEVICE).float() / 255.0, LOOP_IMAGE, LOOP_IMAGE)
+        errs = {"numpy": float(np.abs(out - plain).max()),
+                "card": float((torch.from_numpy(out).to(TRAIN_DEVICE) - card).abs().max())}
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            native.letterbox_batch(frames, LOOP_IMAGE)
+            times.append((time.perf_counter() - t0) * 1e3 / len(frames))
+        result[name] = dict(errs, ms_a_frame=statistics.median(times), frames=len(frames))
+        log(f"  native letterbox, {name} -> {LOOP_IMAGE} px: max_abs_err {errs['numpy']:.3e} against numpy (limit "
+            f"{HF_LETTERBOX_ATOL:g}), {errs['card']:.3e} against the card's resize_with_pad (limit "
+            f"{HF_DEVICE_LETTERBOX_ATOL:g}); {result[name]['ms_a_frame']:.3f} ms a frame (median of 3 batches of "
+            f"{len(frames)}, every host core, host clock)")
+        if out.shape != (len(frames), 3, LOOP_IMAGE, LOOP_IMAGE) or errs["numpy"] > HF_LETTERBOX_ATOL or \
+                errs["card"] > HF_DEVICE_LETTERBOX_ATOL:
+            fail(f"hf: native letterbox {name}: shape {out.shape}, errors {errs}")
+    return result
+
+
+def phase_hf() -> dict:
+    """Phase 12."""
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import vla_fastvlm_tpu_torch as port
+    from vla_fastvlm_tpu_torch.io.checkpoint import load_safetensors, save_safetensors
+    from vla_fastvlm_tpu_torch.io.vision_convert import convert_vision_tower
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.scripts import convert_checkpoint, serve
+
+    log("[12/13] Apple FastVLM checkpoints: a FastVLM-0.5B HF directory (bf16 decoder shards, train-mode tower) "
+        "through FastVLAPolicy, the fold per module kind, the policy step, an inference-mode twin, "
+        "convert_checkpoint, the serve CLI, the native letterbox")
+    out = ROOT / "build" / "hf_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    result = {}
+    try:
+        train_dir = out / "train_mode"
+        source, tower, where = hf_write_directory(train_dir)
+        sizes = {p.name: round(p.stat().st_size / 2**20, 1) for p in sorted(train_dir.glob("*.safetensors"))}
+        log(f"  wrote {train_dir.name}/: shards (MiB) {sizes}")
+        lap("write")
+
+        policy, result["load_s"] = hf_load(train_dir, "train-mode directory")
+        backbone = policy.model.backbone
+        state = backbone.model.state_dict()
+        src = {**{f"language_model.{k}": v for k, v in source.language_model.state_dict().items()},
+               **{f"mm_projector.{k}": v for k, v in source.mm_projector.state_dict().items()}}
+        differ = [k for k, v in src.items() if not torch.equal(state[k], v)]
+        fused = convert_vision_tower(load_safetensors(train_dir / "model-00003-of-00003.safetensors"),
+                                     backbone.model_config.vision)
+        tower_differ = [k for k, v in fused.items() if not torch.equal(state[f"vision_tower.{k}"].cpu(),
+                                                                       v.to(torch.bfloat16))]
+        log(f"  {len(src)} decoder and projector tensors bit-equal to the source: {not differ}; {len(fused)} tower "
+            f"tensors equal to the fp32 fold cast to bf16: {not tower_differ}")
+        if differ or tower_differ or set(state) != set(src) | {f"vision_tower.{k}" for k in fused}:
+            fail(f"hf: loaded tensors differ: decoder {differ[:3]}, tower {tower_differ[:3]}")
+        del source
+        torch.cuda.empty_cache()
+        result["fold_rel_l2"] = hf_fold_checks(tower, fused, where, backbone.model_config.vision)
+        lap("load and folds")
+
+        # The policy step: kernel path against plain path on the same weights.
+        rng = np.random.default_rng(SEED)
+        frames = rng.random((SURFACE_DIR_FRAMES, 3, 256, 256), dtype=np.float32)
+        states = rng.standard_normal((SURFACE_DIR_FRAMES, 14)).astype(np.float32)
+        task = "insert the peg"
+        reset_launch_counts()
+        actions = policy.forward(frames, states, task)
+        torch.cuda.synchronize()
+        check_surface_launches(f"hf: loaded policy, one forward of {SURFACE_DIR_FRAMES} frames", launch_counts(), 1)
+        plain = hf_policy(TRAIN_MODEL, "xla")
+        plain.model.backbone.model.load_state_dict(state)
+        plain.model.head.load_state_dict(policy.model.head.state_dict())
+        reset_launch_counts()
+        plain_actions = plain.forward(frames, states, task)
+        torch.cuda.synchronize()
+        if any(launch_counts().values()) or tuple(actions.shape) != (SURFACE_DIR_FRAMES, 14) or \
+                not bool(torch.isfinite(actions).all()):
+            fail(f"hf: plain path launched {launch_counts()}, or actions {tuple(actions.shape)} are not finite")
+        bb, pbb = backbone, plain.model.backbone
+        img = bb.to_device(bb._as_bchw(frames))
+        ids, mask = (bb.to_device(a) for a in bb._prep_text(policy.processor.prepare_tasks(task, SURFACE_DIR_FRAMES)))
+        errs = {"pooled features": rel_l2(bb.features_fn(img, ids, mask), pbb.features_fn(img, ids, mask)),
+                "actions": rel_l2(actions, plain_actions)}
+        log(f"  kernel vs plain path on the loaded weights: rel_l2 {json.dumps({k: f'{v:.3e}' for k, v in errs.items()})} "
+            f"(limit {POLICY_REL_L2:g})")
+        if not all(e <= POLICY_REL_L2 for e in errs.values()):
+            fail(f"hf: the kernel path differs from the plain path: {errs}")
+        del plain, pbb
+        torch.cuda.empty_cache()
+        states_dev = bb.to_device(states)
+        step_ms = []
+        for _ in range(HF_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            policy.model.apply_fn(img, ids, mask, states_dev)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        result.update(policy_rel_l2=errs, p50_step_ms=statistics.median(step_ms[1:]), step_ms=step_ms[1:])
+        log(f"  p50 policy step {result['p50_step_ms']:.2f} ms (batch {SURFACE_DIR_FRAMES}, {LOOP_IMAGE} px, "
+            f"{HF_STEPS} steps after one warm-up, min {min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}; host clock "
+            f"around synchronized steps); card: {card_line()}")
+        lap("policy step")
+
+        # The same fused weights under inference-mode names: a bit-equal load.
+        infer_dir = out / "inference_mode"
+        infer_dir.mkdir()
+        for p in train_dir.glob("*"):
+            if p.name != "model-00003-of-00003.safetensors":
+                os.symlink(p.resolve(), infer_dir / p.name)
+        save_safetensors(hf_inference_names(fused, where), infer_dir / "model-00003-of-00003.safetensors")
+        twin, result["inference_mode_load_s"] = hf_load(infer_dir, "inference-mode directory")
+        twin_state = twin.model.backbone.model.state_dict()
+        same_state = set(twin_state) == set(state) and all(torch.equal(twin_state[k], v) for k, v in state.items())
+        same_actions = torch.equal(twin.forward(frames, states, task), actions)
+        log(f"  inference-mode twin (reparam_conv / lkb_reparam): state_dict bit-equal {same_state}, actions "
+            f"bit-equal {same_actions}")
+        if not (same_state and same_actions):
+            fail("hf: the inference-mode directory does not load the train-mode directory's weights")
+        del twin, twin_state
+        torch.cuda.empty_cache()
+        lap("inference mode")
+
+        # convert_checkpoint, then the policy loader on its output.
+        ckpt = out / "converted"
+        with WarningRecords() as records:
+            t0 = time.perf_counter()
+            convert_checkpoint.main(convert_checkpoint.ConvertArgs(checkpoint_dir=str(train_dir), output_dir=str(ckpt),
+                                                                   dtype="bfloat16", device=TRAIN_DEVICE))
+            result["convert_s"] = time.perf_counter() - t0
+            loaded, device = port.load_policy_from_checkpoint(ckpt, device=TRAIN_DEVICE)
+        same = torch.equal(loaded.forward(frames, states, task), actions)
+        log(f"  convert_checkpoint in {result['convert_s']:.1f} s; load_policy_from_checkpoint: "
+            f"{type(loaded).__name__} on {device}, actions bit-equal to the loaded policy's {same}")
+        if records.fallbacks() or not same:
+            fail(f"hf: convert_checkpoint: warnings {records.fallbacks()}, actions bit-equal {same}")
+        del loaded, policy, backbone, state
+        torch.cuda.empty_cache()
+        lap("convert_checkpoint")
+
+        # The serve CLI from the directory.
+        args = serve.ServeArgs(**dict(SERVE_CLI, model_id=str(train_dir), **HF_SERVE))
+        with WarningRecords() as records:
+            reset_launch_counts()
+            summary = serve.main(args)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        if records.fallbacks():
+            fail(f"hf: serve: {records.fallbacks()}")
+        check_cli_run("hf serve", args, summary, counts)
+        result["serve"] = {k: summary[k] for k in ("tokens_per_sec", "p50_tick_ms", "ticks", "decode_ticks",
+                                                   "admissions")}
+        log(f"  serve --model-id {train_dir.name}/ --paged: {args.num_requests} requests x {args.max_new_tokens} new "
+            f"tokens, tokens/s {summary['tokens_per_sec']:.1f}, p50 tick {summary['p50_tick_ms']:.2f} ms, launches "
+            f"{counts} (paged = {DECODER_LAYERS} x {summary['decode_ticks']} ticks), every page back")
+        torch.cuda.empty_cache()
+        lap("serve")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    result["letterbox"] = hf_letterbox()
+    lap("letterbox")
+    result["card"] = card_line()
+    log(f"  seconds by part: {laps}; card: {result['card']}")
+    log(json.dumps({"hf": result}))
+    return result
+
+
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[12/12] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[13/13] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -3785,7 +4314,7 @@ def main(argv=None) -> int:
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
     parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve", "surfaces",
-                                           "lora", "quant"],
+                                           "lora", "quant", "hf"],
                         default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
@@ -3798,7 +4327,7 @@ def main(argv=None) -> int:
                              "libraries, their checks and the serving-CLI phase; surfaces: the flash and RepMixer "
                              "libraries, their checks and the surfaces phase; lora: the four libraries, their checks "
                              "and the LoRA phase; quant: the four libraries, their checks and the weight-quantization "
-                             "phase)")
+                             "phase; hf: the four libraries, their checks and the HF-checkpoint phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -3817,9 +4346,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/12] flash-attention kernel against its plain version")
+        log("[2/13] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[12/12] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[13/13] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -3828,9 +4357,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/12] RepMixer kernel against its plain version")
+        log("[2/13] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[12/12] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[13/13] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -3838,7 +4367,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "train":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/12] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/13] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         if args.profile is not None:
@@ -3864,7 +4393,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "serve":
         phase_build(("repmixer", "paged_attention", "paged_window"))
-        log("[2/12] RepMixer and paged-attention kernels against their plain versions")
+        log("[2/13] RepMixer and paged-attention kernels against their plain versions")
         check_repmixer()
         check_paged()
         if args.profile is not None:
@@ -3878,7 +4407,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "surfaces":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/12] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/13] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         phase_surfaces()
@@ -3912,11 +4441,21 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if args.only == "hf":
+        phase_build()
+        phase_kernels()
+        phase_hf()
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/12] paged-attention kernels against their plain versions")
+        log("[2/13] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[12/12] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[13/13] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -3950,6 +4489,8 @@ def main(argv=None) -> int:
     timed("lora", phase_lora, args.profile, cli_summaries, spec_summaries.get("self_draft"))
     torch.cuda.empty_cache()
     timed("quant", phase_quant, args.profile)
+    torch.cuda.empty_cache()
+    timed("hf", phase_hf)
     torch.cuda.empty_cache()
     timings = timed("timing", phase_timing, policy, plain, step)
     log(f"seconds per phase: {phase_s}")

@@ -7,7 +7,8 @@ and JAX's raw dict; the same errors for a directory without ``config.json``
 or of another ``model_type``. The tower-name parser on JAX's cases. A
 backbone built from such a directory resolves JAX's image size, warns that
 its weights are random and runs a forward; one with ``*.safetensors``
-raises.
+loads them (``tests/test_torch_hf_weights.py`` holds the loader against
+JAX).
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ from vla_fastvlm_tpu.io import model_loader as jloader
 from vla_fastvlm_tpu.model.fastvlm_adapter import FastVLMBackbone as JBackbone
 from vla_fastvlm_tpu.model.fastvlm_adapter import FastVLMBackboneConfig as JBackboneConfig
 from vla_fastvlm_tpu_torch.io import presets
+from vla_fastvlm_tpu_torch.io.checkpoint import save_safetensors
 from vla_fastvlm_tpu_torch.model import FastVLMBackbone, FastVLMBackboneConfig
 
 TINY_FIELDS = {"hidden_size": 64, "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
@@ -163,7 +165,38 @@ def test_backbone_from_a_directory_runs(tmp_path, caplog):
 
 
 def test_directory_with_safetensors_raises(tmp_path):
+    """A shard that is not a safetensors file raises, naming it; once it
+    holds the checkpoint, the directory loads (``io/model_loader.py``):
+    the decoder's leaves land, fused, over the seeded init."""
     path = _write(tmp_path, dict(TINY_FIELDS, model_type="llava_qwen2"))
     (tmp_path / "model.safetensors").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FastVLMBackbone(FastVLMBackboneConfig(model_id=path, bootstrap_model_id="fastvlm-tiny"), device="meta")
+    kw = dict(model_id=path, bootstrap_model_id="fastvlm-tiny", tokenizer_max_length=8)
+    with pytest.raises(ValueError, match="model.safetensors: 0 bytes"):
+        FastVLMBackbone(FastVLMBackboneConfig(**kw), device="cpu")
+    rng = np.random.default_rng(1)
+    base = FastVLMBackbone(FastVLMBackboneConfig(model_id="fastvlm-tiny", tokenizer_max_length=8), device="cpu")
+    hf = {"model.embed_tokens.weight": rng.standard_normal((512, 64)).astype(np.float32),
+          "model.norm.weight": np.ones(64, np.float32)}
+    for name, value in base.model.language_model.state_dict().items():
+        if name.startswith("layers."):
+            for part, piece in zip(*_hf_parts(name, value)):
+                hf["model." + part] = rng.standard_normal(tuple(piece.shape)).astype(np.float32)
+    save_safetensors(hf, tmp_path / "model.safetensors")
+    backbone = FastVLMBackbone(FastVLMBackboneConfig(**kw), device="cpu")
+    state = backbone.model.state_dict()
+    assert torch.equal(state["language_model.embed_tokens.weight"], torch.from_numpy(hf["model.embed_tokens.weight"]))
+    qkv = np.concatenate([hf[f"model.layers.1.self_attn.{p}_proj.weight"] for p in "qkv"])
+    assert torch.equal(state["language_model.layers.1.self_attn.qkv_proj.weight"], torch.from_numpy(qkv))
+    assert torch.equal(state["vision_tower.stem_0.conv.weight"], base.model.state_dict()["vision_tower.stem_0.conv.weight"])
+    feats = backbone.forward(np.zeros((1, 3, 64, 64), np.float32), ["pick\n"], device="cpu")
+    assert tuple(feats.shape) == (1, 64) and bool(torch.isfinite(feats).all())
+
+
+def _hf_parts(name, value):
+    """The port's decoder leaf ``layers.<i>.*`` -> its HF names and pieces."""
+    fused = {"qkv_proj": ("q_proj", "k_proj", "v_proj"), "gate_up_proj": ("gate_proj", "up_proj")}
+    owner = name.split(".")[-2]
+    if owner not in fused:
+        return [name], [value]
+    sizes = [64, 32, 32] if owner == "qkv_proj" else [value.shape[0] // 2] * 2  # qwen2_tiny: 4 + 2 + 2 heads of 16
+    return [name.replace(owner, part) for part in fused[owner]], list(value.split(sizes))

@@ -89,12 +89,14 @@ def test_every_module_has_a_jax_counterpart_layout():
         "serving/policy_runtime.py", "serving/token_policy_server.py",
         "model/policy.py", "utils/checkpoint.py", "lerobot_fastvla/__init__.py",
         "lerobot_fastvla/configuration_fastvla.py", "lerobot_fastvla/modeling_fastvla.py",
-        "lerobot_fastvla/processor_fastvla.py",
+        "lerobot_fastvla/processor_fastvla.py", "io/reparam.py", "io/weights.py", "io/vision_convert.py",
+        "io/model_loader.py", "native/__init__.py", "native/image_ops.cpp",
     }
     for rel in mirrored:
         assert (PORT / rel).is_file() and (ROOT / "vla_fastvlm_tpu" / rel).is_file(), rel
     # The CLIs' twins, against the repository's scripts/.
-    for rel in ("train.py", "eval_dataset.py", "eval_closed_loop.py", "serve.py", "generate.py"):
+    for rel in ("train.py", "eval_dataset.py", "eval_closed_loop.py", "serve.py", "generate.py",
+                "convert_checkpoint.py"):
         assert (PORT / "scripts" / rel).is_file() and (ROOT / "scripts" / rel).is_file(), rel
 
 

@@ -99,6 +99,8 @@ def load_safetensors(path: str | Path) -> Dict[str, torch.Tensor]:
     path = Path(path)
     size = path.stat().st_size
     out: Dict[str, torch.Tensor] = {}
+    if size < 8:
+        raise ValueError(f"{path}: {size} bytes, too short for a safetensors header")
     with open(path, "rb") as f:
         (n,) = struct.unpack("<Q", f.read(8))
         if n > min(_MAX_HEADER, size - 8):

@@ -13,10 +13,10 @@
    - ``model_type == "qwen2"``: a text-only decoder (``image_token_mode``
      "none").
 
-Only the config is resolved here. The weights of such a directory are the
-backbone's business (``model/fastvlm_adapter.py``): random from a seed when
-the directory holds no ``*.safetensors``; converting HF weights is not
-ported and raises.
+Only the config is resolved here. The weights of such a directory are
+converted by ``io/model_loader.py`` and laid over the backbone's seeded
+init (``model/fastvlm_adapter.py``); with no ``*.safetensors`` they stay
+random.
 """
 
 from __future__ import annotations

@@ -17,16 +17,20 @@ graph is recorded, the backbone's parameters take gradients when
 the decoder blocks. The eager ``forward`` runs under
 ``torch.inference_mode()``.
 
-Weights are random from ``seed``; ``load_jax_params`` takes the JAX
-package's parameters through the weight bridge. ``quantization`` ("int8",
-"int4", "w8a8") quantizes the decoder's projections after the weights are
-made, on the model's device (``io/quantize.py``; JAX quantizes after load,
-int4 on the host), and refuses ``train_backbone``; the quantized backbone
-loads a JAX tree quantized the same way. A ``model_id`` that names a
-local HF-layout directory resolves its ``config.json`` (``io/presets.py``)
-and the image size by JAX's priority chain; with no ``*.safetensors`` in
-it the weights are random (with JAX's warning), and with some the backbone
-raises: converting HF weights is not ported.
+Weights are made in JAX's order (``_load_or_init_params``): random from
+``seed``; then, for a ``model_id`` that names a local HF-layout directory
+(its ``config.json`` resolved by ``io/presets.py``, the image size by JAX's
+priority chain), the converted leaves of its ``*.safetensors``
+(``io/model_loader.py``) copied over the init on the backbone's device in
+the model's dtype, so a partial checkpoint still runs; with no shards the
+weights stay random, with JAX's warning; ``fabricate_params`` keeps the
+seeded init. Then ``quantization`` ("int8", "int4", "w8a8") quantizes the
+decoder's projections on the model's device (``io/quantize.py``; JAX
+quantizes after load, int4 on the host), and refuses ``train_backbone``;
+the quantized backbone loads a JAX tree quantized the same way. LoRA
+adapters come last, mounted by the policies. ``load_seconds`` holds the
+directory load's parts: "read", "decoder", "fold" and "copy" (to the
+device).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import json
 import logging
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import List, Mapping, Optional, Tuple
@@ -44,6 +49,7 @@ import torch
 from ..data.prefetch import to_device
 from ..device import DeviceLike, resolve_device, resolve_dtype, same_device
 from ..io.bridge import jax_params_to_torch
+from ..io.model_loader import load_fastvlm_params
 from ..io.presets import infer_size_from_tower_name, resolve_fastvlm_config
 from ..io.quantize import quantize_params
 from ..io.tokenizer import load_tokenizer
@@ -91,23 +97,6 @@ def _check_supported(cfg: FastVLMBackboneConfig) -> None:
         raise ValueError(f"unknown kv_cache_quantization {cfg.kv_cache_quantization!r}")
     if cfg.quantization != "none" and cfg.train_backbone:
         raise ValueError("quantization is inference-only: incompatible with train_backbone=True")
-
-
-def _check_directory_weights(model_id: str) -> None:
-    """A local directory's weights: random without ``*.safetensors`` (JAX's
-    warning), and a raise with them, never random without a word."""
-    model_dir = Path(model_id)
-    if not model_dir.is_dir():
-        return
-    shards = sorted(model_dir.glob("*.safetensors"))
-    if shards:
-        raise NotImplementedError(
-            f"{model_dir} holds HF weights ({shards[0].name}, ...): converting HF "
-            "checkpoints (the decoder and projector transposes, the FastViTHD "
-            "reparameterization fold) is not ported to PyTorch yet. Convert them "
-            "with the JAX package and load the policy checkpoint it writes."
-        )
-    logger.warning("No *.safetensors found in %s; model will be randomly initialized.", model_dir)
 
 
 def as_float32(x):
@@ -169,7 +158,6 @@ class FastVLMBackbone:
                 f"required>={declared_size}. Set image_size to the declared tower "
                 "size (e.g. 1024) or leave it unset (None) for auto-detection."
             )
-        _check_directory_weights(cfg.model_id)
         self.model_config = self.model_config.replace(
             image_size=int(self.expected_size),
             num_cameras=int(cfg.num_cameras),
@@ -185,9 +173,12 @@ class FastVLMBackbone:
         with torch.device(self.device):
             self.model = FastVLM(self.model_config)
         self.model.eval().requires_grad_(cfg.train_backbone and not cfg.freeze_backbone)
+        self.load_seconds: dict = {}
         if self.device.type != "meta":
             generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
             init_weights(self.model, generator)
+            if Path(cfg.model_id).is_dir() and not cfg.fabricate_params:
+                self._overlay_directory_weights(cfg.model_id)
         if cfg.quantization != "none":
             # On the model's device, projection by projection: the card holds
             # the float 7B, and each float weight goes once it is replaced.
@@ -196,6 +187,23 @@ class FastVLMBackbone:
         self.output_dim = int(self.model_config.text.hidden_size)
         logger.info("[FastVLMBackbone] expected (S,S) = (%d,%d) on %s",
                     self.expected_size, self.expected_size, self.device)
+
+    def _overlay_directory_weights(self, model_dir: str) -> None:
+        """The directory's converted weights over the seeded init, copied
+        leaf by leaf onto the model's device and dtype."""
+        params = load_fastvlm_params(model_dir, self.model_config, dtype=self.model_config.text.param_dtype,
+                                     timings=self.load_seconds)
+        if params is None:
+            return
+        t0 = time.perf_counter()
+        unexpected = self.model.load_state_dict(params, strict=False).unexpected_keys
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_seconds["copy"] = time.perf_counter() - t0
+        if unexpected:
+            raise KeyError(f"{model_dir}: converted names the model does not hold: {unexpected[:5]}")
+        logger.info("[FastVLMBackbone] loaded %d tensors from %s (seconds: %s)", len(params), model_dir,
+                    {k: round(v, 3) for k, v in self.load_seconds.items()})
 
     def _resolve_expected_image_size(self) -> int:
         """JAX's priority chain: ``force_image_size``; then the directory's

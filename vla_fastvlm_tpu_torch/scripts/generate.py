@@ -7,8 +7,9 @@
 One prompt and an optional image (``--image PATH``, read through PIL; none
 is a zero frame) go through ``serving/generate.py``: one prefill into a dense
 KV cache, then one decode step per new token. The decoded text is printed
-and returned from ``main``. Weights are random from ``seed`` until real
-checkpoints load. ``--device`` is the card unless ``--device cpu`` is given;
+and returned from ``main``. A preset's weights are random from ``seed``;
+a ``--model-id`` naming a local HF FastVLM directory loads its
+``*.safetensors`` (``io/model_loader.py``). ``--device`` is the card unless ``--device cpu`` is given;
 without CUDA the script raises. ``--quantization int8|int4|w8a8`` quantizes
 the decoder's projections (``io/quantize.py``). ``--dp`` / ``--tp`` above 1
 (a mesh) raise ``NotImplementedError``.

@@ -15,8 +15,10 @@ Drives one of the port's four servers (dense ``GenerationServer``,
 same ``ServeArgs`` flags and defaults, the same requests from
 ``np.random.default_rng(seed)`` (prompt lengths 4..``prompt_len``, a
 ``repeat_fraction`` share reusing the first request, ``arrivals_per_tick``
-arrivals a tick while slots allow). Weights are random from ``seed`` (the
-draft's from ``seed + 1``).
+arrivals a tick while slots allow). A preset's weights are random from
+``seed`` (the draft's from ``seed + 1``); a ``--model-id`` (or
+``--draft-model-id``) naming a local HF FastVLM directory loads its
+``*.safetensors`` over that init (``io/model_loader.py``).
 
 Prints one JSON summary and returns it from ``main``: the JAX script's keys
 (``tokens_per_sec``, ``p50_tick_ms``, ``ticks``, ``device``, the prefix-cache
@@ -114,7 +116,8 @@ class ServeArgs:
 
 def build_backbone(args: ServeArgs, model_id: str, seed: int, image_size: Optional[int], kv: str,
                    device: torch.device, quantization: str = "none") -> FastVLMBackbone:
-    """A preset's backbone on ``device``, weights random from ``seed``."""
+    """A preset's or a directory's backbone on ``device``, weights random
+    from ``seed`` under what the directory holds."""
     return FastVLMBackbone(FastVLMBackboneConfig(
         model_id=model_id, bootstrap_model_id=model_id, force_image_size=image_size, dtype=args.dtype,
         param_dtype=args.dtype, quantization=quantization, kv_cache_quantization=kv, seed=seed,
