@@ -15,6 +15,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --only lora     # LoRA training (0.5B both heads, 7B), multi-LoRA serving, merge_lora
     python3 chip_smoke.py --only quant    # int8 / int4 / w8a8 weights: ops, policy, serving, 7B target, QLoRA, quality
     python3 chip_smoke.py --only hf       # an Apple FastVLM-0.5B HF directory: load, folds, policy, convert, serve
+    python3 chip_smoke.py --only parallel # the device mesh: one rank and two ranks sharing the card
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -251,9 +252,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
    width's time split into a part per hidden chunk and a fixed part.
+14. parallel: the device mesh of ``vla_fastvlm_tpu_torch/parallel`` on the
+   card. (a) One rank (nccl), mesh (1, 1): ``ShardedPolicyRuntime`` at
+   phase 3's batch bit-equal to the unsharded policy, a full-backbone
+   ``Trainer`` step with ``fsdp=True`` at phase 4's settings (dropout 0),
+   and the one-rank tokens of ``sharded_generate`` and of a paged server
+   (decode "gathered") over 16 requests of phase 5's stream, 16 new tokens.
+   (b) Two ranks sharing the card (gloo on CUDA tensors, the backend rule
+   of ``parallel/mesh.py``), started by ``spawn_ranks``: each collective of
+   the phase once on CUDA tensors; the policy at (2, 1) and (1, 2), actions
+   within ``POLICY_REL_L2`` of (a)'s, 24 flash and 38 RepMixer launches a
+   rank-forward; generation and the paged server at TP 2: prefill logits
+   within ``SERVE_LOGITS_REL_L2`` of (a)'s, the share of greedy tokens equal
+   to (a)'s, and every first divergence a near-tie (the two tokens' logits
+   within the largest prefill logit difference); the FSDP step at (2, 1),
+   its loss within ``TRAIN_REL_L2`` of (a)'s. The p50 of each layout beside
+   the card's name and power limit (two ranks share the card: not scaling).
 
 ``--only quant`` runs phases 1 and 2 and phase 11, then the card line and
-the last line; ``--only hf`` phases 1 and 2 and phase 12. ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
+the last line; ``--only hf`` phases 1 and 2 and phase 12; ``--only
+parallel`` phase 1 for the flash-attention and RepMixer sources, their
+checks of phase 2 and phase 14. ``--only train`` runs phase 1 for the flash-attention and RepMixer sources,
 their checks of phase 2 and phase 4, then the card line and the last line.
 ``--only closed_loop`` runs phases 1 and 2 and phase 8, then the card line
 and the last line. ``--only surfaces`` runs phase 1 for the flash-attention
@@ -639,7 +658,7 @@ KERNEL_SOURCES = ("flash_attention", "repmixer", "paged_attention", "paged_windo
 def phase_build(names=KERNEL_SOURCES):
     from vla_fastvlm_tpu_torch.ops.kernels import _build
 
-    log("[1/13] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
+    log("[1/14] build" + ("" if tuple(names) == KERNEL_SOURCES else f": {', '.join(names)}"))
     t0 = time.perf_counter()
     logs = _build.build(names)
     for name, text in logs.items():
@@ -721,7 +740,7 @@ def check_flash() -> float:
 
 
 def phase_kernels():
-    log("[2/13] kernels against their plain versions")
+    log("[2/14] kernels against their plain versions")
     errs = {"flash_attention": check_flash(), "repmixer_block": check_repmixer()}
     errs.update(check_paged())
     return errs
@@ -886,7 +905,7 @@ def phase_policy():
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[3/13] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
+    log("[3/14] FastVLA-0.5B policy, batch 128, 256 px, bf16, full depth")
     t0 = time.perf_counter()
     policy = build_policy("auto", "auto")
     plain = build_policy("xla", "xla")
@@ -969,12 +988,12 @@ TRAIN_TIMED_STEPS = 20
 TRAIN_MODEL, TRAIN_DEVICE = "fastvlm-0.5b", "cuda"
 
 
-def train_policy(impl="auto", full=False, image=TRAIN_IMAGE, dtype="bfloat16"):
+def train_policy(impl="auto", full=False, image=TRAIN_IMAGE, dtype="bfloat16", dropout=TRAIN_DROPOUT):
     from vla_fastvlm_tpu_torch.fastvla import FastVLAConfig, FastVLAPolicy
 
     cfg = FastVLAConfig(
         vlm_model_name=TRAIN_MODEL, bootstrap_model_name=TRAIN_MODEL, image_size=image,
-        tokenizer_max_length=TEXT_LEN, dtype=dtype, param_dtype="float32", dropout=TRAIN_DROPOUT,
+        tokenizer_max_length=TEXT_LEN, dtype=dtype, param_dtype="float32", dropout=dropout,
         attention_impl=impl, vision_block_impl=impl, train_backbone=full, freeze_backbone=not full, seed=SEED,
     )
     return FastVLAPolicy(cfg, device=TRAIN_DEVICE)
@@ -1156,7 +1175,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
 
-    log(f"[4/13] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
+    log(f"[4/14] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
         f"dropout {TRAIN_DROPOUT}, full depth")
     out = ROOT / "build" / "train_smoke"
@@ -1419,7 +1438,7 @@ def phase_serving(profile_dir: Path | None = None):
 
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
-    log("[5/13] paged serving: FastVLM-0.5B, 1024 px, bf16, 128 requests, 64 slots, 64 new tokens")
+    log(f"[5/14] paged serving: FastVLM-0.5B, 1024 px, bf16, {SERVE_REQUESTS} requests, 64 slots, 64 new tokens")
     t0 = time.perf_counter()
     model, model_int8 = make_servers()
     reqs = serve_stream()
@@ -1515,7 +1534,7 @@ def new_spec_server(target, draft, impl):
                                             decode_impl=impl, **SPEC)
 
 
-def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: float, name: str) -> None:
+def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: float, name: str) -> dict:
     """Fault or near-tie: for each request, the first position where the
     speculative server's greedy tokens and the plain paged server's differ,
     and there the target's logits recomputed on the common prefix by another
@@ -1523,7 +1542,7 @@ def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: 
     ``decode_step`` teacher-forced with the common tokens, 8 requests at a
     time): the top-2 gap and the gap between the two servers' tokens, set
     against ``logit_err``, the largest |kernel - gathered| verify logit
-    difference of one admitted state."""
+    difference of one admitted state. Returns the summary it prints."""
     import numpy as np
     import torch
 
@@ -1566,6 +1585,7 @@ def divergence_report(target, reqs, spec_out: dict, plain_out: dict, logit_err: 
                    max_token_gap=max((r["token_gap"] for r in rows), default=None),
                    median_top2_gap=statistics.median([r["top2_gap"] for r in rows]) if rows else None)
     log(f"  {name}: {json.dumps(summary)}")
+    return summary
 
 
 def phase_speculative(draft_self, profile_dir: Path | None = None):
@@ -1574,7 +1594,7 @@ def phase_speculative(draft_self, profile_dir: Path | None = None):
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.serving import PagedGenerationServer
 
-    log(f"[6/13] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
+    log(f"[6/14] speculative serving: FastVLM-7B target, FastVLM-0.5B draft, k = {SPEC['k']}, 1024 px, bf16, "
         f"{SPEC_REQUESTS} requests, {SPEC['num_slots']} slots, {SPEC['max_new_tokens']} new tokens")
     t0 = time.perf_counter()
     target, draft, target_int8 = spec_models()
@@ -1903,7 +1923,7 @@ def phase_serve_cli(model, profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import generate
 
-    log("[7/13] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
+    log("[7/14] serving CLI: python -m vla_fastvlm_tpu_torch.scripts.serve in-process, FastVLM-0.5B, 1024 px, bf16: "
         "paged, prefix cache, chunked admission, both over int8 pools, speculative paged; then generate, and "
         "the prefix paths against whole-prompt prefills")
     summaries = {name: serve_cli_run(name, extra, profile_dir) for name, extra in SERVE_CLI_RUNS}
@@ -2119,7 +2139,7 @@ def phase_closed_loop(profile_dir: Path | None = None):
     )
     from vla_fastvlm_tpu_torch.serving import ActionQueuePolicy, BatchedEnvRunner
 
-    log(f"[8/13] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
+    log(f"[8/14] closed loop: {LOOP['model_id']}, its preset's resolution, {LOOP['dtype']}, {LOOP['num_envs']} "
         f"DummyEnvs of {LOOP['image_size']}-px frames, state/action {LOOP['state_dim']}, {LOOP['max_steps']} "
         f"control ticks a run ({SPEC_LOOP_TICKS} speculative)")
     t0 = time.perf_counter()
@@ -2516,7 +2536,7 @@ def phase_surfaces() -> dict:
 
     from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
 
-    log(f"[9/13] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
+    log(f"[9/14] surfaces: FastVLA-0.5B at configs/train_aloha.yaml's settings (batch {TRAIN_BATCH}, {TRAIN_IMAGE} px "
         f"from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters): checkpoints, "
         "eval_dataset, the legacy FastVLMPolicy, the LeRobot plugin, a config.json directory")
     out = ROOT / "build" / "surfaces_smoke"
@@ -3011,7 +3031,7 @@ def phase_lora(profile_dir: Path | None = None, base_cli: dict | None = None, se
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import serve
 
-    log(f"[10/13] LoRA: rank {LORA_RANK} on the decoder's 7 projections, frozen base: FastVLA-0.5B training at "
+    log(f"[10/14] LoRA: rank {LORA_RANK} on the decoder's 7 projections, frozen base: FastVLA-0.5B training at "
         f"configs/train_aloha.yaml's settings (MLP and token heads), FastVLA-7B training, multi-LoRA serving "
         f"(FastVLM-0.5B, 1024 px), speculative paged with target adapters, merge_lora")
     out = ROOT / "build" / "lora_smoke"
@@ -3456,7 +3476,7 @@ def phase_quant(profile_dir: Path | None = None) -> dict:
 
     from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
 
-    log("[11/13] weight quantization: int8 / int4 / w8a8 products at FastVLM-7B's layer shapes, the FastVLA-0.5B "
+    log("[11/14] weight quantization: int8 / int4 / w8a8 products at FastVLM-7B's layer shapes, the FastVLA-0.5B "
         "policy step, paged serving and the serve CLI, the 7B int8 target behind a 0.5B draft, QLoRA (0.5B CLI, "
         "7B), eval_quant_quality")
     out_dir = ROOT / "build" / "quant_smoke"
@@ -3867,7 +3887,7 @@ def phase_hf() -> dict:
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.scripts import convert_checkpoint, serve
 
-    log("[12/13] Apple FastVLM checkpoints: a FastVLM-0.5B HF directory (bf16 decoder shards, train-mode tower) "
+    log("[12/14] Apple FastVLM checkpoints: a FastVLM-0.5B HF directory (bf16 decoder shards, train-mode tower) "
         "through FastVLAPolicy, the fold per module kind, the policy step, an inference-mode twin, "
         "convert_checkpoint, the serve CLI, the native letterbox")
     out = ROOT / "build" / "hf_smoke"
@@ -4015,7 +4035,7 @@ def phase_hf() -> dict:
 def phase_timing(policy, plain, step):
     import torch
 
-    log("[13/13] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
+    log("[13/14] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
         times = []
@@ -4307,6 +4327,266 @@ def profile_step(policy, plain, step, out_dir: Path) -> None:
             + ", ".join(f"{part} {ms:.2f} ms ({ms / total:.1%})" for part, ms in parts.items()))
 
 
+# ---------------------------------------------------------------------------
+# the device mesh (phase 14)
+
+# Phase 14 runs FastVLA-0.5B (phase 3's step) and FastVLM-0.5B (phase 5's
+# 1024-px model) on meshes of one card: one rank (nccl) and two ranks sharing
+# the card (gloo on CUDA tensors, by the backend rule of parallel/mesh.py).
+# Two ranks on one card share it: their times are recorded, never read as
+# scaling. Greedy agreement of the TP-2 generation and paged server with the
+# one-rank run: PAR_GEN requests of serve_stream, PAR_NEW new tokens each.
+# The two groups' prefill logits agree within SERVE_LOGITS_REL_L2, the limit
+# phase 5 holds two programs' logits of one state to; each first divergence
+# of the greedy tokens must be a near-tie: the two tokens' logits within the
+# largest prefill logit difference.
+PAR_GEN, PAR_NEW, PAR_TIMED = 16, 16, 3
+PAR_SERVER = dict(num_slots=PAR_GEN, prefill_batch=8, prompt_len=SERVE["prompt_len"], max_new_tokens=PAR_NEW,
+                  page_size=SERVE["page_size"])
+# Collectives the two-rank gloo group runs on CUDA tensors (TP's and DP's
+# first three, FSDP's last two); one that fails fails the phase.
+PAR_COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def par_p50(fn, iters: int = PAR_TIMED) -> dict:
+    """p50, min and max of ``fn`` in ms over ``iters`` synchronized calls, after one more."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return dict(p50_ms=statistics.median(times), min_ms=min(times), max_ms=max(times))
+
+
+def par_collectives() -> list:
+    """Run each collective of the phase once on CUDA tensors in the group;
+    returns their names (a collective the backend lacks raises)."""
+    import torch
+    import torch.distributed as dist
+
+    n, dev = dist.get_world_size(), torch.device("cuda", torch.cuda.current_device())
+    x = torch.ones(4, device=dev)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(torch.empty(4 * n, device=dev), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(torch.empty(4, device=dev),
+                                                                    torch.ones(4 * n, device=dev)),
+    }
+    for name in PAR_COLLECTIVES:
+        ops[name]()
+    torch.cuda.synchronize()
+    return list(PAR_COLLECTIVES)
+
+
+def par_policy(policy, mesh, images, states, tasks, label: str) -> dict:
+    """The policy step through ``ShardedPolicyRuntime`` on ``mesh``: actions,
+    this rank's launches of one forward (24 flash and 38 RepMixer each rank,
+    on its share of the rows or heads) and the p50 step."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.serving import ShardedPolicyRuntime
+
+    runtime = ShardedPolicyRuntime(policy, mesh)
+    reset_launch_counts()
+    actions = runtime.forward(images, states, tasks)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expect = {"flash_attention": FLASH_A_FORWARD, "repmixer_block": REPMIXER_A_FORWARD, "paged_attention": 0,
+              "paged_attention_window": 0}
+    if counts != expect:
+        fail(f"{label}: launches of one rank-forward {counts} != {expect}")
+    if tuple(actions.shape) != (BATCH, 14) or not torch.isfinite(actions).all():
+        fail(f"{label}: actions {tuple(actions.shape)} finite={bool(torch.isfinite(actions).all())}")
+    timed = par_p50(lambda: runtime.forward(images, states, tasks))
+    return dict(actions=actions.float().cpu().numpy(), launches=counts, **timed)
+
+
+def par_tokens(model, mesh, reqs) -> dict:
+    """Greedy tokens of ``sharded_generate`` over the requests as one batch,
+    of a paged server on ``mesh`` (``decode_impl`` "auto": "gathered"), and
+    the prefill's last logits of the batch."""
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.models.qwen2 import init_kv_cache
+    from vla_fastvlm_tpu_torch.parallel.sharding import rank_text_config
+    from vla_fastvlm_tpu_torch.serving import PagedGenerationServer, sharded_generate
+
+    ids, mask, images = (np.concatenate([r[j] for r in reqs]) for j in range(3))
+    t0 = time.perf_counter()
+    gen = sharded_generate(model, None, images, ids, mask, mesh, max_new_tokens=PAR_NEW, eos_token_id=-1)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    with torch.no_grad():
+        dev = next(model.parameters()).device
+        cache = init_kv_cache(rank_text_config(model), len(reqs), N_IMG + ids.shape[1] + 1, device=dev)
+        logits = model.prefill(*(torch.from_numpy(a).to(dev) for a in (images, ids, mask)), cache)[0]
+    server = PagedGenerationServer(model, mesh=mesh, eos_token_id=-1, temperature=0.0, seed=SEED, **PAR_SERVER)
+    if server.decode_impl != "gathered":
+        fail(f"paged server on a mesh: decode_impl {server.decode_impl!r}, expected 'gathered'")
+    rids = [server.submit(*r) for r in reqs]
+    t0 = time.perf_counter()
+    finished = server.run_to_completion()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    return dict(generate={i: [int(t) for t in row] for i, row in enumerate(gen.cpu().numpy())},
+                server={i: finished[rid] for i, rid in enumerate(rids)}, logits=logits.float().cpu().numpy(),
+                generate_s=gen_s, server_s=serve_s, ticks=server.ticks)
+
+
+def par_rank() -> dict:
+    """One of two ranks sharing the card: the phase's collectives, the policy
+    at (2, 1) then (1, 2), generation and the paged server at (1, 2), and the
+    FSDP train step at (2, 1). Rank 0 returns the results."""
+    import torch
+    import torch.distributed as dist
+
+    from vla_fastvlm_tpu_torch.device import strict_fp32
+    from vla_fastvlm_tpu_torch.parallel import make_mesh
+
+    strict_fp32()
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
+    out = {"backend": dist.get_backend(), "collectives": par_collectives(), "seconds": laps}
+    policy = build_policy("auto", "auto")
+    images, states, tasks = policy_inputs()
+    # DP leaves the model whole; TP then cuts it in place.
+    out["dp2"] = par_policy(policy, make_mesh(2, 1), images, states, tasks, "(2, 1)")
+    lap("policy (2, 1)")
+    out["tp2"] = par_policy(policy, make_mesh(1, 2), images, states, tasks, "(1, 2)")
+    lap("policy (1, 2)")
+    del policy
+    torch.cuda.empty_cache()
+    out["tokens"] = par_tokens(serving_backbone().model, make_mesh(1, 2), serve_stream(n=PAR_GEN))
+    lap("tokens (1, 2)")
+    out["fsdp_dp2"] = par_train_step(make_mesh(2, 1))
+    lap("FSDP step (2, 1)")
+    return out if dist.get_rank() == 0 else None
+
+
+def par_train_step(mesh) -> dict:
+    """One full-backbone ``Trainer`` step with ``fsdp=True`` at phase 4's
+    settings (batch 8 at 512 px, dropout 0): loss, gradient norm, launches."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.data import SyntheticAlohaSource
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.parallel.sharding import is_fsdp_param
+    from vla_fastvlm_tpu_torch.training import Trainer
+
+    policy = train_policy(full=True, dropout=0.0)  # the same loss on one rank and on two
+    batch = aloha_batch(SyntheticAlohaSource(num_samples=TRAIN_BATCH, image_hw=TRAIN_FRAME_HW, seed=SEED))
+    trainer = Trainer(policy, [batch], None, train_config(ROOT / "build" / "parallel_smoke", max_steps=1, fsdp=True),
+                      mesh=mesh)
+    reset_launch_counts()
+    metrics = trainer._train_step(trainer._place_batch(batch))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    loss, norm = float(metrics["loss"]), float(metrics["grad_norm"])
+    if not (torch.isfinite(torch.tensor([loss, norm])).all()):
+        fail(f"FSDP step on {mesh}: loss {loss}, gradient norm {norm}")
+    check_launches(f"FSDP step at {tuple(mesh.mesh.shape)}", counts, 1, flash_runs=2)
+    return dict(loss=loss, grad_norm=norm, fsdp_leaves=sum(is_fsdp_param(p) for p in trainer._params),
+                leaves=len(trainer._params))
+
+
+def phase_parallel() -> dict:
+    """Phase 14: the policy, the FSDP train step, generation and the paged
+    server on one-rank and two-rank meshes of the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vla_fastvlm_tpu_torch.parallel import initialize_distributed, make_mesh, spawn_ranks
+
+    log("[14/14] the device mesh: one rank (nccl) and two ranks sharing the card (gloo on CUDA tensors)")
+    t_phase = time.perf_counter()
+    initialize_distributed()
+    result = {"one_rank_backend": dist.get_backend()}
+    mesh = make_mesh(1, 1)
+
+    # (a) one rank: the runtime against the unsharded policy, bit for bit.
+    policy = build_policy("auto", "auto")
+    images, states, tasks = policy_inputs()
+    ref = policy.forward(images, states, tasks).float()
+    one = par_policy(policy, mesh, images, states, tasks, "(1, 1)")
+    same = bool(np.array_equal(one["actions"], ref.cpu().numpy()))
+    log(f"  (1, 1) runtime against the unsharded policy: bit-equal {same}")
+    if not same:
+        fail("(1, 1): ShardedPolicyRuntime's actions differ from the unsharded policy's")
+    result["one_rank"] = {k: v for k, v in one.items() if k != "actions"}
+    del policy
+    torch.cuda.empty_cache()
+    result["fsdp_one_rank"] = par_train_step(mesh)
+    log(f"  (1, 1) full-backbone Trainer step, fsdp=True: {json.dumps(result['fsdp_one_rank'])} (at data 1 "
+        "FSDP shards nothing, JAX's rule)")
+    torch.cuda.empty_cache()
+    backbone = serving_backbone()
+    reqs = serve_stream(n=PAR_GEN)
+    base = par_tokens(backbone.model, mesh, reqs)
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the card.
+    t0 = time.perf_counter()
+    two = spawn_ranks(par_rank, 2, device="cuda")
+    result["two_ranks_s"] = round(time.perf_counter() - t0, 1)
+    result["two_rank_backend"], result["collectives"] = two["backend"], two["collectives"]
+    log(f"  two ranks: backend {two['backend']}; collectives run on CUDA tensors: {', '.join(two['collectives'])}; "
+        f"seconds by part of rank 0: {two['seconds']}")
+    for name in ("dp2", "tp2"):
+        rel = rel_l2(torch.from_numpy(two[name]["actions"]), ref.cpu())
+        if not rel <= POLICY_REL_L2:
+            fail(f"{name}: actions differ from one rank's, rel_l2={rel:.3e}")
+        result[name] = {k: v for k, v in two[name].items() if k != "actions"}
+        result[name]["actions_rel_l2"] = rel
+    logit_err = float(np.abs(two["tokens"]["logits"] - base["logits"]).max())
+    logit_rel = rel_l2(torch.from_numpy(two["tokens"]["logits"]), torch.from_numpy(base["logits"]))
+    result["tp2_prefill_logit_max_abs_err"], result["tp2_prefill_logit_rel_l2"] = logit_err, logit_rel
+    log(f"  TP 2 prefill logits against one rank's: rel_l2 {logit_rel:.3e} (limit {SERVE_LOGITS_REL_L2:g}), "
+        f"max |difference| {logit_err:.4f}")
+    if not logit_rel <= SERVE_LOGITS_REL_L2:
+        fail(f"TP 2 prefill logits differ from one rank's: rel_l2={logit_rel:.3e}")
+    for kind in ("generate", "server"):
+        got, want = two["tokens"][kind], base[kind]
+        if any(len(got[i]) != PAR_NEW for i in got):
+            fail(f"TP 2 {kind}: {[len(v) for v in got.values()]} tokens, expected {PAR_NEW} each")
+        share = same_tokens(got, want)
+        result[f"tp2_{kind}_token_share"] = share
+        log(f"  TP 2 {kind}: greedy tokens equal to one rank's in {share:.4f} of positions "
+            f"({two['tokens'][kind + '_s']:.2f} s against {base[kind + '_s']:.2f} s one rank)")
+        report = divergence_report(backbone.model, reqs, got, want, logit_err, f"TP 2 {kind}")
+        if report["within_logit_err"] != report["diverged"]:
+            fail(f"TP 2 {kind}: {report['diverged'] - report['within_logit_err']} first divergences are no "
+                 f"near-tie (the two tokens' logits {report['max_token_gap']:.4f} apart, more than the "
+                 f"{logit_err:.4f} prefill logit difference)")
+    result["fsdp_dp2"] = two["fsdp_dp2"]
+    rel = abs(two["fsdp_dp2"]["loss"] - result["fsdp_one_rank"]["loss"]) / abs(result["fsdp_one_rank"]["loss"])
+    if not rel <= TRAIN_REL_L2:
+        fail(f"FSDP step at (2, 1): loss {two['fsdp_dp2']['loss']} against one rank's, rel {rel:.3e}")
+    card = card_line()
+    for name in ("one_rank", "dp2", "tp2"):
+        r = result[name]
+        log(f"  policy step {name}: p50 {r['p50_ms']:.2f} ms (min {r['min_ms']:.2f}, max {r['max_ms']:.2f}), "
+            f"launches a rank-forward {r['launches']}; {card}")
+    dist.destroy_process_group()
+    result["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    log(json.dumps({"parallel": result}))
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", type=Path, default=None,
@@ -4314,7 +4594,7 @@ def main(argv=None) -> int:
                              "paths, with device time by part) and of "
                              f"{IDLE_TICKS} decode ticks or verify rounds of each server")
     parser.add_argument("--only", choices=["flash", "repmixer", "paged", "train", "closed_loop", "serve", "surfaces",
-                                           "lora", "quant", "hf"],
+                                           "lora", "quant", "hf", "parallel"],
                         default=None,
                         help="build, check and time one kernel family and nothing else (flash: the "
                              "flash-attention library, its checks, its times at the policy's, the 7B "
@@ -4327,7 +4607,8 @@ def main(argv=None) -> int:
                              "libraries, their checks and the serving-CLI phase; surfaces: the flash and RepMixer "
                              "libraries, their checks and the surfaces phase; lora: the four libraries, their checks "
                              "and the LoRA phase; quant: the four libraries, their checks and the weight-quantization "
-                             "phase; hf: the four libraries, their checks and the HF-checkpoint phase)")
+                             "phase; hf: the four libraries, their checks and the HF-checkpoint phase; parallel: the "
+                             "flash and RepMixer libraries, their checks and the device-mesh phase)")
     args = parser.parse_args(argv)
 
     import torch
@@ -4346,9 +4627,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     if args.only == "flash":
         phase_build(("flash_attention",))
-        log("[2/13] flash-attention kernel against its plain version")
+        log("[2/14] flash-attention kernel against its plain version")
         err = check_flash()
-        log("[13/13] flash-attention timing (CUDA graph replay between CUDA events)")
+        log("[13/14] flash-attention timing (CUDA graph replay between CUDA events)")
         r = time_flash(sweep=True)
         r["flash_attention"]["max_abs_err"] = err
         log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4357,9 +4638,9 @@ def main(argv=None) -> int:
         return 0
     if args.only == "repmixer":
         phase_build(("repmixer",))
-        log("[2/13] RepMixer kernel against its plain version")
+        log("[2/14] RepMixer kernel against its plain version")
         err = check_repmixer()
-        log("[13/13] RepMixer timing (CUDA graph replay between CUDA events)")
+        log("[13/14] RepMixer timing (CUDA graph replay between CUDA events)")
         r = time_repmixer()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
@@ -4367,7 +4648,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "train":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/13] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/14] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         if args.profile is not None:
@@ -4393,7 +4674,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "serve":
         phase_build(("repmixer", "paged_attention", "paged_window"))
-        log("[2/13] RepMixer and paged-attention kernels against their plain versions")
+        log("[2/14] RepMixer and paged-attention kernels against their plain versions")
         check_repmixer()
         check_paged()
         if args.profile is not None:
@@ -4407,7 +4688,7 @@ def main(argv=None) -> int:
         return 0
     if args.only == "surfaces":
         phase_build(("flash_attention", "repmixer"))
-        log("[2/13] flash-attention and RepMixer kernels against their plain versions")
+        log("[2/14] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
         phase_surfaces()
@@ -4451,11 +4732,23 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}))
         return 0
+    if args.only == "parallel":
+        phase_build(("flash_attention", "repmixer"))
+        log("[2/14] flash-attention and RepMixer kernels against their plain versions")
+        check_flash()
+        check_repmixer()
+        phase_parallel()
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        log(card_line())
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}))
+        return 0
     if args.only == "paged":
         phase_build(("paged_attention", "paged_window"))
-        log("[2/13] paged-attention kernels against their plain versions")
+        log("[2/14] paged-attention kernels against their plain versions")
         errs = check_paged()
-        log("[13/13] paged-attention timing (CUDA graph replay between CUDA events)")
+        log("[13/14] paged-attention timing (CUDA graph replay between CUDA events)")
         r = time_paged(sweep=True)
         for name in errs:
             r[name]["max_abs_err"] = errs[name]
@@ -4469,6 +4762,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         out = fn(*a)
         phase_s[name] = round(time.perf_counter() - t0, 1)
+        log(f"  {name}: {phase_s[name]} s (total {time.perf_counter() - t_start:.1f} s)")
         return out
 
     timed("build", phase_build)
@@ -4493,9 +4787,12 @@ def main(argv=None) -> int:
     timed("hf", phase_hf)
     torch.cuda.empty_cache()
     timings = timed("timing", phase_timing, policy, plain, step)
-    log(f"seconds per phase: {phase_s}")
     if args.profile is not None:
         profile_step(policy, plain, step, args.profile)
+    del policy, plain, step
+    torch.cuda.empty_cache()
+    timed("parallel", phase_parallel)
+    log(f"seconds per phase: {phase_s}")
 
     # name: (source, TPU kernel it replaces, launches on its main path's run)
     meta = {

@@ -91,6 +91,7 @@ def test_every_module_has_a_jax_counterpart_layout():
         "lerobot_fastvla/configuration_fastvla.py", "lerobot_fastvla/modeling_fastvla.py",
         "lerobot_fastvla/processor_fastvla.py", "io/reparam.py", "io/weights.py", "io/vision_convert.py",
         "io/model_loader.py", "native/__init__.py", "native/image_ops.cpp",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py", "serving/sharded.py",
     }
     for rel in mirrored:
         assert (PORT / rel).is_file() and (ROOT / "vla_fastvlm_tpu" / rel).is_file(), rel
@@ -118,8 +119,19 @@ def test_top_level_exports_resolve():
     for name in jax_package.__all__:
         if name != "is_tpu_available":  # no TPU here
             assert hasattr(vla_fastvlm_tpu_torch, name), name
-    for name in ("models", "ops", "io", "data", "training", "serving", "fastvla", "model", "utils"):
+    for name in ("models", "ops", "io", "data", "training", "serving", "fastvla", "model", "utils", "parallel"):
         assert getattr(vla_fastvlm_tpu_torch, name).__name__ == f"vla_fastvlm_tpu_torch.{name}"
+    # The mesh's names resolve where JAX exports them.
+    import vla_fastvlm_tpu.parallel as jax_parallel
+    import vla_fastvlm_tpu.serving as jax_serving
+
+    port_parallel = vla_fastvlm_tpu_torch.parallel
+    for name in jax_parallel.__all__:
+        if name not in ("PIPE_AXIS", "make_pipe_mesh", "make_pipeline_train_step", "pipeline_forward"):
+            assert name in port_parallel.__all__ and hasattr(port_parallel, name), name  # the pipeline: not yet
+    for name in ("ShardedPolicyRuntime", "sharded_generate"):
+        assert name in jax_serving.__all__ and getattr(vla_fastvlm_tpu_torch.serving, name).__module__ == \
+            "vla_fastvlm_tpu_torch.serving.sharded"
     assert vla_fastvlm_tpu_torch.utils.load_policy_from_checkpoint is load_policy_from_checkpoint
     with pytest.raises(AttributeError):
         vla_fastvlm_tpu_torch.not_an_export

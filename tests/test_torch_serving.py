@@ -4,9 +4,9 @@ Greedy tokens of ``serving.generate`` and of ``PagedGenerationServer``
 (decode_impl "kernel" and "gathered", float and int8 pools) against the JAX
 ``generate`` and JAX ``PagedGenerationServer`` on the tiny FastVLM with the
 same weights (bridged), fp32; ``warp_logits`` and greedy ``sample_tokens``
-against JAX; the page pool's bookkeeping; the options not ported yet (a mesh,
-LoRA refusals: a mesh; an empty adapter list, a ``lora_index`` without
-multi-LoRA). Prefix caching and chunked admission: ``test_torch_prefix_cache.py``,
+against JAX; the page pool's bookkeeping; the refusals (a mesh that is no
+("data", "model") DeviceMesh; an empty adapter list, a ``lora_index``
+without multi-LoRA). Prefix caching and chunked admission: ``test_torch_prefix_cache.py``,
 ``test_torch_chunked_prefill.py``.
 
 Greedy tokens are compared exactly: both sides compute the same fp32 logits
@@ -186,10 +186,11 @@ class TestPool:
 
 
 class TestServerOptions:
-    @pytest.mark.parametrize("kw,error", [pytest.param(dict(mesh=object()), (NotImplementedError, "not ported"), id="kw0"),
+    @pytest.mark.parametrize("kw,error", [pytest.param(dict(mesh=object()), (ValueError, "mesh must be"), id="kw0"),
                                           pytest.param(dict(lora=[]), (ValueError, "at least one adapter"), id="kw1")])
     def test_unported_options_raise(self, kw, error):
-        """A mesh is not ported; LoRA is, and an empty adapter list is refused."""
+        """A mesh that is no ("data", "model") DeviceMesh is refused (meshes:
+        tests/test_torch_sharded_serving.py); an empty adapter list too."""
         with pytest.raises(error[0], match=error[1]):
             PagedGenerationServer(t_vlm.FastVLM(t_vlm.fastvlm_tiny()), num_slots=1, prompt_len=4, **kw)
 

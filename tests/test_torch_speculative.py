@@ -240,7 +240,7 @@ class TestRefusals:
         server = SpeculativeGenerationServer(pair["tt"], pair["td"], k=2, num_slots=1, prompt_len=PROMPT)
         with pytest.raises(NotImplementedError, match="step_n"):
             server.step_n(4)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="mesh must be"):  # meshes: tests/test_torch_sharded_serving.py
             GenerationServer(pair["tt"], num_slots=1, prompt_len=4, mesh=object())
         # An empty adapter tree mounts nothing; lora_index needs multi-LoRA.
         assert SpeculativeGenerationServer(pair["tt"], pair["td"], k=2, num_slots=1, prompt_len=PROMPT,

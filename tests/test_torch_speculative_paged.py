@@ -211,5 +211,5 @@ class TestRefusals:
     @pytest.mark.parametrize("kw", [dict(mesh=object())])
     def test_unported_parent_options_raise(self, kw):
         target = t_vlm.FastVLM(t_vlm.fastvlm_tiny())
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="mesh must be"):  # meshes: tests/test_torch_sharded_serving.py
             SpeculativePagedGenerationServer(target, target, **dict(SERVER_KW, **kw))

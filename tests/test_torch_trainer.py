@@ -137,10 +137,13 @@ def test_bad_precision_falls_back(caplog):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh that is no ("data", "model") DeviceMesh raises; ``fsdp``
+    without a mesh is a no-op, as in JAX (tests/test_torch_sharded_training.py
+    trains on meshes)."""
+    with pytest.raises(ValueError, match="mesh"):
         Trainer(make_policy(), make_loader(8), None, quiet(max_steps=1), mesh=object())
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        Trainer(make_policy(), make_loader(8), None, quiet(max_steps=1, fsdp=True))
+    trainer = Trainer(make_policy(), make_loader(8), None, quiet(max_steps=1, fsdp=True))
+    assert trainer.mesh is None and not any(hasattr(p, "device_mesh") for p in trainer._params)
     from vla_fastvlm_tpu_torch.data import AlohaIterableDataset
 
     stream = create_aloha_dataloader(AlohaIterableDataset(source=SyntheticAlohaSource(num_samples=4)), batch_size=2)
@@ -189,11 +192,13 @@ class TestTrainScript:
 
     @pytest.mark.parametrize("flag", ["--tp", "--dp"])
     def test_mesh_flags_raise(self, flag):
+        """A mesh the model or the batch cannot split raises before any rank
+        starts: 4 heads over --tp 3, a batch of 4 over --dp 3."""
         from vla_fastvlm_tpu_torch.scripts.train import TrainArgs, main
         from vla_fastvlm_tpu_torch.utils import parse_cli
 
-        with pytest.raises(NotImplementedError, match="mesh"):
-            main(parse_cli(TrainArgs, self.FLAGS + ["--device", "cpu", flag, "2"]))
+        with pytest.raises(ValueError, match="does not split" if flag == "--tp" else "not divisible"):
+            main(parse_cli(TrainArgs, self.FLAGS + ["--device", "cpu", flag, "3"]))
 
     def test_yaml_config_gives_defaults(self):
         from vla_fastvlm_tpu_torch.scripts.train import TrainArgs

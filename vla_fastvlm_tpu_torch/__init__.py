@@ -28,7 +28,7 @@ from .device import (
 
 __version__ = "0.1.0"
 
-_SUBPACKAGES = ("models", "ops", "io", "data", "training", "serving", "fastvla", "model", "utils")
+_SUBPACKAGES = ("models", "ops", "io", "data", "training", "serving", "fastvla", "model", "utils", "parallel")
 
 
 def __getattr__(name):

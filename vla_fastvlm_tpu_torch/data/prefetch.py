@@ -5,6 +5,8 @@
 already submitted to the device: numpy arrays and CPU tensors are pinned and
 copied with ``.to(device, non_blocking=True)``, so the copy runs while the
 previous step computes; task strings and metadata pass through untouched.
+On a mesh the trainer's placer is ``parallel/sharding.py::shard_batch``:
+each rank submits its ``data`` rows.
 """
 
 from __future__ import annotations

@@ -47,6 +47,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..parallel.sharding import full_state_dict
+
 _UNSCANNED = re.compile(r"^layers_(\d+)$")
 _FUSED = {
     "self_attn": ("qkv_proj", ("q_proj", "k_proj", "v_proj")),
@@ -222,12 +224,15 @@ def torch_params_to_jax(module: torch.nn.Module, scanned: bool = True, as_numpy:
 
     Leaves are new CPU tensors in the JAX layout, or numpy arrays with
     ``as_numpy`` (bf16 widened to float32, since numpy has no bf16). On the
-    meta device only the shapes are made (``as_numpy=False``).
+    meta device only the shapes are made (``as_numpy=False``). A module
+    placed on a mesh (``parallel/sharding.py``) gives its whole tensors:
+    every rank of the mesh must call it.
     """
-    owners = {name: type(m).__name__ for name, m in module.named_modules()}
+    # fully_shard renames a module's class "FSDP" + its name.
+    owners = {name: type(m).__name__.removeprefix("FSDP") for name, m in module.named_modules()}
     flat: Dict[str, torch.Tensor] = {}
     int4 = set()
-    for name, value in module.state_dict().items():
+    for name, value in full_state_dict(module).items():
         t = value.detach()
         if not t.is_meta:
             t = t.to("cpu", copy=True)  # a snapshot: the parameters may change after

@@ -26,7 +26,7 @@ import torch.nn as nn
 
 from .fastvit import FastViTHD, FastViTHDConfig, fastvithd, fastvithd_tiny, gelu
 from .layers import Dense
-from .qwen2 import Qwen2Config, Qwen2Model, qwen2_0_5b, qwen2_1_5b, qwen2_7b, qwen2_tiny
+from .qwen2 import Qwen2Config, Qwen2Model, lm_head_logits, qwen2_0_5b, qwen2_1_5b, qwen2_7b, qwen2_tiny
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +159,7 @@ class FastVLM(nn.Module):
         """LM head: the tied embedding's ``attend`` or the untied ``lm_head``."""
         if self.cfg.text.tie_word_embeddings:
             return self.language_model.embed_tokens.attend(hidden)
-        return self.lm_head(hidden)
+        return lm_head_logits(self.lm_head, hidden)
 
     def prefill(self, images, input_ids, attention_mask, cache: dict, lora=None):
         """Multimodal prefill into a dense KV cache (written in place).

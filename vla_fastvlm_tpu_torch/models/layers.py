@@ -93,6 +93,9 @@ class QuantDense(nn.Module):
     bias a frozen float parameter, as the JAX tree keeps it. ``module.to(dtype)``
     leaves the codes as they are and keeps ``scale`` in float32 (it moves to
     the new device only). ``act_quant`` takes the w8a8 product.
+    ``k_offset`` is set on a rank's piece of a row-split int4 weight whose
+    group scales stay whole (``parallel/sharding.py``): the global input
+    position of its first code.
     """
 
     def __init__(self, in_features: int, out_features: int, qweight: torch.Tensor, scale: torch.Tensor,
@@ -102,6 +105,7 @@ class QuantDense(nn.Module):
         self.register_buffer("qweight", qweight)
         self.register_buffer("scale", scale.float())
         self.bias = None if bias is None else nn.Parameter(bias.detach(), requires_grad=False)
+        self.k_offset: Optional[int] = None
 
     @classmethod
     def from_dense(cls, dense: Dense, mode: str, group_size: int = INT4_GROUP, act_quant: bool = False):
@@ -127,7 +131,8 @@ class QuantDense(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        leaf = {"qweight": self.qweight, "scale": self.scale, "bias": self.bias}
+        leaf = {"qweight": self.qweight, "scale": self.scale, "bias": self.bias, "k_offset": self.k_offset,
+                "k_whole": self.in_features}
         return dense_apply(x, leaf, self.dtype, self.act_quant)
 
 

@@ -51,6 +51,7 @@ from ..ops.attention import attention, make_attention_bias, paged_attention
 from ..ops.norms import rms_norm
 from ..ops.quant import dequantize_kv, quantize_kv
 from ..ops.rope import apply_rope, rope_cos_sin
+from ..parallel.sharding import copy_to_model, gather_from_model, reduce_from_model, tp_lora_site
 from .layers import Dense, Embed
 
 # The decoder layer's seven LoRA sites (io/lora.py), JAX's projection names,
@@ -93,6 +94,13 @@ def lora_delta(y: torch.Tensor, x: torch.Tensor, site) -> torch.Tensor:
     if a.ndim == 3:
         return y + torch.bmm(torch.bmm(x, a), b)
     return y + (x @ a) @ b
+
+
+def lm_head_logits(lm_head: nn.Module, hidden: torch.Tensor) -> torch.Tensor:
+    """An untied LM head's logits; split by vocabulary on a mesh
+    (``lm_head.tp_group``), each rank's piece all-gathered."""
+    group = getattr(lm_head, "tp_group", None)
+    return gather_from_model(lm_head(copy_to_model(hidden, group)), group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,10 +221,16 @@ class RMSNorm(nn.Module):
 
 
 class Qwen2Attention(nn.Module):
+    """Self-attention over ``num_heads`` query and ``num_kv_heads`` KV heads:
+    the config's, or one rank's share of them once ``parallel/sharding.py``
+    placed the module on a mesh (``tp_group``: the ``model`` group, None
+    unsharded)."""
+
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
         self.cfg = cfg
         n, k, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.resolved_head_dim
+        self.num_heads, self.num_kv_heads, self.tp_group = n, k, None
         self.qkv_proj = Dense(cfg.hidden_size, (n + 2 * k) * d, True, cfg.dtype, cfg.param_dtype)
         self.o_proj = Dense(n * d, cfg.hidden_size, False, cfg.dtype, cfg.param_dtype)
 
@@ -228,12 +242,14 @@ class Qwen2Attention(nn.Module):
         ``tables``, ``mask``, ``index``, int8 scale pools). ``new`` is the
         paged path's new rows ``(k, v, k_scale, v_scale)`` at t == 1 (the
         window axis squeezed), else None."""
-        cfg = self.cfg
+        cfg, group = self.cfg, self.tp_group
         b, t, _ = x.shape
-        n, kh, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.resolved_head_dim
+        n, kh, d = self.num_heads, self.num_kv_heads, cfg.resolved_head_dim
+        x = copy_to_model(x, group)
         q, k, v = self.qkv_proj(x).split([n * d, kh * d, kh * d], dim=-1)
         if lora is not None:
-            q, k, v = (lora_delta(y, x, lora.get(name)) for y, name in ((q, "q_proj"), (k, "k_proj"), (v, "v_proj")))
+            q, k, v = (lora_delta(y, x, tp_lora_site(lora.get(name), "col", group))
+                       for y, name in ((q, "q_proj"), (k, "k_proj"), (v, "v_proj")))
         q, k = apply_rope(q.reshape(b, t, n, d), k.reshape(b, t, kh, d), cos, sin)
         q = q.contiguous()
         v = v.reshape(b, t, kh, d).contiguous()
@@ -277,22 +293,31 @@ class Qwen2Attention(nn.Module):
             out = attention(q, k.to(q.dtype), v.to(q.dtype), bias=bias, causal=causal, impl=cfg.attention_impl)
         out = out.reshape(b, t, n * d)
         proj = self.o_proj(out)
-        return (proj if lora is None else lora_delta(proj, out, lora.get("o_proj"))), new
+        if lora is not None:
+            proj = lora_delta(proj, out, tp_lora_site(lora.get("o_proj"), "row", group))
+        return reduce_from_model(proj, group), new
 
 
 class Qwen2MLP(nn.Module):
+    """SwiGLU MLP; on a mesh each rank holds its share of the intermediate
+    width and ``tp_group`` sums the down products."""
+
     def __init__(self, cfg: Qwen2Config):
         super().__init__()
         self.cfg = cfg
+        self.tp_group = None
         self.gate_up_proj = Dense(cfg.hidden_size, 2 * cfg.intermediate_size, False, cfg.dtype, cfg.param_dtype)
         self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, False, cfg.dtype, cfg.param_dtype)
 
     def forward(self, x, lora=None):
+        group = self.tp_group
+        x = copy_to_model(x, group)
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
         if lora is None:
-            return self.down_proj(F.silu(gate) * up)
-        h = F.silu(lora_delta(gate, x, lora.get("gate_proj"))) * lora_delta(up, x, lora.get("up_proj"))
-        return lora_delta(self.down_proj(h), h, lora.get("down_proj"))
+            return reduce_from_model(self.down_proj(F.silu(gate) * up), group)
+        site = lambda name, kind: tp_lora_site(lora.get(name), kind, group)  # noqa: E731
+        h = F.silu(lora_delta(gate, x, site("gate_proj", "col"))) * lora_delta(up, x, site("up_proj", "col"))
+        return reduce_from_model(lora_delta(self.down_proj(h), h, site("down_proj", "row")), group)
 
 
 class Qwen2Block(nn.Module):
@@ -437,5 +462,5 @@ class Qwen2ForCausalLM(nn.Module):
             attention_mask=attention_mask, positions=positions, cache=cache, causal=causal,
             compute_tied_logits=self.cfg.tie_word_embeddings, lora=lora["model"] if lora else None,
         )
-        logits = tied_logits if self.cfg.tie_word_embeddings else self.lm_head(hidden)
+        logits = tied_logits if self.cfg.tie_word_embeddings else lm_head_logits(self.lm_head, hidden)
         return logits, hidden, new_cache

@@ -101,17 +101,27 @@ def leaf_kind(leaf: Mapping) -> str:
     return "int8" if leaf["qweight"].dtype == torch.int8 else "int4"
 
 
-def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
+                 k_offset: int | None = None, k_whole: int | None = None) -> torch.Tensor:
     """x @ dequant(W)^T with per-(group, row) scales, JAX's two formulations:
     grouped partial sums scaled before the sum over groups below
     ``INT4_DEQUANT_MIN_TOKENS`` tokens, else the scaled weights in one
-    contraction."""
+    contraction. ``k_offset``: ``packed`` holds the input positions from
+    ``k_offset`` on of a ``k_whole``-wide weight whose whole ``(K/G, N)``
+    scales ``scale`` is (a rank's piece of a row-split kernel); its groups
+    are then indexed by global position, in sub-groups that no group
+    boundary crosses."""
     if packed.ndim != 2:
         raise ValueError(f"int4 apply expects a per-layer (N, K/2) weight, got {tuple(packed.shape)}")
     n = packed.shape[0]
-    kg = scale.shape[-2]
     codes = unpack_int4(packed).to(dtype)
     k = codes.shape[1]
+    if k_offset is not None:
+        group = k_whole // scale.shape[-2]
+        sub = math.gcd(group, k, k_offset)
+        starts = torch.arange(k_offset, k_offset + k, sub, device=scale.device)
+        scale = scale.index_select(-2, starts // group)
+    kg = scale.shape[-2]
     x = x.to(dtype)
     tokens = math.prod(x.shape[:-1])
     sg = scale.to(dtype)  # (K/G, N)
@@ -150,7 +160,7 @@ def dense_apply(x: torch.Tensor, leaf: Mapping, dtype: torch.dtype, act_quant: b
         else:
             y = F.linear(x.to(dtype), leaf["qweight"].to(dtype)) * leaf["scale"].to(dtype)
     elif kind == "int4":
-        y = _int4_matmul(x, leaf["qweight"], leaf["scale"], dtype)
+        y = _int4_matmul(x, leaf["qweight"], leaf["scale"], dtype, leaf.get("k_offset"), leaf.get("k_whole"))
     else:
         y = F.linear(x.to(dtype), leaf["weight"].to(dtype))
     bias = leaf.get("bias")

@@ -20,7 +20,10 @@ Prints one JSON summary: returns and lengths, ``actions_per_sec``,
 ``p50_control_latency_ms``, the device, and for a token server the server
 calls and decode ticks per control tick. ``--device`` is the card unless
 ``--device cpu`` is given; without CUDA the script raises. ``--dp`` / ``--tp``
-above 1 (a mesh) raise. ``--quantization int8|int4|w8a8`` quantizes the
+above 1 run the MLP policy's step through ``ShardedPolicyRuntime`` on a
+("data", "model") mesh (the envs split over ``data``): under ``torchrun`` on
+its ranks, else on ``dp * tp`` ranks the command starts itself; rank 0
+prints. ``--quantization int8|int4|w8a8`` quantizes the
 policy's decoder (``io/quantize.py``); a ``--draft-model-id`` preset stays
 float, and ``self`` drafts with the quantized target.
 """
@@ -35,15 +38,18 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
 from ..io.checkpoint import load_policy_from_checkpoint
+from ..io.presets import resolve_fastvlm_config
+from ..parallel import cli_mesh, is_main_rank, needs_own_ranks, spawn_ranks
+from ..parallel.sharding import tp_text_config
 from ..model.fastvlm_adapter import prepare_policy_images
 from ..serving import (
     ActionQueuePolicy,
     BatchedEnvRunner,
     GenerationServer,
     PagedGenerationServer,
+    ShardedPolicyRuntime,
     SpeculativePagedGenerationServer,
     TokenPolicyServer,
 )
@@ -267,9 +273,10 @@ def summarize(args: ClosedLoopArgs, policy, result, tick_times, t0: float, elaps
 
 def main(args: ClosedLoopArgs) -> dict:
     if args.dp * args.tp > 1:
-        raise NotImplementedError("--dp / --tp: a device mesh is not ported to PyTorch yet; the port serves on "
-                                  "one card")
-    device = resolve_device(args.device)
+        _check_mesh_args(args)
+    if needs_own_ranks(args.dp * args.tp):
+        return spawn_ranks(main, args.dp * args.tp, args, device=args.device)
+    mesh, device = cli_mesh(args.dp, args.tp, args.device)
     configure_logging()
     policy = build_policy(args, device)
     if args.serving != "batch":
@@ -277,6 +284,8 @@ def main(args: ClosedLoopArgs) -> dict:
             raise ValueError("--serving other than 'batch' requires --action-head token (the MLP policy's "
                              "control tick is a single prefill; the generation servers serve decode-shaped work)")
         policy = build_token_server(args, policy)
+    if mesh is not None:
+        policy = ShardedPolicyRuntime(policy, mesh)
 
     runner = BatchedEnvRunner(build_envs(args), ActionQueuePolicy(policy, args.n_action_steps), task=args.task)
     tick_times = []
@@ -292,8 +301,21 @@ def main(args: ClosedLoopArgs) -> dict:
     result = runner.run(max_steps=args.max_steps, on_step=on_step, stagger=args.stagger)
     elapsed = time.perf_counter() - t0
     summary = summarize(args, policy, result, tick_times, t0, elapsed)
-    print(json.dumps(summary))
+    if is_main_rank():
+        print(json.dumps(summary))
     return summary
+
+
+def _check_mesh_args(args: ClosedLoopArgs) -> None:
+    """``--dp`` / ``--tp`` shard the MLP policy's step (``ShardedPolicyRuntime``)
+    over the envs: refuse what it cannot split."""
+    if args.action_head != "mlp":
+        raise ValueError("--dp / --tp shard the MLP policy's step (ShardedPolicyRuntime); the token head's "
+                         "servers take no --dp")
+    if args.num_envs % args.dp:
+        raise ValueError(f"batch {args.num_envs} not divisible by data-parallel size {args.dp}")
+    if not args.checkpoint_dir:
+        tp_text_config(resolve_fastvlm_config(args.model_id, args.model_id)[0].text, args.tp)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,11 @@ a ``--model-id`` naming a local HF FastVLM directory loads its
 ``*.safetensors`` (``io/model_loader.py``). ``--device`` is the card unless ``--device cpu`` is given;
 without CUDA the script raises. ``--quantization int8|int4|w8a8`` quantizes
 the decoder's projections (``io/quantize.py``). ``--dp`` / ``--tp`` above 1
-(a mesh) raise ``NotImplementedError``.
+generate on a ("data", "model") mesh through ``serving/sharded.py::
+sharded_generate``: under ``torchrun`` on its ranks, else on ``dp * tp``
+ranks the command starts itself; the prompt is repeated to ``dp`` rows
+(the JAX script's batch of one does not split over ``data``) and rank 0
+prints row 0.
 """
 
 from __future__ import annotations
@@ -23,10 +27,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..io.presets import resolve_fastvlm_config
 from ..model import FastVLMBackbone, FastVLMBackboneConfig
 from ..ops.image import prepare_image_batch
+from ..parallel import cli_mesh, is_main_rank, needs_own_ranks, spawn_ranks
+from ..parallel.sharding import tp_text_config
 from ..serving import generate
+from ..serving.sharded import sharded_generate
 from ..utils import configure_logging, parse_cli
 
 
@@ -45,7 +52,7 @@ class GenerateArgs:
     # The card unless "cpu" is asked for.
     device: Optional[str] = "cuda"
     seed: int = 0
-    # Mesh factors of the JAX script; the port generates on one card.
+    # Mesh factors for sharded generation (dp * tp ranks; 1 x 1 = one card).
     dp: int = 1
     tp: int = 1
     # "int8" | "int4" | "w8a8": quantized decoder projections (io/quantize.py).
@@ -53,10 +60,10 @@ class GenerateArgs:
 
 
 def main(args: GenerateArgs) -> str:
-    if args.dp * args.tp > 1:
-        raise NotImplementedError("--dp / --tp: a device mesh is not ported to PyTorch yet; the port generates on "
-                                  "one card")
-    device = resolve_device(args.device)
+    if needs_own_ranks(args.dp * args.tp):
+        tp_text_config(resolve_fastvlm_config(args.model_id, args.bootstrap_model_id)[0].text, args.tp)
+        return spawn_ranks(main, args.dp * args.tp, args, device=args.device)
+    mesh, device = cli_mesh(args.dp, args.tp, args.device)
     configure_logging()
     backbone = FastVLMBackbone(FastVLMBackboneConfig(
         model_id=args.model_id, bootstrap_model_id=args.bootstrap_model_id, force_image_size=args.image_size,
@@ -77,15 +84,19 @@ def main(args: GenerateArgs) -> str:
         images = prepare_image_batch(backbone.to_device(img), size=size, dtype=mcfg.text.dtype)
 
     ids, mask = backbone._prep_text([args.prompt])
-    tokens = generate(
-        backbone.model, images, np.asarray(ids, np.int32), np.asarray(mask, np.int32),
-        max_new_tokens=args.max_new_tokens,
-        eos_token_id=getattr(backbone.tokenizer, "eos_token_id", 2) or 2,
-        temperature=args.temperature, top_p=args.top_p,
-        generator=torch.Generator(device=device).manual_seed(args.seed),
-    )
+    gen_kwargs = dict(max_new_tokens=args.max_new_tokens, eos_token_id=getattr(backbone.tokenizer, "eos_token_id", 2)
+                      or 2, temperature=args.temperature, top_p=args.top_p)
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    ids, mask = np.asarray(ids, np.int32), np.asarray(mask, np.int32)
+    if mesh is None:
+        tokens = generate(backbone.model, images, ids, mask, generator=generator, **gen_kwargs)
+    else:  # the prompt repeated to one row a data rank
+        images = None if images is None else images.repeat_interleave(args.dp, 0)
+        ids, mask = np.repeat(ids, args.dp, 0), np.repeat(mask, args.dp, 0)
+        tokens = sharded_generate(backbone.model, None, images, ids, mask, mesh, rng=generator, **gen_kwargs)
     text = backbone.tokenizer.decode(tokens[0].cpu().numpy().tolist())
-    print(text)
+    if is_main_rank():
+        print(text)
     return text
 
 

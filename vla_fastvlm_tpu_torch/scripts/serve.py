@@ -41,8 +41,11 @@ the target only.
 (``io/quantize.py``); a draft stays float, as in the JAX script (the
 deployment: ``--model-id fastvlm-7b --quantization int8 --draft-model-id
 fastvlm-0.5b --paged``). ``--device`` is the card unless ``--device cpu`` is
-given; without CUDA the script raises. ``--tp`` above 1 (a mesh) raises
-``NotImplementedError``: it is not ported.
+given; without CUDA the script raises. ``--tp`` above 1 serves on a (1, tp)
+mesh: the target's decoder split over its ranks (heads, MLP width, cache or
+page pools by KV head), the draft and adapters whole on each, the paged
+decode "gathered" under "auto"; under ``torchrun`` on its ranks, else on
+``tp`` ranks the command starts itself. Rank 0 prints the summary.
 """
 
 from __future__ import annotations
@@ -56,9 +59,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from ..io.lora import load_lora
+from ..io.presets import resolve_fastvlm_config
 from ..model import FastVLMBackbone, FastVLMBackboneConfig
+from ..parallel import cli_mesh, is_main_rank, needs_own_ranks, spawn_ranks
+from ..parallel.sharding import tp_text_config
 from ..serving import (
     GenerationServer,
     PagedGenerationServer,
@@ -124,15 +129,16 @@ def build_backbone(args: ServeArgs, model_id: str, seed: int, image_size: Option
     ), device=device)
 
 
-def build_server(args: ServeArgs, device: torch.device, lora=None):
+def build_server(args: ServeArgs, device: torch.device, lora=None, mesh=None):
     """The server ``args`` name, over a random-weight model of its preset,
-    with ``lora`` (None, one adapter tree or a list) on the target."""
+    with ``lora`` (None, one adapter tree or a list) on the target, on
+    ``mesh`` when one is given."""
     backbone = build_backbone(args, args.model_id, args.seed, args.image_size, args.kv_cache_quantization, device,
                               args.quantization)
     common = dict(num_slots=args.num_slots, prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
                   eos_token_id=-1,  # synthetic stream: run to max length
                   prefill_batch=args.prefill_batch, temperature=args.temperature, top_p=args.top_p, seed=args.seed,
-                  lora=lora)
+                  lora=lora, mesh=mesh)
     paged = dict(page_size=args.page_size, num_pages=args.num_pages, prefix_cache_size=args.prefix_cache,
                  prefill_chunk_tokens=args.prefill_chunk_tokens)
     if args.draft_model_id:
@@ -153,13 +159,15 @@ def admission_work(server) -> tuple:
 
 
 def main(args: ServeArgs) -> dict:
-    if args.tp > 1:
-        raise NotImplementedError("--tp > 1: not ported to PyTorch yet; the port serves one card")
-    device = resolve_device(args.device)
+    if needs_own_ranks(args.tp):
+        tp_text_config(resolve_fastvlm_config(args.model_id, args.model_id)[0].text, args.tp)
+        return spawn_ranks(main, args.tp, args, device=args.device)
+    mesh, device = cli_mesh(1, args.tp, args.device)
     configure_logging()
     adapters = [load_lora(d) for d in args.lora_dir]
     num_adapters = len(adapters)
-    server = build_server(args, device, None if not adapters else adapters[0] if num_adapters == 1 else adapters)
+    server = build_server(args, device, None if not adapters else adapters[0] if num_adapters == 1 else adapters,
+                          mesh)
     size = server.model.cfg.image_size
 
     rng = np.random.default_rng(args.seed)
@@ -254,7 +262,8 @@ def main(args: ServeArgs) -> dict:
         server.evict_prefix_cache()
         summary["pages"] = {"usable": pool.num_pages - 1, "free": free, "pinned": pinned,
                             "free_after_evict": pool.free_pages, "tables_empty": not pool.page_table.any()}
-    print(json.dumps(summary))
+    if is_main_rank():
+        print(json.dumps(summary))
     return summary
 
 

@@ -19,8 +19,12 @@ action-token policy (``FastVLMTokenPolicy``), which has no head and trains with
 int8|int4|w8a8`` quantizes the frozen base (``io/quantize.py``): with
 ``--lora-rank`` that is QLoRA, float adapters over int8 or int4 codes; with
 ``--train-backbone`` it raises, as in JAX. An int4 policy's checkpoint
-cannot be written (safetensors has no int4), as in JAX. Paths not ported
-raise: ``--tp`` above 1 and ``--fsdp`` (a mesh).
+cannot be written (safetensors has no int4), as in JAX. ``--dp`` / ``--tp``
+train on a ("data", "model") mesh (``Trainer(mesh=...)``; ``--dp -1``
+absorbs the ranks ``--tp`` leaves) and ``--fsdp`` shards parameters,
+gradients and AdamW state over ``data``: under ``torchrun`` on its ranks,
+else on ``dp * tp`` ranks the command starts itself. ``--batch-size`` is
+the global batch; rank 0 writes logs and checkpoints.
 """
 
 from __future__ import annotations
@@ -31,8 +35,10 @@ from pathlib import Path
 from typing import Optional
 
 from ..data import AlohaDataset, AlohaIterableDataset, SyntheticAlohaSource, create_aloha_dataloader
-from ..device import resolve_device
 from ..fastvla import FastVLAConfig, FastVLAPolicy, FastVLMTokenPolicy
+from ..io.presets import resolve_fastvlm_config
+from ..parallel import cli_mesh, needs_own_ranks, spawn_ranks
+from ..parallel.sharding import tp_text_config
 from ..training import Trainer, TrainingConfig
 from ..utils import configure_logging, parse_cli
 
@@ -87,7 +93,7 @@ class TrainArgs:
     device: str = "cuda"
     # Train the backbone too (with --no-freeze-backbone).
     train_backbone: bool = False
-    # Mesh axes of the JAX script; the port trains on one card (dp * tp = 1).
+    # Mesh axes: dp (-1 absorbs the ranks tp leaves) x tp.
     dp: int = -1
     tp: int = 1
     fsdp: bool = False
@@ -101,9 +107,13 @@ class TrainArgs:
 
 
 def main(args: TrainArgs) -> None:
-    device = resolve_device(args.device)
-    if args.tp > 1 or args.dp > 1:
-        raise NotImplementedError("--dp / --tp: a device mesh is not ported to PyTorch yet; the port trains on one card")
+    world = max(args.dp, 1) * args.tp
+    if needs_own_ranks(world):
+        if args.batch_size % max(args.dp, 1):
+            raise ValueError(f"batch {args.batch_size} not divisible by data-parallel size {args.dp}")
+        tp_text_config(resolve_fastvlm_config(args.model_id, args.bootstrap_model_id)[0].text, args.tp)
+        return spawn_ranks(main, world, args, device=args.device)
+    mesh, device = cli_mesh(args.dp, args.tp, args.device)
     configure_logging()
     Path(args.output_dir).mkdir(parents=True, exist_ok=True)
 
@@ -193,7 +203,8 @@ def main(args: TrainArgs) -> None:
         seed=args.seed,
         fsdp=args.fsdp,
     )
-    Trainer(model=policy, train_dataloader=train_loader, eval_dataloader=eval_loader, config=trainer_config).fit()
+    Trainer(model=policy, train_dataloader=train_loader, eval_dataloader=eval_loader, config=trainer_config,
+            mesh=mesh).fit()
 
 
 if __name__ == "__main__":

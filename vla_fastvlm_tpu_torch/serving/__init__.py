@@ -1,7 +1,8 @@
 """Serving of the port: sequential generation, the dense and paged
-continuous-batching servers, speculative decoding over both, and closed-loop
-control (the policy runtime and the token-policy server) (counterpart of
-``vla_fastvlm_tpu/serving``; the sharded server is not ported yet).
+continuous-batching servers, speculative decoding over both, closed-loop
+control (the policy runtime and the token-policy server), and the
+mesh-sharded policy step and generation (counterpart of
+``vla_fastvlm_tpu/serving``).
 """
 
 from .continuous_batching import GenerationServer, make_slot_insert
@@ -9,6 +10,7 @@ from .generate import build_cache, generate
 from .paged_kv import PagedGenerationServer, PagedKVPool
 from .policy_runtime import ActionQueuePolicy, BatchedEnvRunner
 from .sampling import sample_tokens, speculative_accept, warp_logits
+from .sharded import ShardedPolicyRuntime, sharded_generate
 from .speculative import SpeculativeGenerationServer, SpeculativeGenerator, validate_draft_pair
 from .speculative_paged import SpeculativePagedGenerationServer
 from .token_policy_server import TokenPolicyServer
@@ -19,6 +21,7 @@ __all__ = [
     "GenerationServer",
     "PagedGenerationServer",
     "PagedKVPool",
+    "ShardedPolicyRuntime",
     "SpeculativeGenerationServer",
     "SpeculativeGenerator",
     "SpeculativePagedGenerationServer",
@@ -27,6 +30,7 @@ __all__ = [
     "generate",
     "make_slot_insert",
     "sample_tokens",
+    "sharded_generate",
     "speculative_accept",
     "validate_draft_pair",
     "warp_logits",

@@ -31,8 +31,17 @@ trees is multi-LoRA: they are stacked behind an all-zeros base adapter,
 ``submit(lora_index=i)`` routes a request to adapter ``i`` (None: the
 base), and every program gets each row's adapter index (``batch_lora`` at
 admission, ``slots_lora`` in the ticks). The server keeps the adapters on
-its device in the model's compute dtype. Not in this port yet: a TP mesh,
-which raises ``NotImplementedError``.
+its device in the model's compute dtype.
+
+``mesh`` (every server of the port takes it): a ("data", "model") mesh
+(``parallel/mesh.py``). The model's decoder is placed on it in place
+(``parallel/sharding.py::shard_params``): each rank holds its share of the
+heads, its cache (or page pools) only its KV heads, and the logits come
+whole to every rank, so every rank runs the same host loop and takes the
+same decisions (admission order, pages, prefix-cache hits, acceptance,
+sampling draws from a generator seeded alike). Adapters and a speculative
+draft stay replicated. The ``data`` axis replicates the server: use
+``make_mesh(data=1, model=N)``, as in JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch
 from ..io.lora import lora_with_ids, map_lora, stack_loras
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import init_kv_cache
+from ..parallel.sharding import rank_text_config, shard_params
 from .sampling import sample_tokens
 
 
@@ -230,7 +240,8 @@ class GenerationServer:
         image_prep=None,
     ) -> None:
         if mesh is not None:
-            raise NotImplementedError("mesh: not ported to the PyTorch dense server yet")
+            shard_params(mesh, model)
+        self.mesh = mesh
         self.model = model
         self.image_prep = image_prep
         self.device = next(model.parameters()).device
@@ -248,7 +259,7 @@ class GenerationServer:
         cfg = model.cfg
         self._cache_len = cfg.num_image_tokens + self.prompt_len + max_new_tokens + int(cache_slack)
         # +1 trash slot: dummy admission rows land there (never read back).
-        self.cache = init_kv_cache(cfg.text, num_slots + 1, self._cache_len, device=self.device)
+        self.cache = init_kv_cache(rank_text_config(model), num_slots + 1, self._cache_len, device=self.device)
         self._insert = make_slot_insert(self.prefill_batch)
         self._slots = [_Slot() for _ in range(num_slots)]
         self._pending: List[_Pending] = []
@@ -320,7 +331,7 @@ class GenerationServer:
     def _prefill(self, model: FastVLM, cache_len: int, images, ids, mask, lora=None):
         """Batched prefill of ``model`` into a fresh cache of ``cache_len``
         positions -> (last logits (bp, V), cache)."""
-        cache_p = init_kv_cache(model.cfg.text, self.prefill_batch, cache_len, device=self.device)
+        cache_p = init_kv_cache(rank_text_config(model), self.prefill_batch, cache_len, device=self.device)
         last_logits, _, cache_p, _, _ = model.prefill(
             device_images(self, images), self._to_device(ids), self._to_device(mask), cache_p, lora=lora,
         )

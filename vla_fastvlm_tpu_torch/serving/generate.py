@@ -12,6 +12,7 @@ import torch
 
 from ..models.fastvlm import FastVLM, FastVLMConfig
 from ..models.qwen2 import init_kv_cache
+from ..parallel.sharding import rank_text_config
 from .sampling import sample_tokens
 
 
@@ -41,12 +42,14 @@ def generate(
     the last decode step. Inputs may be numpy or tensors; ``model`` carries
     the weights and the device (the JAX function's ``params``). ``lora``: an
     adapter tree (``io/lora.py``), single or ``stack_loras`` +
-    ``lora_with_ids`` with one adapter a batch row, on the model's device."""
+    ``lora_with_ids`` with one adapter a batch row, on the model's device.
+    A model placed on a mesh runs its rank's heads into a cache of its
+    rank's KV heads (``serving/sharded.py::sharded_generate``)."""
     device = next(model.parameters()).device
     as_dev = lambda x: None if x is None else torch.as_tensor(x).to(device)
     images, input_ids, attention_mask = as_dev(images), as_dev(input_ids), as_dev(attention_mask)
     b, t = input_ids.shape
-    cache = build_cache(model.cfg, b, t, max_new_tokens, device=device)
+    cache = init_kv_cache(rank_text_config(model), b, model.cfg.num_image_tokens + t + max_new_tokens, device=device)
     last_logits, _, cache, _, _ = model.prefill(images, input_ids, attention_mask, cache, lora=lora)
     token = sample_tokens(last_logits, generator, temperature, top_p)
     done = token == eos_token_id

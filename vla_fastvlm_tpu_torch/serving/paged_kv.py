@@ -43,8 +43,9 @@ frames. LoRA (``lora=``, single or multi-LoRA with
 ``submit(lora_index=...)``) as on the dense server: admission, chunks,
 partial-hit tails and ticks get each row's adapter, and the adapter index
 keys both prefix-cache layers (the whole-prompt key and the page chain),
-so a hit never crosses adapters. Not in this port yet: a TP mesh, which
-raises ``NotImplementedError``.
+so a hit never crosses adapters. ``mesh``: as on the dense server, the
+pools split over KV heads (pool axis 2) with the model's heads; under a
+mesh ``decode_impl`` "auto" is "gathered" and "kernel" raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ import torch
 
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import Qwen2Config, init_kv_cache
+from ..parallel.sharding import rank_text_config, shard_params
 from .continuous_batching import (
     _pad_to,
     admission_arrays,
@@ -266,7 +268,8 @@ class PagedGenerationServer:
         """``decode_impl``: "kernel" decodes through the model's paged path
         (the paged-attention kernel on the card, its plain version on the
         CPU); "gathered" gathers each slot's window and runs the dense decode
-        step; "auto" is "kernel".
+        step; "auto" is "kernel", or "gathered" under a ``mesh``, where
+        "kernel" raises (JAX's rule: its Pallas call is single-chip).
 
         ``prefix_cache_size``: > 0 caches that many distinct prompts (LRU)
         and as many prompts' worth of full prompt pages (the page layer);
@@ -278,11 +281,17 @@ class PagedGenerationServer:
         ``prefill_chunk_tokens``: > 0 admits misses chunk by chunk, one
         chunk of work a ``step`` (``flush`` and ``step_n`` admit fully).
         Every prompt bucket must be a multiple of it."""
-        if mesh is not None:
-            raise NotImplementedError("mesh: not ported to the PyTorch paged server yet")
         if decode_impl not in ("auto", "kernel", "gathered"):
             raise ValueError(f"unknown decode_impl {decode_impl!r}")
-        self.decode_impl = "kernel" if decode_impl == "auto" else decode_impl
+        if decode_impl == "kernel" and mesh is not None:
+            raise ValueError("decode_impl='kernel' reads whole pools through one kernel and takes no mesh; "
+                             "use decode_impl='gathered' with a TP mesh")
+        if decode_impl == "auto":
+            decode_impl = "gathered" if mesh is not None else "kernel"
+        self.decode_impl = decode_impl
+        if mesh is not None:
+            shard_params(mesh, model)
+        self.mesh = mesh
         self.model = model
         self.image_prep = image_prep
         self.device = next(model.parameters()).device
@@ -330,7 +339,8 @@ class PagedGenerationServer:
                 # independently, so each may hold its own budget).
                 num_pages += 2 * self.prefix_cache_size * prompt_pages
         self._page_cache_capacity = self.prefix_cache_size * prompt_pages
-        self.pool = PagedKVPool(cfg.text, num_pages, page_size, num_slots, self._max_len, device=self.device)
+        self.pool = PagedKVPool(rank_text_config(model), num_pages, page_size, num_slots, self._max_len,
+                                device=self.device)
         self._slots = [_Slot() for _ in range(num_slots)]
         self._next_rid = 0
         # Fixed by the first request and checked at submit, never mid-admit.
@@ -552,7 +562,7 @@ class PagedGenerationServer:
             pages[row] = self.pool.page_table[req.slot]
 
         model = self.model
-        cache = init_kv_cache(model.cfg.text, bp, self._max_len, device=self.device)
+        cache = init_kv_cache(rank_text_config(model), bp, self._max_len, device=self.device)
         last_logits, _, cache, _, _ = model.prefill(
             device_images(self, images), self._to_device(ids), self._to_device(mask), cache,
             lora=batch_lora(self, batch, bp),
@@ -638,7 +648,7 @@ class PagedGenerationServer:
             self.pool.allocate(req.slot, cfg.num_image_tokens + batch[0].bucket + 1)
         return _Inflight(
             batch=batch, bucket=batch[0].bucket, ids=ids, mask=mask, images=images,
-            cache=init_kv_cache(cfg.text, bp, self._max_len, device=self.device),
+            cache=init_kv_cache(rank_text_config(self.model), bp, self._max_len, device=self.device),
             last_logits=torch.zeros((bp, cfg.text.vocab_size), dtype=cfg.text.dtype, device=self.device),
             images_done=images is None or cfg.num_image_tokens == 0,
             lora=batch_lora(self, batch, bp),

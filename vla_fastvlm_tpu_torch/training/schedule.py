@@ -9,7 +9,7 @@ updates, the reference's dual-clock quirk, which the JAX package keeps.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -32,11 +32,15 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm_(tensors: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(tensors: Sequence[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scale ``tensors`` in place by ``max_norm / norm`` when their global
     norm reaches ``max_norm`` (``optax.clip_by_global_norm``: no epsilon, the
-    tensors untouched below the limit). Returns the norm before clipping."""
-    norm = global_norm(tensors)
+    tensors untouched below the limit). Returns the norm before clipping.
+    ``norm``: the global norm when the caller computed it (a sharded run's
+    tensors are this rank's pieces, scaled through their local tensors)."""
+    if norm is None:
+        norm = global_norm(tensors)
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(list(tensors), scale)
+    torch._foreach_mul_([t.to_local() if hasattr(t, "to_local") else t for t in tensors], scale)
     return norm

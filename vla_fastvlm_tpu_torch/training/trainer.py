@@ -23,7 +23,17 @@ resume that restores the counters, the optimizer and the generator, the
 SIGTERM / SIGINT preemption checkpoint, ``profile_start_step``
 (``torch.profiler``, a Chrome trace under ``logs/profile``) and
 ``debug_nans`` (raise on a non-finite loss or gradient norm).
-``mesh`` and ``fsdp`` are not ported: the port trains on one card.
+
+``mesh`` (``parallel/mesh.py``): every rank of the mesh runs the trainer
+(SPMD). The policy's modules are placed by ``shard_params`` (TP pieces of
+the decoder; with ``config.fsdp`` each large leaf also sharded over
+``data``, ``fully_shard``) and AdamW's state follows them. Each rank takes
+its ``data`` rows of every batch (``shard_batch``); gradients are averaged
+over ``data``, by FSDP's reduce-scatter or by an all-reduce of the leaves
+left whole. The global-norm clip sums each leaf's squares once: TP pieces
+over ``model``, FSDP shards over ``data``, replicated leaves on one rank's
+count. Rank 0 alone writes logs and checkpoints, which hold whole tensors
+(``io/bridge.py`` gathers them), so they load unsharded in either package.
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ from typing import Dict, Iterable, List, Optional
 import torch
 
 from ..data.prefetch import device_prefetch
-from .schedule import clip_by_global_norm_, global_norm, linear_warmup_decay
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group, axis_rank, axis_size, check_mesh
+from ..parallel.sharding import all_reduce_sum, gather_tp, is_fsdp_param, shard_batch, shard_params, tp_pieces
+from .schedule import clip_by_global_norm_, linear_warmup_decay
 
 logger = logging.getLogger(__name__)
 
@@ -78,12 +90,24 @@ class TrainingConfig:
     prefetch_batches: int = 2
     # Keep only the newest N step-* checkpoints (None / 0: keep all).
     keep_last_n: Optional[int] = 5
-    # Not ported (a mesh is Queue 1 item 7 of ROADMAP.md); must stay False.
+    # FSDP (ZeRO-3-style) under a mesh: shard every large parameter, its
+    # gradient and AdamW moments over ``data`` (parallel/sharding.py). A
+    # no-op without a mesh.
     fsdp: bool = False
 
 
+def policy_modules(model) -> List[torch.nn.Module]:
+    """The modules that hold a policy's parameters: the backbone's
+    ``FastVLM`` and, for the MLP policy, the head."""
+    inner = getattr(model, "model", None)
+    backbone = getattr(inner, "backbone", None) or model.backbone
+    head = getattr(inner, "head", None)
+    return [backbone.model] + ([head] if head is not None else [])
+
+
 class Trainer:
-    """Trainer of a FastVLA policy on one device (the policy's)."""
+    """Trainer of a FastVLA policy on one device (the policy's), or on every
+    rank of a mesh."""
 
     def __init__(
         self,
@@ -94,14 +118,22 @@ class Trainer:
         mesh=None,
     ) -> None:
         self.config = config or TrainingConfig()
-        if mesh is not None or self.config.fsdp:
-            raise NotImplementedError(
-                "mesh / fsdp: sharded training is not ported to PyTorch yet (ROADMAP.md, Queue 1 "
-                "item 7); the port trains on one card"
-            )
         self._validate_precision()
         self.model = model
         self.device = model.device
+        if mesh is not None:
+            check_mesh(mesh)
+        self.mesh = mesh
+        self.is_main = mesh is None or torch.distributed.get_rank() == 0
+        if self.config.resume_from:
+            # Whole weights go in before a mesh's placement cuts them; the
+            # rest of the state at ``fit`` (``_load_checkpoint``).
+            from ..io.checkpoint import load_policy_state
+
+            model.load_jax_params(load_policy_state(_checkpoint_path(self.config.resume_from))[1])
+        if mesh is not None:
+            for module in policy_modules(model):
+                shard_params(mesh, module, fsdp=self.config.fsdp)
         self.train_dataloader = train_dataloader
         self.eval_dataloader = eval_dataloader
 
@@ -114,10 +146,18 @@ class Trainer:
         self._params: List[torch.nn.Parameter] = [p for sub in self.trainable.values() for p in sub.values()]
         for p in self._params:
             p.requires_grad_(True)
+        self._fsdp = any(is_fsdp_param(p) for p in self._params)
         self.optimizer = torch.optim.AdamW(
             self._params, lr=self._schedule(0), betas=tuple(cfg.betas), eps=cfg.eps,
-            weight_decay=cfg.weight_decay, fused=self.device.type == "cuda",
+            weight_decay=cfg.weight_decay, fused=self.device.type == "cuda" and not self._fsdp,
         )
+        self._layouts = self._param_layouts()
+        # Each leaf's norm scaled by 1/sqrt(its copies across the mesh), so
+        # that the squares summed over every rank count each element once.
+        tp, data = axis_size(mesh, MODEL_AXIS), axis_size(mesh, DATA_AXIS)
+        self._norm_scale = torch.tensor(
+            [((1 if layout is not None else tp) * (1 if sharded else data)) ** -0.5
+             for layout, sharded in self._layouts], dtype=torch.float32, device=self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.global_step = 0
         self.epoch = 0
@@ -161,15 +201,82 @@ class Trainer:
     # the step
 
     def _place_batch(self, batch: Dict) -> Dict:
-        return self.model.to_device(self.model.prepare_batch(batch))
+        arrays = self.model.prepare_batch(batch)
+        if self.mesh is not None:
+            return shard_batch(self.mesh, arrays)
+        return self.model.to_device(arrays)
+
+    # -- the mesh's pieces -----------------------------------------------
+
+    def _param_layouts(self) -> List[tuple]:
+        """Per trainable parameter: (TP layout ``(dim, parts)`` or None,
+        whether FSDP shards it); without a mesh every leaf is whole."""
+        owners = {}
+        for module in policy_modules(self.model) if self.mesh is not None else ():
+            for m in module.modules():
+                for leaf, layout in (getattr(m, "tp_layout", None) or {}).items():
+                    owners[id(getattr(m, leaf))] = layout
+        return [(owners.get(id(p)), is_fsdp_param(p)) for p in self._params]
+
+    def _local(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Tensors shaped like the trainable parameters, each FSDP shard as
+        its local tensor (its storage), for the ``_foreach_`` ops."""
+        if not self._fsdp:
+            return tensors
+        return [t.to_local() if sharded else t for t, (_, sharded) in zip(tensors, self._layouts)]
+
+    def _data_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the ``data`` ranks, detached (every rank's
+        batch share is equal; ``x`` itself without them)."""
+        group = axis_group(self.mesh, DATA_AXIS)
+        x = x.detach()
+        if group is None:
+            return x
+        x = x.float().clone()
+        torch.distributed.all_reduce(x, group=group)
+        return x / axis_size(self.mesh, DATA_AXIS)
+
+    def _grads(self, loss: torch.Tensor) -> List[torch.Tensor]:
+        """Backward pass on this rank's rows; under a mesh the gradients
+        averaged over ``data`` (FSDP reduce-scatters its shards; the rest
+        all-reduce)."""
+        for p in self._params:  # the step's gradients alone, whatever a caller left in .grad
+            p.grad = None
+        # Only the trainable leaves take a .grad; FSDP's hooks need every
+        # unsharded leaf the forward used, so its backward runs whole.
+        loss.backward(inputs=None if self._fsdp else self._params)
+        grads = []
+        group, data = axis_group(self.mesh, DATA_AXIS), axis_size(self.mesh, DATA_AXIS)
+        for p, (_, sharded) in zip(self._params, self._layouts):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.grad = None
+            if group is not None and not sharded:
+                g = all_reduce_sum(g, group).div_(data)
+            grads.append(g)
+        return grads
+
+    def _grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """Global norm of the gradients (``global_norm``); under a mesh every
+        leaf's squares counted once: each rank adds its pieces over the ranks
+        that hold the same piece, then the sum runs over ``model`` and
+        ``data``."""
+        norms = torch.stack(torch._foreach_norm([t.float() for t in self._local(grads)]))
+        total = torch.linalg.vector_norm(norms * self._norm_scale)
+        groups = [g for g in (axis_group(self.mesh, a) for a in (MODEL_AXIS, DATA_AXIS)) if g is not None]
+        if not groups:
+            return total
+        total = total.square()
+        for group in groups:
+            torch.distributed.all_reduce(total, group=group)
+        return total.sqrt()
 
     def _train_step(self, arrays: Dict) -> Dict[str, torch.Tensor]:
         """One batch: loss and gradients, and an update once k batches are in.
         Returns ``{"loss", "mse", "grad_norm"}`` as device tensors (no sync)."""
         loss, metrics = self.model.loss_fn(arrays, train=True, generator=self.generator)
-        grads = list(torch.autograd.grad(loss, self._params, allow_unused=True, materialize_grads=True))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        grad_norm = global_norm(grads)
+        grads = self._grads(loss)
+        grad_norm = self._grad_norm(grads)
+        metrics = {k: self._data_mean(v) for k, v in metrics.items()}
         if self.config.debug_nans and not (torch.isfinite(metrics["loss"]) and torch.isfinite(grad_norm)):
             raise FloatingPointError(
                 f"non-finite loss {float(metrics['loss'])} or gradient norm {float(grad_norm)} "
@@ -180,12 +287,12 @@ class Trainer:
             if self._accum is None:
                 self._accum = grads
             else:
-                torch._foreach_add_(self._accum, grads)
+                torch._foreach_add_(self._local(self._accum), self._local(grads))
             self._micro_steps += 1
             if self._micro_steps < k:
                 return dict(metrics, grad_norm=grad_norm)
             grads = self._accum
-            torch._foreach_div_(grads, float(k))
+            torch._foreach_div_(self._local(grads), float(k))
             self._accum, self._micro_steps = None, 0
         self._apply_update(grads)
         return dict(metrics, grad_norm=grad_norm)
@@ -193,7 +300,7 @@ class Trainer:
     def _apply_update(self, grads: List[torch.Tensor]) -> None:
         """Clip, then one AdamW update at the schedule's rate for this update."""
         if self.config.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.config.max_grad_norm)
+            clip_by_global_norm_(grads, self.config.max_grad_norm, self._grad_norm(grads))
         for p, g in zip(self._params, grads):
             p.grad = g
         lr = self._schedule(self.updates)
@@ -207,6 +314,8 @@ class Trainer:
     # logging
 
     def _init_trackers(self) -> None:
+        if not self.is_main:
+            return
         output_dir = Path(self.config.output_dir)
         self._metrics_file = open(output_dir / "logs" / "metrics.jsonl", "a", encoding="utf-8")
         if "tensorboard" in (self.config.report_to or []):
@@ -221,6 +330,8 @@ class Trainer:
             self._writer.add_text("vla_fastvlm/config", json.dumps(hparams, indent=2))
 
     def _log(self, metrics: Dict[str, float], step: int) -> None:
+        if not self.is_main:
+            return
         payload = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         self._metrics_file.write(json.dumps(payload) + "\n")
         self._metrics_file.flush()
@@ -233,10 +344,11 @@ class Trainer:
 
     def fit(self) -> None:
         output_dir = Path(self.config.output_dir)
-        (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-        (output_dir / "logs").mkdir(exist_ok=True)
-        with open(output_dir / "training_config.json", "w", encoding="utf-8") as f:
-            json.dump(asdict(self.config), f, indent=2)
+        if self.is_main:
+            (output_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+            (output_dir / "logs").mkdir(exist_ok=True)
+            with open(output_dir / "training_config.json", "w", encoding="utf-8") as f:
+                json.dump(asdict(self.config), f, indent=2)
         self._init_trackers()
 
         if self.config.resume_from:
@@ -377,8 +489,8 @@ class Trainer:
         for batch in self.eval_dataloader:
             arrays = self._place_batch(batch)
             _, metrics = self.model.loss_fn(arrays, train=False)
-            n = arrays["actions"].shape[0]
-            total_loss += float(metrics["mse"]) * n
+            n = arrays["actions"].shape[0] * axis_size(self.mesh, DATA_AXIS)
+            total_loss += float(self._data_mean(metrics["mse"])) * n
             total_count += n
         return {"eval/mse": total_loss / max(total_count, 1)}
 
@@ -390,16 +502,44 @@ class Trainer:
             future, self._save_future = self._save_future, None
             future.result()  # re-raises a failed background write
 
+    def _whole(self, index: int, t: torch.Tensor) -> torch.Tensor:
+        """A tensor shaped like trainable parameter ``index``'s piece -> the whole tensor."""
+        if is_fsdp_param(t):
+            t = t.full_tensor()
+        layout = self._layouts[index][0]
+        if layout is not None and t.ndim > 0:
+            t = gather_tp(t, *layout, axis_group(self.mesh, MODEL_AXIS))
+        return t
+
+    def _piece(self, index: int, t: torch.Tensor) -> torch.Tensor:
+        """A whole tensor -> this rank's piece, placed like trainable parameter ``index``."""
+        from torch.distributed.tensor import distribute_tensor
+
+        if t.ndim == 0:
+            return t
+        p = self._params[index]
+        layout, sharded = self._layouts[index]
+        t = t.to(self.device)
+        if layout is not None:
+            t = tp_pieces(t, layout[0], layout[1], axis_size(self.mesh, MODEL_AXIS), axis_rank(self.mesh, MODEL_AXIS))
+        return distribute_tensor(t, p.device_mesh, p.placements) if sharded else t
+
+    def _optimizer_state(self) -> Dict:
+        """AdamW's state dict, every moment whole (gathered under a mesh)."""
+        state = self.optimizer.state_dict()
+        state["state"] = {i: {k: self._whole(i, t) for k, t in entry.items()} for i, entry in state["state"].items()}
+        return state
+
     def _state(self) -> Dict:
         """The resumable state, copied to the host (the step goes on mutating it)."""
         snap = lambda obj: _map_tensors(obj, lambda t: t.detach().to("cpu", copy=True))
         return {
-            "optimizer": snap(self.optimizer.state_dict()),
+            "optimizer": snap(self._optimizer_state()),
             "global_step": self.global_step,
             "epoch": self.epoch,
             "updates": self.updates,
             "micro_steps": self._micro_steps,
-            "accum": snap(self._accum),
+            "accum": snap(None if self._accum is None else [self._whole(i, t) for i, t in enumerate(self._accum)]),
             "generator": self.generator.get_state(),
         }
 
@@ -408,8 +548,10 @@ class Trainer:
 
         checkpoint_dir = Path(self.config.output_dir) / "checkpoints" / suffix
         self._join_pending_save()
-        params = self.model.jax_params(as_numpy=False)
+        params = self.model.jax_params(as_numpy=False)  # whole tensors, gathered on every rank of a mesh
         state = self._state()
+        if not self.is_main:
+            return
         model_config = self.model.config
         keep_last_n = self.config.keep_last_n
 
@@ -430,22 +572,30 @@ class Trainer:
         self._save_future = self._save_executor.submit(write)
 
     def _load_checkpoint(self, path: str) -> None:
-        from ..io.checkpoint import load_policy_state, load_train_state
+        """The training state of a checkpoint: AdamW, the counters, the
+        accumulated gradients and the generator (the weights went in at
+        construction, before a mesh's placement)."""
+        from ..io.checkpoint import load_train_state
 
-        checkpoint_path = Path(path)
-        if not checkpoint_path.exists():
-            raise FileNotFoundError(f"Checkpoint path {path} does not exist.")
+        checkpoint_path = _checkpoint_path(path)
         logger.info("Resuming from checkpoint %s", path)
         state = load_train_state(checkpoint_path)
-        _, params = load_policy_state(checkpoint_path)
-        self.model.load_jax_params(params)
-        self.optimizer.load_state_dict(state["optimizer"])
+        optim = state["optimizer"]
+        optim["state"] = {i: {k: self._piece(i, t) for k, t in entry.items()} for i, entry in optim["state"].items()}
+        self.optimizer.load_state_dict(optim)
         self.global_step = int(state["global_step"])
         self.epoch = int(state["epoch"])
         self.updates = int(state["updates"])
         self._micro_steps = int(state["micro_steps"])
-        self._accum = _map_tensors(state["accum"], lambda t: t.to(self.device))
+        self._accum = None if state["accum"] is None else [self._piece(i, t) for i, t in enumerate(state["accum"])]
         self.generator.set_state(state["generator"])
+
+
+def _checkpoint_path(path: str) -> Path:
+    checkpoint_path = Path(path)
+    if not checkpoint_path.exists():
+        raise FileNotFoundError(f"Checkpoint path {path} does not exist.")
+    return checkpoint_path
 
 
 def _map_tensors(obj, fn):
