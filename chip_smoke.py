@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 
-    python3 chip_smoke.py                 # the full check, about fifteen minutes
+    python3 chip_smoke.py                 # the full check, about eighteen minutes
     python3 chip_smoke.py --profile DIR   # also write torch.profiler tables of policy steps, decode ticks and verify rounds
     python3 chip_smoke.py --only flash    # the flash-attention kernel alone: build, checks, times (about a minute)
     python3 chip_smoke.py --only repmixer # the RepMixer kernel alone: build, checks, per-width times (about a minute)
@@ -15,7 +15,7 @@ Run from the root of a checkout, on a machine with a CUDA card and ``nvcc``:
     python3 chip_smoke.py --only lora     # LoRA training (0.5B both heads, 7B), multi-LoRA serving, merge_lora
     python3 chip_smoke.py --only quant    # int8 / int4 / w8a8 weights: ops, policy, serving, 7B target, QLoRA, quality
     python3 chip_smoke.py --only hf       # an Apple FastVLM-0.5B HF directory: load, folds, policy, convert, serve
-    python3 chip_smoke.py --only parallel # the device mesh: one rank and two ranks sharing the card
+    python3 chip_smoke.py --only parallel # the device mesh and the pipeline: one rank and two ranks sharing the card
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -70,7 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (20 steps a path and turn): frozen at the yaml shape and at the policy
    step's (batch 128, 256 px), full backbone at the yaml shape; each path's
    first ``Trainer`` step there gives its loss and gradient norm, held
-   kernel path against plain path within the policy's limit.
+   kernel path against plain path within the policy's limit. The batch-128
+   step's model FLOPs (``utils/flops.py::fastvlm_train_flops``, counted on
+   the meta device) and each path's MFU at its p50 against the card's
+   dense bf16 peak (``device_peak_flops``), beside the card line.
 5. serving: the paged server (``PagedGenerationServer``) of FastVLM-0.5B at
    its 1024 px, bf16, random weights from a seed, on the synthetic stream of
    ``scripts/serve.py``: 128 requests arriving 16 a tick, 64 slots, admission
@@ -248,7 +251,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``vla_fastvlm_tpu_torch/native``, built with ``g++``) against its numpy
    plain version and the card's letterbox, ms a frame.
 13. timing: p50 step time and actions/sec of the kernel path and the plain
-   path (in turns), each kernel's time per launch beside its plain version,
+   path (in turns), with the step's model FLOPs
+   (``utils/flops.py::fastvlm_serve_flops``, counted on the meta device)
+   and each path's MFU at its p50 beside the card line; each kernel's time
+   per launch beside its plain version,
    one PyTorch library call where one computes the same function, and the
    least time the card could take for the same work; for RepMixer each
    width's time split into a part per hidden chunk and a fixed part.
@@ -268,6 +274,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    within the largest prefill logit difference); the FSDP step at (2, 1),
    its loss within ``TRAIN_REL_L2`` of (a)'s. The p50 of each layout beside
    the card's name and power limit (two ranks share the card: not scaling).
+   (c) The GPipe pipeline (``parallel/pipeline.py``) of the Qwen2-0.5B
+   decoder at full width and depth, batch 16 at T = 320, bf16, on one rank
+   (in (a)'s nccl group) and on two stages (in (b)'s gloo ranks): the flash
+   kernel against its plain version at the microbatch shapes; the pipelined
+   hidden states at 2 and 4 microbatches against the unpipelined forward
+   (``SERVE_LOGITS_REL_L2``); (24 / P) x microbatches flash launches a
+   rank-forward, twice that a remat train step; 3 AdamW steps of
+   ``make_pipeline_train_step`` whose first gradients match the unpipelined
+   step's (bf16 jointly within ``TRAIN_REL_L2``; fp32 at batch 4, every
+   leaf within ``TRAIN_FP32_REL_L2``), the loss falling, ``embed_tokens``
+   and ``norm`` bit-equal across ranks after each step; the p50 forward and
+   train step of each layout.
 
 ``--only quant`` runs phases 1 and 2 and phase 11, then the card line and
 the last line; ``--only hf`` phases 1 and 2 and phase 12; ``--only
@@ -1174,6 +1192,7 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     from vla_fastvlm_tpu_torch.io.checkpoint import load_policy_from_checkpoint
     from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
     from vla_fastvlm_tpu_torch.training import Trainer
+    from vla_fastvlm_tpu_torch.utils.flops import device_peak_flops, fastvlm_train_flops, mfu
 
     log(f"[4/14] training FastVLA-0.5B at configs/train_aloha.yaml's settings: batch {TRAIN_BATCH}, "
         f"{TRAIN_IMAGE} px from {TRAIN_FRAME_HW[0]}x{TRAIN_FRAME_HW[1]} frames, bf16 over fp32 parameters, "
@@ -1316,6 +1335,18 @@ def phase_train(profile_dir: Path | None = None) -> dict:
     for label, (trainers, arrays, batch) in timed.items():
         result[label] = time_train_steps(label, trainers, arrays, batch, profile_dir)
         lap(f"time {label}")
+    label = f"frozen, batch {BATCH}, {IMAGE} px"
+    t0 = time.perf_counter()
+    step_flops = fastvlm_train_flops(k256.model, BATCH, TEXT_LEN)
+    count_s = time.perf_counter() - t0
+    card = card_line()
+    for path in ("kernel", "plain"):
+        p50 = result[label][path]["p50_ms"]
+        result[label][path]["mfu"] = mfu(step_flops, p50 / 1e3)
+        log(f"  train step {label}, {path} path: {step_flops / 1e9:.1f} GFLOP a step (fastvlm_train_flops, "
+            f"counted in {count_s:.2f} s), MFU {result[label][path]['mfu']:.4f} at its p50 {p50:.2f} ms of "
+            f"{device_peak_flops() / 1e12:.1f} TFLOP/s; {card}")
+    result[label]["gflop"] = step_flops / 1e9
     log(f"  seconds by part: {laps}")
     log(json.dumps({"train": result}))
     return result
@@ -4035,6 +4066,8 @@ def phase_hf() -> dict:
 def phase_timing(policy, plain, step):
     import torch
 
+    from vla_fastvlm_tpu_torch.utils.flops import device_peak_flops, fastvlm_serve_flops, mfu
+
     log("[13/14] timing (kernels: CUDA graph replay between CUDA events; steps: host clock around synchronized steps)")
 
     def step_times(p, n):
@@ -4052,10 +4085,16 @@ def phase_timing(policy, plain, step):
     kernel_ms, plain_ms = [], []
     for p, sink in ((policy, kernel_ms), (plain, plain_ms), (plain, plain_ms), (policy, kernel_ms)):
         sink.extend(step_times(p, 5))
+    t0 = time.perf_counter()
+    step_flops = fastvlm_serve_flops(policy.model, BATCH, TEXT_LEN)
+    count_s = time.perf_counter() - t0
+    card = card_line()
     for what, ms in (("kernel path", kernel_ms), ("plain path", plain_ms)):
         p50 = statistics.median(ms)
         log(f"  step {what}: p50 {p50:.2f} ms, {BATCH / p50 * 1e3:.1f} actions/s "
-            f"(min {min(ms):.2f}, max {max(ms):.2f}, n={len(ms)})")
+            f"(min {min(ms):.2f}, max {max(ms):.2f}, n={len(ms)}); {step_flops / 1e9:.1f} GFLOP a step "
+            f"(fastvlm_serve_flops, counted in {count_s:.2f} s), MFU {mfu(step_flops, p50 / 1e3):.4f} of "
+            f"{device_peak_flops() / 1e12:.1f} TFLOP/s; {card}")
 
     results = {"flash_attention": time_flash(sweep=False)["flash_attention"]}
     results.update(time_paged(sweep=False))
@@ -4344,8 +4383,23 @@ PAR_GEN, PAR_NEW, PAR_TIMED = 16, 16, 3
 PAR_SERVER = dict(num_slots=PAR_GEN, prefill_batch=8, prompt_len=SERVE["prompt_len"], max_new_tokens=PAR_NEW,
                   page_size=SERVE["page_size"])
 # Collectives the two-rank gloo group runs on CUDA tensors (TP's and DP's
-# first three, FSDP's last two); one that fails fails the phase.
-PAR_COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor")
+# first three, FSDP's last two) and the pipeline's point-to-point shift
+# (batch_isend_irecv: under gloo through pinned host copies, by the backend
+# rule of parallel/pipeline.py); one that fails fails the phase.
+PAR_COLLECTIVES = ("all_reduce", "all_gather", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
+                   "batch_isend_irecv")
+# The GPipe pipeline (parallel/pipeline.py) of the Qwen2-0.5B decoder at its
+# full width and depth (24 layers, hidden 896, 14 query and 2 KV heads,
+# head_dim 64), bf16 over fp32 parameters, weights from the seed: batch 16
+# at the 1024-px policy's decoder length (256 image + 64 text tokens,
+# FLASH_LOOP's T = 320), 2 and 4 microbatches, on one rank (nccl) and on two
+# ranks sharing the card (gloo). The hidden states against the unpipelined
+# forward within SERVE_LOGITS_REL_L2; PIPE_STEPS AdamW steps (the yaml's lr
+# and weight decay, remat, the MSE loss in fp32) whose first gradients match
+# the unpipelined step's jointly within TRAIN_REL_L2, and every leaf within
+# TRAIN_FP32_REL_L2 in fp32 at PIPE_FP32_BATCH.
+PIPE_BATCH, PIPE_T, PIPE_MICRO, PIPE_STEPS, PIPE_FP32_BATCH = 16, N_IMG + TEXT_LEN, (2, 4), 3, 4
+PIPE_HIDDEN = 896
 
 
 def par_p50(fn, iters: int = PAR_TIMED) -> dict:
@@ -4378,6 +4432,9 @@ def par_collectives() -> list:
         "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(torch.empty(4 * n, device=dev), x),
         "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(torch.empty(4, device=dev),
                                                                     torch.ones(4 * n, device=dev)),
+        "batch_isend_irecv": lambda: [w.wait() for w in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x.cpu().pin_memory(), (dist.get_rank() + 1) % n),
+            dist.P2POp(dist.irecv, torch.empty(4).pin_memory(), (dist.get_rank() - 1) % n)])],
     }
     for name in PAR_COLLECTIVES:
         ops[name]()
@@ -4474,6 +4531,9 @@ def par_rank() -> dict:
     lap("tokens (1, 2)")
     out["fsdp_dp2"] = par_train_step(make_mesh(2, 1))
     lap("FSDP step (2, 1)")
+    torch.cuda.empty_cache()
+    out["pipeline"] = pipe_cell(2)
+    lap("pipeline (2 stages)")
     return out if dist.get_rank() == 0 else None
 
 
@@ -4503,9 +4563,234 @@ def par_train_step(mesh) -> dict:
                 leaves=len(trainer._params))
 
 
-def phase_parallel() -> dict:
+def pipe_decoder(dtype):
+    """Qwen2-0.5B's decoder at full width and depth on this rank's card,
+    fp32 parameters from the seed, computing in ``dtype``."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.models.layers import init_weights
+    from vla_fastvlm_tpu_torch.models.qwen2 import Qwen2Model, qwen2_0_5b
+    from vla_fastvlm_tpu_torch.parallel.mesh import local_device
+
+    with torch.device(local_device()):
+        model = Qwen2Model(qwen2_0_5b(dtype=dtype, param_dtype=torch.float32))
+    init_weights(model, torch.Generator(device=local_device()).manual_seed(SEED))
+    return model
+
+
+def pipe_batch(batch: int):
+    """Token ids, a mask (the image tokens and 4..64 text tokens of each row
+    valid) and targets ~ N(0, 0.1^2) of the hidden states, alike on every rank."""
+    import numpy as np
+    import torch
+
+    from vla_fastvlm_tpu_torch.parallel.mesh import local_device
+
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(3, 151_000, (batch, PIPE_T))
+    lengths = N_IMG + rng.integers(4, TEXT_LEN + 1, batch)
+    mask = (np.arange(PIPE_T)[None, :] < lengths[:, None]).astype(np.int32)
+    targets = rng.standard_normal((batch, PIPE_T, PIPE_HIDDEN)).astype(np.float32) * 0.1
+    return tuple(torch.from_numpy(a).to(local_device()) for a in (ids, mask, targets))
+
+
+def pipe_loss(hidden, targets):
+    """The pipeline's MSE loss, in fp32 (a bf16 loss rounds away a step's change)."""
+    import torch
+
+    return torch.mean(torch.square(hidden.float() - targets.float()))
+
+
+def pipe_grads(model, ids, mask, targets) -> dict:
+    """The unpipelined step's loss and gradients (the reference)."""
+    import torch
+
+    names, params = zip(*model.named_parameters())
+    loss = pipe_loss(model(input_ids=ids, attention_mask=mask)[0], targets)
+    return dict(loss=float(loss.detach()), grads=dict(zip(names, torch.autograd.grad(loss, params))))
+
+
+def pipe_compare(what, got: dict, ref: dict, leaf_limit=None, joint_limit=None) -> dict:
+    """Gathered pipelined gradients (CPU) against the reference (card): the
+    joint relative L2 and the worst leaf's."""
+    import torch
+
+    if sorted(got) != sorted(ref):
+        fail(f"{what}: gathered leaves {len(got)} differ from the unpipelined model's {len(ref)}")
+    num = den = 0.0
+    leaf = {}
+    for name, r in ref.items():
+        g = got[name].to(r.device).float()
+        if not bool(torch.isfinite(g).all()):
+            fail(f"{what}: non-finite gradient in {name}")
+        num += float((g - r.float()).square().sum())
+        den += float(r.float().square().sum())
+        leaf[name] = rel_l2(g, r)
+    worst = max(leaf, key=leaf.get)
+    out = dict(joint_rel_l2=(num / den) ** 0.5, worst_leaf=worst, worst_leaf_rel_l2=leaf[worst], leaves=len(leaf))
+    log(f"  {what}: gradients against the unpipelined step's: joint rel_l2 {out['joint_rel_l2']:.3e}, worst of "
+        f"{len(leaf)} leaves {worst} {leaf[worst]:.3e}")
+    if joint_limit is not None and not out["joint_rel_l2"] <= joint_limit:
+        fail(f"{what}: joint gradient rel_l2 {out['joint_rel_l2']:.3e} beyond {joint_limit:g}")
+    over = {n: e for n, e in leaf.items() if leaf_limit is not None and not e <= leaf_limit}
+    if over:
+        fail(f"{what}: {len(over)} gradient leaves beyond rel_l2 {leaf_limit:g}, e.g. {sorted(over.items())[:3]}")
+    return out
+
+
+def pipe_shared_equal(model, mesh) -> bool:
+    """Whether ``embed_tokens`` and ``norm`` are bit-equal on every stage:
+    the last stage's copies broadcast to the others and compared there."""
+    import torch
+    import torch.distributed as dist
+
+    if mesh.size() == 1:
+        return True
+    same = True
+    for name in ("embed_tokens.weight", "norm.weight"):
+        mine = model.get_parameter(name).detach()
+        theirs = mine.clone()
+        dist.broadcast(theirs, int(mesh.mesh[-1]), group=mesh.get_group("pipe"))
+        same &= torch.equal(mine, theirs)
+    return same
+
+
+def pipe_profile(what: str, fn, out_dir: Path, steps: int = 3) -> dict:
+    """Device time a call of ``fn`` by part (``step_parts``) over ``steps``
+    calls, its table written to ``out_dir``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    (out_dir / f"{what}_profile.txt").write_text(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+    parts = step_parts(prof, steps)
+    total = sum(parts.values())
+    log(f"  {what}: device time a call {total:.2f} ms: "
+        + ", ".join(f"{part} {v:.2f} ms ({v / total:.1%})" for part, v in parts.items()))
+    return dict(device_ms=total, device_ms_by_part=parts)
+
+
+def pipe_cell(stages: int, profile_dir: Path | None = None) -> dict:
+    """The pipelined decoder on a pipe mesh of ``stages`` ranks (every rank
+    calls it; stage 0 holds the unpipelined references and returns the
+    numbers): forwards at PIPE_MICRO microbatches, launches, the train
+    step's gradients, falling loss, equal replicated leaves, p50 times
+    (with ``profile_dir``, device time by part), and the fp32 gradients at
+    PIPE_FP32_BATCH."""
+    import torch
+
+    from vla_fastvlm_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from vla_fastvlm_tpu_torch.parallel import gather_stages, make_pipe_mesh, make_pipeline_train_step, pipeline_forward
+
+    t0 = time.perf_counter()
+    mesh = make_pipe_mesh(stages)
+    lead = mesh.get_local_rank("pipe") == 0
+    per_stage = DECODER_LAYERS // stages
+    out = {"stages": stages, "flash_launches": 0}
+    model = pipe_decoder(torch.bfloat16)
+    ids, mask, targets = pipe_batch(PIPE_BATCH)
+    ref = None
+    if lead:  # before placement drops the other stages' blocks
+        with torch.no_grad():
+            ref_hidden = model(input_ids=ids, attention_mask=mask)[0]
+        ref = pipe_grads(model, ids, mask, targets)
+    for n in PIPE_MICRO:
+        reset_launch_counts()
+        with torch.no_grad():
+            hidden = pipeline_forward(model, ids, mask, mesh, n_microbatches=n)
+        torch.cuda.synchronize()
+        flash = launch_counts()["flash_attention"]
+        if flash != per_stage * n:
+            fail(f"pipeline at {stages} stages, {n} microbatches: {flash} flash launches a rank-forward, "
+                 f"expected {per_stage * n}")
+        out["flash_launches"] += flash
+        entry = {"flash_launches": flash}
+        if tuple(hidden.shape) != (PIPE_BATCH, PIPE_T, PIPE_HIDDEN) or not bool(torch.isfinite(hidden).all()):
+            fail(f"pipeline at {stages} stages: hidden states {tuple(hidden.shape)} not finite or misshaped")
+        if lead:
+            entry["hidden_rel_l2"] = rel_l2(hidden, ref_hidden)
+            log(f"  pipeline, {stages} stage(s), {n} microbatches: hidden states against the unpipelined "
+                f"forward rel_l2 {entry['hidden_rel_l2']:.3e} (limit {SERVE_LOGITS_REL_L2:g}); {flash} flash "
+                f"launches a rank-forward")
+            if not entry["hidden_rel_l2"] <= SERVE_LOGITS_REL_L2:
+                fail(f"pipeline at {stages} stages, {n} microbatches: hidden rel_l2 {entry['hidden_rel_l2']:.3e}")
+        out[f"forward_micro{n}"] = entry
+    @torch.no_grad()
+    def forward():
+        pipeline_forward(model, ids, mask, mesh, n_microbatches=PIPE_MICRO[0])
+
+    out["forward"] = par_p50(forward)
+
+    step, _ = make_pipeline_train_step(
+        model, lambda params: torch.optim.AdamW(params, lr=TRAIN_LR, weight_decay=TRAIN_WD), mesh,
+        n_microbatches=PIPE_MICRO[0], loss_fn=pipe_loss, remat=True)
+    reset_launch_counts()
+    losses = [float(step(ids, mask, targets))]
+    torch.cuda.synchronize()
+    # remat: each stage-tick's blocks run again in the backward (flash's own backward recomputes on the plain path).
+    flash, want = launch_counts()["flash_attention"], 2 * per_stage * PIPE_MICRO[0]
+    if flash != want:
+        fail(f"pipeline train step at {stages} stages: {flash} flash launches a rank-step, expected {want}")
+    out["flash_launches"] += flash
+    out["train_flash_launches"] = flash
+    grads = gather_stages(model, mesh, grads=True)
+    if lead:
+        out["first_loss_rel"] = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+        out["bf16_grads"] = pipe_compare(f"pipeline train step, {stages} stage(s), bf16", grads, ref["grads"],
+                                         joint_limit=TRAIN_REL_L2)
+        if not out["first_loss_rel"] <= TRAIN_REL_L2:
+            fail(f"pipeline train step: loss {losses[0]} against the unpipelined {ref['loss']}")
+    del grads, ref
+    equal = [pipe_shared_equal(model, mesh)]
+    for _ in range(PIPE_STEPS - 1):
+        losses.append(float(step(ids, mask, targets)))
+        equal.append(pipe_shared_equal(model, mesh))
+    out["losses"], out["shared_equal"] = losses, equal
+    if not all(equal):
+        fail(f"pipeline at {stages} stages: embed_tokens / norm differ across ranks after steps {equal}")
+    if not losses[-1] < losses[0]:
+        fail(f"pipeline at {stages} stages: the loss did not fall over {PIPE_STEPS} steps: {losses}")
+    out["train_step"] = par_p50(lambda: step(ids, mask, targets))
+    if profile_dir is not None:
+        out["forward_profile"] = pipe_profile(f"pipeline_{stages}_forward", forward, profile_dir)
+        out["train_step_profile"] = pipe_profile(f"pipeline_{stages}_train_step", lambda: step(ids, mask, targets),
+                                                 profile_dir)
+    del step, model, hidden, forward
+    torch.cuda.empty_cache()
+
+    model = pipe_decoder(torch.float32)
+    ids, mask, targets = pipe_batch(PIPE_FP32_BATCH)
+    ref = pipe_grads(model, ids, mask, targets) if lead else None
+    step, _ = make_pipeline_train_step(model, lambda params: torch.optim.SGD(params, lr=0.0), mesh,
+                                       n_microbatches=PIPE_MICRO[0], loss_fn=pipe_loss, remat=True)
+    step(ids, mask, targets)
+    grads = gather_stages(model, mesh, grads=True)
+    if lead:
+        out["fp32_grads"] = pipe_compare(f"pipeline train step, {stages} stage(s), fp32, batch {PIPE_FP32_BATCH}",
+                                         grads, ref["grads"], leaf_limit=TRAIN_FP32_REL_L2)
+    del step, model, grads, ref
+    torch.cuda.empty_cache()
+    out["seconds"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def log_pipe_cell(cell: dict, card: str) -> None:
+    log(f"  pipeline, {cell['stages']} stage(s): forward ({PIPE_MICRO[0]} microbatches) p50 "
+        f"{cell['forward']['p50_ms']:.2f} ms (min {cell['forward']['min_ms']:.2f}, max "
+        f"{cell['forward']['max_ms']:.2f}); train step p50 {cell['train_step']['p50_ms']:.2f} ms (min "
+        f"{cell['train_step']['min_ms']:.2f}, max {cell['train_step']['max_ms']:.2f}); losses {cell['losses']}; "
+        f"replicated leaves bit-equal after each step {cell['shared_equal']}; {cell['seconds']} s; {card}")
+
+
+def phase_parallel(profile_dir: Path | None = None) -> dict:
     """Phase 14: the policy, the FSDP train step, generation and the paged
-    server on one-rank and two-rank meshes of the card."""
+    server on one-rank and two-rank meshes of the card, and the pipeline
+    (``profile_dir``: its one-rank forward and train step by part)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4537,6 +4822,17 @@ def phase_parallel() -> dict:
     backbone = serving_backbone()
     reqs = serve_stream(n=PAR_GEN)
     base = par_tokens(backbone.model, mesh, reqs)
+    torch.cuda.empty_cache()
+
+    # The pipeline on one rank: the flash kernel at its microbatch shapes first.
+    from vla_fastvlm_tpu_torch.ops.kernels import flash_attention, flash_attention_reference
+
+    micro = [("bf16", PIPE_BATCH // n) for n in PIPE_MICRO] + [("fp32", PIPE_FP32_BATCH // PIPE_MICRO[0])]
+    for kind, b in micro:
+        q, k, v, kmask = flash_inputs(b, PIPE_T, 14, 2, 64, {"bf16": torch.bfloat16, "fp32": torch.float32}[kind])
+        check_close(f"flash {kind} pipeline microbatch, batch {b}", flash_attention(q, k, v, kmask, True),
+                    flash_attention_reference(q, k, v, kmask, True), TOL[("flash", kind)])
+    result["pipeline_one_rank"] = pipe_cell(1, profile_dir)
     torch.cuda.empty_cache()
 
     # (b) two ranks on the card.
@@ -4576,11 +4872,16 @@ def phase_parallel() -> dict:
     rel = abs(two["fsdp_dp2"]["loss"] - result["fsdp_one_rank"]["loss"]) / abs(result["fsdp_one_rank"]["loss"])
     if not rel <= TRAIN_REL_L2:
         fail(f"FSDP step at (2, 1): loss {two['fsdp_dp2']['loss']} against one rank's, rel {rel:.3e}")
+    result["pipeline_two_ranks"] = two["pipeline"]
+    result["pipeline_flash_launches"] = sum(result[k]["flash_launches"] for k in ("pipeline_one_rank",
+                                                                                   "pipeline_two_ranks"))
     card = card_line()
     for name in ("one_rank", "dp2", "tp2"):
         r = result[name]
         log(f"  policy step {name}: p50 {r['p50_ms']:.2f} ms (min {r['min_ms']:.2f}, max {r['max_ms']:.2f}), "
             f"launches a rank-forward {r['launches']}; {card}")
+    for name in ("pipeline_one_rank", "pipeline_two_ranks"):
+        log_pipe_cell(result[name], card)
     dist.destroy_process_group()
     result["phase_s"] = round(time.perf_counter() - t_phase, 1)
     log(json.dumps({"parallel": result}))
@@ -4737,7 +5038,9 @@ def main(argv=None) -> int:
         log("[2/14] flash-attention and RepMixer kernels against their plain versions")
         check_flash()
         check_repmixer()
-        phase_parallel()
+        if args.profile is not None:
+            args.profile.mkdir(parents=True, exist_ok=True)
+        phase_parallel(args.profile)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card_line())
         log(json.dumps({"ok": True, "device": {
@@ -4791,13 +5094,15 @@ def main(argv=None) -> int:
         profile_step(policy, plain, step, args.profile)
     del policy, plain, step
     torch.cuda.empty_cache()
-    timed("parallel", phase_parallel)
+    parallel = timed("parallel", phase_parallel, args.profile)
     log(f"seconds per phase: {phase_s}")
 
-    # name: (source, TPU kernel it replaces, launches on its main path's run)
+    # name: (source, TPU kernel it replaces, launches on its main path's run; flash: the policy
+    # step's and the pipeline's checked forwards and first train steps, phase 14)
     meta = {
         "flash_attention": ("vla_fastvlm_tpu_torch/csrc/flash_attention.cu",
-                            "vla_fastvlm_tpu/ops/pallas/flash_attention.py:51", counts["flash_attention"]),
+                            "vla_fastvlm_tpu/ops/pallas/flash_attention.py:51",
+                            counts["flash_attention"] + parallel["pipeline_flash_launches"]),
         "repmixer_block": ("vla_fastvlm_tpu_torch/csrc/repmixer.cu",
                            "vla_fastvlm_tpu/ops/pallas/repmixer.py:67", counts["repmixer_block"]),
         "paged_attention": ("vla_fastvlm_tpu_torch/csrc/paged_attention.cu",

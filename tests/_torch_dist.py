@@ -5,7 +5,8 @@ rank on the CPU joined through a file under ``tmp_path`` (so parallel test
 workers never share a port), with one thread each. ``pool.run(name, *args)``
 sends the task ``name`` of this module to every rank and returns the ranks'
 results in rank order; a failing rank fails the call with its traceback,
-and a call that takes longer than ``timeout`` seconds fails the pool.
+and a call that takes longer than ``timeout`` seconds (``TIMEOUT`` unless
+the pool was given its own) fails the pool.
 
 The tasks build the port's models on the CPU from JAX-layout numpy
 parameters (``io/bridge.py``), place them on a mesh of the first
@@ -43,11 +44,11 @@ def _worker(rank, world, init_file, tasks, results):
 
 
 class RankPool:
-    def __init__(self, world: int, tmp_dir) -> None:
+    def __init__(self, world: int, tmp_dir, timeout: float = TIMEOUT) -> None:
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
-        self.world = world
+        self.world, self.timeout = world, timeout
         self.results = ctx.Queue()
         self.tasks = [ctx.Queue() for _ in range(world)]
         init_file = os.path.join(str(tmp_dir), "rendezvous")
@@ -66,7 +67,7 @@ class RankPool:
         errors = []
         for _ in range(self.world):
             try:
-                rank, ok, value = self.results.get(timeout=TIMEOUT)
+                rank, ok, value = self.results.get(timeout=self.timeout)
             except queue.Empty:
                 # a rank failed while the others wait in a collective
                 self.broken = True
@@ -362,3 +363,81 @@ def t_fit_checkpoint(cfg_kw, jparams, data, model, fsdp, batches, out_dir, min_e
     resumed.fit()
     adam_steps = {float(s["step"]) for s in resumed.optimizer.state.values()}
     return trainer.global_step, (resumed.global_step, resumed.updates), sorted(adam_steps)
+
+
+def _pipe_mesh(stages):
+    from vla_fastvlm_tpu_torch.parallel import make_pipe_mesh
+
+    mesh = make_pipe_mesh(stages)
+    return mesh if mesh.get_coordinate() is not None else None
+
+
+def _shared_grads(model):
+    return {name: _np(model.get_parameter(name).grad) for name in ("embed_tokens.weight", "norm.weight")}
+
+
+def t_pipeline(cfg_kw, jparams, stages, n_micro, ids, mask, targets=None, remat=False):
+    """``pipeline_forward``'s hidden states on each pipe rank; with
+    ``targets``, the MSE loss, the whole gradients gathered on stage 0 and
+    each rank's gradients of the replicated leaves."""
+    from vla_fastvlm_tpu_torch.parallel import gather_stages, pipeline_forward
+    from vla_fastvlm_tpu_torch.parallel.pipeline import mse_loss
+
+    mesh = _pipe_mesh(stages)
+    if mesh is None:
+        return None
+    train = targets is not None
+    model = qwen(cfg_kw, jparams).requires_grad_(train)
+    with torch.set_grad_enabled(train):
+        hidden = pipeline_forward(model, torch.as_tensor(ids), torch.as_tensor(mask), mesh, n_microbatches=n_micro,
+                                  remat=remat)
+    out = {"hidden": _np(hidden), "blocks": sum(not n.startswith(("embed", "norm")) for n in model.state_dict())}
+    if train:
+        loss = mse_loss(hidden, torch.as_tensor(targets))
+        loss.backward()
+        grads = gather_stages(model, mesh, grads=True)
+        out.update(loss=float(loss), shared=_shared_grads(model),
+                   grads=None if grads is None else {k: _np(v) for k, v in grads.items()})
+    state = gather_stages(model, mesh)
+    out["state"] = None if state is None else {k: _np(v) for k, v in state.items()}
+    return out
+
+
+def t_pipeline_train(cfg_kw, jparams, stages, n_micro, ids, mask, targets, steps, lr):
+    """``make_pipeline_train_step`` with ``torch.optim.Adam``: the loss of
+    each step and, after each update, this rank's replicated leaves."""
+    from vla_fastvlm_tpu_torch.parallel import make_pipeline_train_step
+
+    mesh = _pipe_mesh(stages)
+    if mesh is None:
+        return None
+    model = qwen(cfg_kw, jparams)
+    step, place = make_pipeline_train_step(model, lambda params: torch.optim.Adam(params, lr=lr), mesh,
+                                           n_microbatches=n_micro)
+    place()
+    out = {"loss": [], "shared": []}
+    for _ in range(steps):
+        out["loss"].append(float(step(torch.as_tensor(ids), torch.as_tensor(mask), torch.as_tensor(targets))))
+        out["shared"].append({n: _np(model.get_parameter(n)) for n in ("embed_tokens.weight", "norm.weight")})
+    return out
+
+
+def t_pipeline_guards(cfg_kw, jparams):
+    """The ``ValueError`` messages of the pipeline's guards."""
+    from vla_fastvlm_tpu_torch.parallel import make_pipe_mesh, pipeline_forward
+
+    ids = torch.ones((4, 8), dtype=torch.int64)
+    cases = {
+        "layers": lambda: pipeline_forward(qwen(cfg_kw, jparams), ids, None, make_pipe_mesh(3)),
+        "micro": lambda: pipeline_forward(qwen(cfg_kw, jparams), ids, None, make_pipe_mesh(2), n_microbatches=3),
+        "scan": lambda: pipeline_forward(qwen(dict(cfg_kw, scan_layers=False), jparams), ids, None,
+                                         make_pipe_mesh(2)),
+        "devices": lambda: make_pipe_mesh(torch.distributed.get_world_size() + 1),
+    }
+    out = {}
+    for name, case in cases.items():
+        try:
+            case()
+        except ValueError as err:
+            out[name] = str(err)
+    return out

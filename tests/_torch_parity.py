@@ -16,6 +16,14 @@ import torch
 
 LEROBOT_STUB = str(Path(__file__).parent / "lerobot_stub")
 
+# The port's CPU tests run their tiny models on one intra-op thread. A test
+# run with N worker processes (``pytest -n N``) on the machine's cores gives
+# each of them torch's default pool of a thread per core, which
+# oversubscribes the CPU: tests/test_torch_*.py took 595.9 s with the default
+# pool and 242.3 s with one thread at -n 6 (857 passed both ways). Every
+# worker imports this module when it collects the tests.
+torch.set_num_threads(1)
+
 
 def t(x):
     return torch.from_numpy(np.asarray(x))
@@ -103,7 +111,8 @@ def lerobot_stub(*packages):
     ``lerobot.*`` and the ``packages`` given (plugins, which register into
     the stub's class-level registry when imported) leave ``sys.modules``
     before and after, so each import inside is fresh; what was there
-    before comes back on exit."""
+    before comes back on exit, in ``sys.modules`` and as its parent
+    package's attribute (``import a.b as c`` reads the attribute)."""
 
     def held(name):
         return any(name == p or name.startswith(p + ".") for p in ("lerobot",) + packages)
@@ -116,9 +125,18 @@ def lerobot_stub(*packages):
         yield
     finally:
         sys.path.remove(LEROBOT_STUB)
-        for name in [name for name in sys.modules if held(name)]:
+        inside = [name for name in sys.modules if held(name)]
+        for name in inside:
             del sys.modules[name]
         sys.modules.update(saved)
+        for name in set(inside) | set(saved):
+            parent, _, child = name.rpartition(".")
+            if parent not in sys.modules:
+                continue
+            if name in saved:
+                setattr(sys.modules[parent], child, saved[name])
+            elif hasattr(sys.modules[parent], child):
+                delattr(sys.modules[parent], child)
 
 
 def random_quantized_params(tree, seed=0):

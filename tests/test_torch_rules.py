@@ -91,7 +91,8 @@ def test_every_module_has_a_jax_counterpart_layout():
         "lerobot_fastvla/configuration_fastvla.py", "lerobot_fastvla/modeling_fastvla.py",
         "lerobot_fastvla/processor_fastvla.py", "io/reparam.py", "io/weights.py", "io/vision_convert.py",
         "io/model_loader.py", "native/__init__.py", "native/image_ops.cpp",
-        "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py", "serving/sharded.py",
+        "parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py", "parallel/pipeline.py",
+        "serving/sharded.py", "utils/flops.py",
     }
     for rel in mirrored:
         assert (PORT / rel).is_file() and (ROOT / "vla_fastvlm_tpu" / rel).is_file(), rel

@@ -50,6 +50,26 @@ def build_lora(cfg: FastVLAConfig, backbone: FastVLMBackbone) -> Optional[Dict]:
     return lora_parameters(init_lora(backbone.model, cfg.lora_rank, seed=cfg.seed + 2, alpha=cfg.lora_alpha))
 
 
+def build_head(cfg: FastVLAConfig, feature_dim: int, device) -> torch.nn.Module:
+    """The policy's action head on ``device``, uninitialized, in eval mode."""
+    head_kwargs = dict(
+        feature_dim=feature_dim,
+        state_dim=cfg.state_dim,
+        action_dim=cfg.action_dim,
+        hidden_dim=cfg.hidden_dim,
+        fusion_dim=cfg.fusion_dim,
+        dropout=cfg.dropout,
+        dtype=resolve_dtype(cfg.dtype),
+        param_dtype=resolve_dtype(cfg.param_dtype),
+    )
+    with torch.device(device):
+        if cfg.chunk_size > 1:
+            head = ActionChunkHead(chunk_size=cfg.chunk_size, **head_kwargs)
+        else:
+            head = ActionExpertHead(**head_kwargs)
+    return head.eval()
+
+
 def _check_supported(cfg: FastVLAConfig) -> None:
     check_lora(cfg)
     if cfg.action_head != "mlp":
@@ -66,22 +86,7 @@ class FastVLMWithExpert:
         _check_supported(cfg)
         self.backbone = FastVLMBackbone(cfg.to_backbone_config(), device=device)
         self.device = self.backbone.device
-        head_kwargs = dict(
-            feature_dim=self.backbone.output_dim,
-            state_dim=cfg.state_dim,
-            action_dim=cfg.action_dim,
-            hidden_dim=cfg.hidden_dim,
-            fusion_dim=cfg.fusion_dim,
-            dropout=cfg.dropout,
-            dtype=resolve_dtype(cfg.dtype),
-            param_dtype=resolve_dtype(cfg.param_dtype),
-        )
-        with torch.device(self.device):
-            if cfg.chunk_size > 1:
-                self.head = ActionChunkHead(chunk_size=cfg.chunk_size, **head_kwargs)
-            else:
-                self.head = ActionExpertHead(**head_kwargs)
-        self.head.eval()
+        self.head = build_head(cfg, self.backbone.output_dim, self.device)
         if self.device.type != "meta":
             init_weights(self.head, torch.Generator(device=self.device).manual_seed(cfg.seed + 1))
         self.lora = build_lora(cfg, self.backbone)

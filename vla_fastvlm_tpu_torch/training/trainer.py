@@ -6,8 +6,9 @@ Same public surface: ``TrainingConfig`` (same fields and defaults) and
 
 A step is eager PyTorch where JAX jits one program: the policy's
 ``loss_fn(train=True)`` (on the card the forward launches the flash and
-RepMixer kernels), ``torch.autograd.grad`` of the trainable parameters, the
-global-norm clip (``optax.clip_by_global_norm``), then
+RepMixer kernels), ``backward`` into the trainable parameters, their global
+norm by one ``torch._foreach_norm`` and the clip
+(``optax.clip_by_global_norm``), then
 ``torch.optim.AdamW`` with the learning rate of ``linear_warmup_decay`` at
 this update. With ``gradient_accumulation_steps = k`` the gradients of k
 batches are averaged before one update (``optax.MultiSteps``); the schedule
@@ -367,6 +368,18 @@ class Trainer:
         finally:
             restore_handlers()
             self._end_training()
+        # Every rank of a mesh leaves fit() with rank 0's last checkpoint on
+        # disk, as JAX's collective save returns on every host once written.
+        self._mesh_barrier()
+
+    def _mesh_barrier(self) -> None:
+        """Wait for every rank of the mesh: the ``model`` groups, then the
+        ``data`` groups (a rank passes its data group only after every rank
+        of its row and of row 0 arrived)."""
+        for axis in (MODEL_AXIS, DATA_AXIS):
+            group = axis_group(self.mesh, axis)
+            if group is not None:
+                torch.distributed.barrier(group=group)
 
     def _install_preemption_handlers(self):
         if not self.config.save_on_preemption:
