@@ -1,0 +1,7 @@
+"""Device ms a step inside the range around the trainer's clip and AdamW update."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.device_ms_per_unit(run, "optimizer")

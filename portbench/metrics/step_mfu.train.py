@@ -1,0 +1,7 @@
+"""Model FLOPs (forward and backward) of the window's steps over its seconds, per cent of the bf16 peak."""
+
+from portbench import readers
+
+
+def read(run):
+    return readers.step_mfu(run)
