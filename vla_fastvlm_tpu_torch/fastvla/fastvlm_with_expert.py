@@ -34,6 +34,7 @@ from ..io.lora import init_lora, load_lora_params, lora_parameters
 from ..model.fastvlm_adapter import FastVLMBackbone, as_float32
 from ..models.action_head import ActionChunkHead, ActionExpertHead
 from ..models.layers import init_weights
+from ..utils import tracing
 from .configuration_fastvla import FastVLAConfig
 
 
@@ -143,9 +144,15 @@ class FastVLMWithExpert:
     def forward(self, images, states, tasks: List[str], device: DeviceLike = None) -> torch.Tensor:
         self.backbone.check_device(device)
         to = self.backbone.to_device
-        images = to(self.backbone._as_bchw(images))
-        ids, mask = self.backbone._prep_text(tasks)
-        states = to(as_float32(states))
-        return self.apply_fn(images, to(ids), to(mask), states)
+        with tracing.span("policy.prep.frames"):
+            images = self.backbone._as_bchw(images)
+            states = as_float32(states)
+        with tracing.span("policy.prep.upload"):
+            images = to(images)
+        with tracing.span("policy.prep.text"):
+            ids, mask = self.backbone._prep_text(tasks)
+        with tracing.span("policy.prep.upload"):
+            ids, mask, states = to(ids), to(mask), to(states)
+        return self.apply_fn(images, ids, mask, states)
 
     __call__ = forward

@@ -17,6 +17,7 @@ import torch
 from ..data.prefetch import to_device
 from ..device import DeviceLike
 from ..model.fastvlm_adapter import as_float32
+from ..utils import tracing
 from .configuration_fastvla import FastVLAConfig
 from .fastvlm_with_expert import FastVLMWithExpert
 from .processor_fastvla import FastVLAProcessor
@@ -102,10 +103,13 @@ class FastVLAPolicy:
 
     def forward(self, images, states, tasks: List[str] | str, device: DeviceLike = None) -> torch.Tensor:
         """Compute actions for a batch of observations."""
-        images = self.processor.prepare_images(images)
-        states = self.processor.prepare_states(states)
-        tasks = self.processor.prepare_tasks(tasks, batch_size=images.shape[0])
-        return self.model.forward(images, states, tasks, device=device)
+        with tracing.span("policy.forward"):
+            with tracing.span("policy.prep.frames"):
+                images = self.processor.prepare_images(images)
+                states = self.processor.prepare_states(states)
+            with tracing.span("policy.prep.text"):
+                tasks = self.processor.prepare_tasks(tasks, batch_size=images.shape[0])
+            return self.model.forward(images, states, tasks, device=device)
 
     def select_action(self, image, state, task: str, device: DeviceLike = None) -> torch.Tensor:
         """Produce a single action for inference scenarios."""

@@ -56,6 +56,7 @@ from ..io.tokenizer import load_tokenizer
 from ..models.fastvlm import FastVLM, pool_hidden, pool_last_text_token
 from ..models.layers import init_weights
 from ..ops.image import prepare_image_batch, resize_with_pad  # noqa: F401  (re-export)
+from ..utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -336,10 +337,16 @@ class FastVLMBackbone:
     def forward(self, images, tasks: List[str], device: DeviceLike = None) -> torch.Tensor:
         """(images, task strings) -> (B, H) pooled features."""
         self.check_device(device)
-        img = self.to_device(self._as_bchw(images))
-        ids, mask = self._prep_text(tasks)
+        with tracing.span("policy.prep.frames"):
+            img = self._as_bchw(images)
+        with tracing.span("policy.prep.upload"):
+            img = self.to_device(img)
+        with tracing.span("policy.prep.text"):
+            ids, mask = self._prep_text(tasks)
+        with tracing.span("policy.prep.upload"):
+            ids, mask = self.to_device(ids), self.to_device(mask)
         with torch.inference_mode():
-            return self.features_fn(img, self.to_device(ids), self.to_device(mask))
+            return self.features_fn(img, ids, mask)
 
     __call__ = forward
 

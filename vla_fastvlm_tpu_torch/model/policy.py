@@ -22,6 +22,7 @@ from ..device import DeviceLike
 from ..io.bridge import jax_params_to_torch, torch_params_to_jax
 from ..models.action_head import ActionExpertHead
 from ..models.layers import init_weights
+from ..utils import tracing
 from .fastvlm_adapter import FastVLMBackbone, FastVLMBackboneConfig, as_float32
 
 
@@ -103,18 +104,24 @@ class FastVLMPolicy:
         states (B, D) or (B, T, D) and tasks -> (B, action_dim) actions.
         Host input stays numpy until the copy; tensors stay on their device."""
         self.backbone.check_device(device)
-        images = as_float32(images)
-        if images.ndim == 5:
-            images = images[:, -1]
-        if images.ndim != 4:
-            raise ValueError(f"Expected images to be (B,C,H,W) got {tuple(images.shape)}")
-        states = as_float32(states)
-        if states.ndim == 3:
-            states = states[:, -1]
-        tasks = self._normalize_tasks(tasks, batch_size=images.shape[0])
-        to = self.backbone.to_device
-        ids, mask = self.backbone._prep_text(tasks)
-        return self.apply_fn(to(self.backbone._as_bchw(images)), to(ids), to(mask), to(states))
+        with tracing.span("policy.forward"):
+            with tracing.span("policy.prep.frames"):
+                images = as_float32(images)
+                if images.ndim == 5:
+                    images = images[:, -1]
+                if images.ndim != 4:
+                    raise ValueError(f"Expected images to be (B,C,H,W) got {tuple(images.shape)}")
+                states = as_float32(states)
+                if states.ndim == 3:
+                    states = states[:, -1]
+                images = self.backbone._as_bchw(images)
+            with tracing.span("policy.prep.text"):
+                tasks = self._normalize_tasks(tasks, batch_size=images.shape[0])
+                ids, mask = self.backbone._prep_text(tasks)
+            to = self.backbone.to_device
+            with tracing.span("policy.prep.upload"):
+                arrays = to(images), to(ids), to(mask), to(states)
+            return self.apply_fn(*arrays)
 
     __call__ = forward
 

@@ -56,6 +56,7 @@ from ..io.lora import lora_with_ids, map_lora, stack_loras
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import init_kv_cache
 from ..parallel.sharding import rank_text_config, shard_params
+from ..utils import tracing
 from .sampling import sample_tokens
 
 
@@ -201,7 +202,8 @@ def device_images(server, images) -> Optional[torch.Tensor]:
     ``server.image_prep`` when it is set (raw frames in, tower-size out)."""
     if images is None:
         return None
-    images = server._to_device(images)
+    with tracing.span("serve.admit.upload"):
+        images = server._to_device(images)
     return images if server.image_prep is None else server.image_prep(images)
 
 

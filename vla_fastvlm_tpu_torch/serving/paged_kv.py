@@ -61,6 +61,7 @@ import torch
 from ..models.fastvlm import FastVLM
 from ..models.qwen2 import Qwen2Config, init_kv_cache
 from ..parallel.sharding import rank_text_config, shard_params
+from ..utils import tracing
 from .continuous_batching import (
     _pad_to,
     admission_arrays,
@@ -119,6 +120,29 @@ class _Inflight:
     images_done: bool  # image chunk run (or none needed)
     lora: Optional[dict] = None  # the batch's adapter argument
     chunk_idx: int = 0  # next text chunk
+
+
+def _program_span(batch: List[_Pending]):
+    """The span of one admission program over ``batch``: a prefill, one
+    chunk of a chunked one, or partial hits' tails."""
+    if not tracing.on():
+        return tracing.span("serve.admit.program")
+    return tracing.span("serve.admit.program", bucket=batch[0].bucket, rows=len(batch),
+                        requests=[req.request_id for req in batch])
+
+
+def _count_prefill(batch: List[_Pending], rows_computed: int, n_img: int, width: int, skipped: int = 0) -> None:
+    """Admission counters of one prefill of ``batch``, run on
+    ``rows_computed`` rows (padding rows included) of ``width`` positions
+    (image tokens + bucket), the first ``skipped`` of each taken from the
+    prefix cache: its real rows and positions (image and real prompt
+    tokens), and the rows and positions it computes."""
+    if not tracing.on():
+        return
+    tracing.count("serve.admit.rows", len(batch))
+    tracing.count("serve.admit.rows_computed", rows_computed)
+    tracing.count("serve.admit.positions", sum(n_img + int(req.attention_mask.sum()) - skipped for req in batch))
+    tracing.count("serve.admit.positions_computed", rows_computed * (width - skipped))
 
 
 class PagedKVPool:
@@ -481,7 +505,9 @@ class PagedGenerationServer:
         prefilled = {}
         for (m, _), reqs in groups.items():
             for i in range(0, len(reqs), self.prefill_batch):
-                prefilled.update(self._prefill_tails(reqs[i: i + self.prefill_batch], m))
+                batch = reqs[i: i + self.prefill_batch]
+                with _program_span(batch):
+                    prefilled.update(self._prefill_tails(batch, m))
         for req, m in partial:
             self.prefix_cache_partial_hits += 1
             for h in req.page_hashes[:m]:
@@ -516,7 +542,9 @@ class PagedGenerationServer:
             return
         while self._pending:
             if not (self._take_hits() or self._take_partials()):
-                self._admit(self._next_batch())
+                batch = self._next_batch()
+                with _program_span(batch):
+                    self._admit(batch)
 
     def _admit_pending(self) -> None:
         """A ``step``'s admission: one chunk of work under chunked admission,
@@ -555,6 +583,7 @@ class PagedGenerationServer:
         # Logical prefill width: image tokens + padded prompt (the cursor
         # advances by the padded width; see models/fastvlm.py::prefill).
         prefill_len = self.model.cfg.num_image_tokens + batch[0].bucket
+        _count_prefill(batch, bp, self.model.cfg.num_image_tokens, prefill_len)
         ids, mask, images = admission_arrays(batch, bp, self.eos_token_id)
         pages = np.zeros((bp, self.pool.pages_per_slot), np.int32)
         for row, req in enumerate(batch):
@@ -562,15 +591,19 @@ class PagedGenerationServer:
             pages[row] = self.pool.page_table[req.slot]
 
         model = self.model
-        cache = init_kv_cache(rank_text_config(model), bp, self._max_len, device=self.device)
-        last_logits, _, cache, _, _ = model.prefill(
-            device_images(self, images), self._to_device(ids), self._to_device(mask), cache,
-            lora=batch_lora(self, batch, bp),
-        )
-        tokens = self._sample(last_logits)
-        self._scatter_prefill(cache, self._to_device(pages).long())
+        images = device_images(self, images)
+        with tracing.span("serve.admit.upload"):
+            ids, mask = self._to_device(ids), self._to_device(mask)
+        with tracing.span("serve.admit.prefill"):
+            cache = init_kv_cache(rank_text_config(model), bp, self._max_len, device=self.device)
+            last_logits, _, cache, _, _ = model.prefill(images, ids, mask, cache, lora=batch_lora(self, batch, bp))
+            tokens = self._sample(last_logits)
+        with tracing.span("serve.admit.scatter"):
+            self._scatter_prefill(cache, self._to_device(pages).long())
         self.admissions += 1
-        self._register_misses(batch, tokens.cpu().numpy(), cache["mask"].cpu().numpy(), last_logits, prefill_len)
+        with tracing.span("serve.admit.fetch"):
+            tokens, masks = tokens.cpu().numpy(), cache["mask"].cpu().numpy()
+        self._register_misses(batch, tokens, masks, last_logits, prefill_len)
 
     def _scatter_prefill(self, cache: dict, pages: torch.Tensor) -> None:
         """Write the prefilled (L, bp, max_len, K[, D]) rows into ``pages``
@@ -623,19 +656,23 @@ class PagedGenerationServer:
             if not self._pending:
                 return
             inf = self._inflight = self._start_inflight(self._next_batch())
-        if not inf.images_done:
-            inf.cache = self.model.prefill_image_chunk(device_images(self, inf.images), inf.cache, lora=inf.lora)
-            self.image_chunks += 1
-            inf.images_done = True
-            return
-        c = self.prefill_chunk_tokens
-        lo = inf.chunk_idx * c
-        inf.last_logits, inf.cache = self._text_chunk(inf.ids[:, lo: lo + c], inf.mask[:, lo: lo + c], inf.cache,
-                                                      inf.last_logits, inf.lora)
-        inf.chunk_idx += 1
-        if inf.chunk_idx * c >= inf.bucket:
-            self._inflight = None
-            self._finalize_inflight(inf)
+        with _program_span(inf.batch):
+            if not inf.images_done:
+                images = device_images(self, inf.images)
+                with tracing.span("serve.admit.prefill"):
+                    inf.cache = self.model.prefill_image_chunk(images, inf.cache, lora=inf.lora)
+                self.image_chunks += 1
+                inf.images_done = True
+                return
+            c = self.prefill_chunk_tokens
+            lo = inf.chunk_idx * c
+            with tracing.span("serve.admit.prefill"):
+                inf.last_logits, inf.cache = self._text_chunk(inf.ids[:, lo: lo + c], inf.mask[:, lo: lo + c],
+                                                              inf.cache, inf.last_logits, inf.lora)
+            inf.chunk_idx += 1
+            if inf.chunk_idx * c >= inf.bucket:
+                self._inflight = None
+                self._finalize_inflight(inf)
 
     def _start_inflight(self, batch: List[_Pending]) -> _Inflight:
         """Host set-up of a chunked miss batch: the padded arrays of
@@ -643,6 +680,7 @@ class PagedGenerationServer:
         zero running logits."""
         cfg = self.model.cfg
         bp = self.prefill_batch
+        _count_prefill(batch, bp, cfg.num_image_tokens, cfg.num_image_tokens + batch[0].bucket)
         ids, mask, images = admission_arrays(batch, bp, self.eos_token_id)
         for req in batch:
             self.pool.allocate(req.slot, cfg.num_image_tokens + batch[0].bucket + 1)
@@ -661,10 +699,12 @@ class PagedGenerationServer:
         pages = np.zeros((self.prefill_batch, self.pool.pages_per_slot), np.int32)
         for row, req in enumerate(inf.batch):
             pages[row] = self.pool.page_table[req.slot]
-        self._scatter_prefill(inf.cache, self._to_device(pages).long())
+        with tracing.span("serve.admit.scatter"):
+            self._scatter_prefill(inf.cache, self._to_device(pages).long())
         tokens = self._sample(inf.last_logits)
-        self._register_misses(inf.batch, tokens.cpu().numpy(), inf.cache["mask"].cpu().numpy(), inf.last_logits,
-                              self.model.cfg.num_image_tokens + inf.bucket)
+        with tracing.span("serve.admit.fetch"):
+            tokens, masks = tokens.cpu().numpy(), inf.cache["mask"].cpu().numpy()
+        self._register_misses(inf.batch, tokens, masks, inf.last_logits, self.model.cfg.num_image_tokens + inf.bucket)
 
     def _cache_insert(self, req: _Pending, prefill_len: int, logits: torch.Tensor) -> None:
         """Record ``req``'s prompt pages and last-position logits. The entry
@@ -758,6 +798,7 @@ class PagedGenerationServer:
         row, last-position logits)}``."""
         ps, n_img, bucket = self.pool.page_size, self.model.cfg.num_image_tokens, batch[0].bucket
         n = len(batch)
+        _count_prefill(batch, n, n_img, n_img + bucket, skipped=m * ps)
         shared = np.zeros((n, self.pool.pages_per_slot), np.int32)
         mask_host = np.zeros((n, self._max_len), bool)
         for row, req in enumerate(batch):
@@ -767,21 +808,26 @@ class PagedGenerationServer:
             self.pool.allocate(req.slot, n_img + bucket + 1)
             shared[row, :m] = self.pool.page_table[req.slot, :m]
             mask_host[row, : m * ps] = np.concatenate([e["mask"] for e in entries])
-        cache = dict(self._gather_windows(self._to_device(shared)), mask=self._to_device(mask_host),
-                     index=torch.full((n,), m * ps, dtype=torch.int32, device=self.device))
+        with tracing.span("serve.admit.upload"):
+            shared, mask_host = self._to_device(shared), self._to_device(mask_host)
         ids = np.concatenate([req.input_ids for req in batch])
         mask = np.concatenate([req.attention_mask for req in batch])
         text = self.model.cfg.text
-        last = torch.zeros((n, text.vocab_size), dtype=text.dtype, device=self.device)
-        lora = batch_lora(self, batch, n)
-        for off in range(m * ps - n_img, bucket, ps):
-            last, cache = self._text_chunk(ids[:, off: off + ps], mask[:, off: off + ps], cache, last, lora)
+        with tracing.span("serve.admit.prefill"):
+            cache = dict(self._gather_windows(shared), mask=mask_host,
+                         index=torch.full((n,), m * ps, dtype=torch.int32, device=self.device))
+            last = torch.zeros((n, text.vocab_size), dtype=text.dtype, device=self.device)
+            lora = batch_lora(self, batch, n)
+            for off in range(m * ps - n_img, bucket, ps):
+                last, cache = self._text_chunk(ids[:, off: off + ps], mask[:, off: off + ps], cache, last, lora)
+            tokens = self._sample(last)
 
         pages = self.pool.page_table[[req.slot for req in batch]]  # fancy indexing: a copy
         pages[:, :m] = 0
-        self._scatter_prefill(cache, self._to_device(pages).long())
-        tokens = self._sample(last).cpu().numpy()
-        masks = cache["mask"].cpu().numpy()
+        with tracing.span("serve.admit.scatter"):
+            self._scatter_prefill(cache, self._to_device(pages).long())
+        with tracing.span("serve.admit.fetch"):
+            tokens, masks = tokens.cpu().numpy(), cache["mask"].cpu().numpy()
         return {id(req): (int(tokens[row]), masks[row], last[row].clone()) for row, req in enumerate(batch)}
 
     def _finish_if_done(self, slot_idx: int) -> None:
@@ -887,15 +933,31 @@ class PagedGenerationServer:
     def step(self) -> Dict[int, List[int]]:
         """Admit pending requests (one chunk of work under chunked
         admission), then one decode tick across all slots."""
-        self._admit_pending()
+        if self._pending or self._inflight is not None:
+            with tracing.span("serve.admit"):
+                self._admit_pending()
         if any(s.active for s in self._slots):
+            with tracing.span("serve.tick"):
+                self._decode_tick()
+        finished = self._finished
+        self._finished = {}
+        return finished
+
+    def _decode_tick(self) -> None:
+        """One decode tick across all slots: each active slot appends its
+        sampled token."""
+        with tracing.span("serve.tick.inputs"):
             for i, slot in enumerate(self._slots):
                 if slot.active:
                     # Page for the K/V this tick writes at position length.
                     self.pool.allocate(i, slot.length + 1)
-            logits = self._run_tick(self.decode_impl, *self._tick_inputs(), lora=slots_lora(self, self.num_slots))
+            inputs, lora = self._tick_inputs(), slots_lora(self, self.num_slots)
+        with tracing.span("serve.tick.forward"):
+            tokens = self._sample(self._run_tick(self.decode_impl, *inputs, lora=lora))
             self.ticks += 1
-            next_host = self._sample(logits).cpu().numpy()
+        with tracing.span("serve.tick.fetch"):
+            next_host = tokens.cpu().numpy()
+        with tracing.span("serve.tick.bookkeep"):
             for i, slot in enumerate(self._slots):
                 if not slot.active:
                     continue
@@ -907,9 +969,6 @@ class PagedGenerationServer:
                 slot.length += 1
                 self._pending_token[i] = token
                 self._finish_if_done(i)
-        finished = self._finished
-        self._finished = {}
-        return finished
 
     @torch.no_grad()
     def step_n(self, n: int) -> Dict[int, List[int]]:

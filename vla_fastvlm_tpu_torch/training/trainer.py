@@ -22,8 +22,9 @@ installed), evaluation, ``save_steps`` checkpoints in the JAX layout
 (``io/checkpoint.py``) written on a background thread, ``keep_last_n``,
 resume that restores the counters, the optimizer and the generator, the
 SIGTERM / SIGINT preemption checkpoint, ``profile_start_step``
-(``torch.profiler``, a Chrome trace under ``logs/profile``) and
-``debug_nans`` (raise on a non-finite loss or gradient norm).
+(``torch.profiler``, a Chrome trace under ``logs/profile``, which holds the
+step's ``vft.`` spans, ``utils/tracing.py``) and ``debug_nans`` (raise on a
+non-finite loss or gradient norm).
 
 ``mesh`` (``parallel/mesh.py``): every rank of the mesh runs the trainer
 (SPMD). The policy's modules are placed by ``shard_params`` (TP pieces of
@@ -51,6 +52,7 @@ import torch
 from ..data.prefetch import device_prefetch
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_group, axis_rank, axis_size, check_mesh
 from ..parallel.sharding import all_reduce_sum, gather_tp, is_fsdp_param, shard_batch, shard_params, tp_pieces
+from ..utils import tracing
 from .schedule import clip_by_global_norm_, linear_warmup_decay
 
 logger = logging.getLogger(__name__)
@@ -201,6 +203,7 @@ class Trainer:
     # ------------------------------------------------------------------
     # the step
 
+    @tracing.traced("train.feed")
     def _place_batch(self, batch: Dict) -> Dict:
         arrays = self.model.prepare_batch(batch)
         if self.mesh is not None:
@@ -271,6 +274,7 @@ class Trainer:
             torch.distributed.all_reduce(total, group=group)
         return total.sqrt()
 
+    @tracing.traced("train.step")
     def _train_step(self, arrays: Dict) -> Dict[str, torch.Tensor]:
         """One batch: loss and gradients, and an update once k batches are in.
         Returns ``{"loss", "mse", "grad_norm"}`` as device tensors (no sync)."""
