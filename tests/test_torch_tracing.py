@@ -155,17 +155,19 @@ def _wave(rng, template, frames, specs):
 
 
 # (mode, server options, (rows, rows computed, positions, positions computed))
-# on the tiny FastVLM (one image token at 64 px), pages of 4, programs of 2
-# rows. Wave 1: a 7-token template + 1 under frame 0, 3 tokens under frame
-# 1, 6 under frame 2: programs [8, 6] at bucket 8 (2 rows of 9 positions)
-# and [3] at bucket 4 (1 real row of 2, 5 positions). Wave 2: the template
-# + 1 twice under frame 0: a program of 2 rows at bucket 8, or, with the
-# cache, partial hits on both template pages whose one-row tails compute
-# position 8 alone.
+# on the tiny FastVLM (one image token at 64 px), pages of 4, programs of up
+# to 2 rows, each run on its real rows alone. Wave 1: a 7-token template + 1
+# under frame 0, 3 tokens under frame 1, 6 under frame 2: programs [8, 6] at
+# bucket 8 (2 rows of 9 positions) and [3] at bucket 4 (1 row of 5
+# positions). Wave 2: the template + 1 twice under frame 0: a program of 2
+# rows at bucket 8, or, with the cache, partial hits on both template pages
+# whose one-row tails compute position 8 alone. Computed, without the
+# cache: 2 x 9 + 1 x 5 + 2 x 9 = 41 positions of 5 rows; with it, wave 1's
+# two miss programs, then 2 x 1 = 25.
 ADMISSION = [
-    ("plain", {}, (5, 6, (1 + 8) + (1 + 6) + (1 + 3) + 2 * (1 + 8), 2 * 9 + 2 * 5 + 2 * 9)),
-    ("chunked", {"prefill_chunk_tokens": 4}, (5, 6, 38, 46)),
-    ("partial_hit", {"prefix_cache_size": 4}, (5, 6, 9 + 7 + 4 + 2 * (1 + 8 - 8), 18 + 10 + 2 * (9 - 8))),
+    ("plain", {}, (5, 5, (1 + 8) + (1 + 6) + (1 + 3) + 2 * (1 + 8), 2 * 9 + 1 * 5 + 2 * 9)),
+    ("chunked", {"prefill_chunk_tokens": 4}, (5, 5, 38, 41)),
+    ("partial_hit", {"prefix_cache_size": 4}, (5, 5, 9 + 7 + 4 + 2 * (1 + 8 - 8), 18 + 5 + 2 * (9 - 8))),
 ]
 
 

@@ -22,8 +22,8 @@ paged server.
 the device to each admission batch's images before the prefill, e.g.
 ``model/fastvlm_adapter.prepare_policy_images`` (letterbox + normalize to
 the tower resolution). Callers then submit raw frames of any one size, and
-only those cross from the host; the batch's dummy rows are zero frames of
-that size.
+only those cross from the host; a padded batch's dummy rows are zero frames
+of that size (the paged server's admissions have none).
 
 ``lora`` (every server of the port takes it): adapters (``io/lora.py``)
 served over the frozen base. One tree applies to every request; a LIST of
@@ -105,7 +105,8 @@ def lora_call_arg(server, indices, rows: int):
 
 
 def batch_lora(server, batch, rows: int):
-    """The adapter argument of an admission program over ``batch`` (its dummy rows: the base)."""
+    """The adapter argument of an admission program of ``rows`` rows over
+    ``batch`` (dummy rows past it, where a server pads: the base)."""
     return lora_call_arg(server, [req.lora_index for req in batch], rows)
 
 
@@ -175,20 +176,23 @@ def make_slot_insert(bp: int):
     return insert
 
 
-def admission_arrays(batch, prefill_batch: int, eos_token_id: int):
-    """Padded host ``(ids, mask, images)`` of an admission batch of queued
-    requests (``input_ids``, ``attention_mask``, ``images``, ``bucket``):
-    ``prefill_batch`` rows, the dummy rows past the batch keeping one real
-    token so last-position indexing is in bounds."""
+def admission_arrays(batch, rows: int, eos_token_id: int):
+    """Host ``(ids, mask, images)`` of an admission batch of queued requests
+    (``input_ids``, ``attention_mask``, ``images``, ``bucket``) on ``rows``
+    rows. The dense server and the speculative servers' draft admission
+    pass ``prefill_batch`` (their fixed-row slot insert sends the dummy
+    rows past the batch to a trash row; each keeps one real token, so
+    last-position indexing is in bounds, and a zero frame); the paged
+    server's miss programs pass ``len(batch)`` and get no dummy rows."""
     n, width = len(batch), batch[0].bucket
-    ids = np.zeros((prefill_batch, width), np.int32)
-    mask = np.zeros((prefill_batch, width), np.int32)
+    ids = np.zeros((rows, width), np.int32)
+    mask = np.zeros((rows, width), np.int32)
     ids[n:, 0] = max(eos_token_id, 0)
     mask[n:, 0] = 1
     images = None
     if batch[0].images is not None:
         img0 = np.asarray(batch[0].images)
-        images = np.zeros((prefill_batch,) + img0.shape[1:], img0.dtype)
+        images = np.zeros((rows,) + img0.shape[1:], img0.dtype)
     for row, req in enumerate(batch):
         ids[row] = req.input_ids[0]
         mask[row] = req.attention_mask[0]

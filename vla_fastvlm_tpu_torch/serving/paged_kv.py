@@ -6,15 +6,17 @@ table, so device memory scales with allocated tokens, not slots x max_len:
 
 - **Pool**: ``(L, num_pages, K, page_size, D)`` per K/V (kv-head major).
   Physical page 0 is the trash page: unallocated table entries point at it,
-  dummy and inactive rows write there, and the kv mask keeps attention from
-  reading it.
+  inactive tick rows and the shared entries of partial hits' tails write
+  there, and the kv mask keeps attention from reading it.
 - **Page tables**: host-side ``(num_slots, pages_per_slot)`` int32, shipped
   to the device per tick. Allocation is host bookkeeping: a free list,
   reference counts and worst-case reservations (admission control), so a
   mid-decode allocation never fails.
 - **Admission**: requests queue at ``submit``; ``step``/``flush`` prefill
-  them ``prefill_batch`` at a time into a dense cache, then scatter the rows
-  into their pages.
+  them by prompt bucket, up to ``prefill_batch`` a program, into a dense
+  cache of exactly the program's requests (no dummy rows: the port runs
+  eagerly and gains nothing from a fixed batch), then scatter the rows into
+  their pages.
 - **Prefix caching** (``prefix_cache_size``): a whole-prompt repeat installs
   the cached prompt pages by reference and samples its first token from the
   cached logits, with no prefill at all; a request that shares only
@@ -112,11 +114,11 @@ class _Inflight:
 
     batch: List[_Pending]
     bucket: int
-    ids: np.ndarray  # (bp, bucket) host
-    mask: np.ndarray  # (bp, bucket) host
-    images: Optional[np.ndarray]  # (bp, ...) host | None
-    cache: dict  # dense (bp, max_len) cache the chunks fill
-    last_logits: torch.Tensor  # (bp, V) running last-real-position logits
+    ids: np.ndarray  # (n, bucket) host, n = len(batch)
+    mask: np.ndarray  # (n, bucket) host
+    images: Optional[np.ndarray]  # (n, ...) host | None
+    cache: dict  # dense (n, max_len) cache the chunks fill
+    last_logits: torch.Tensor  # (n, V) running last-real-position logits
     images_done: bool  # image chunk run (or none needed)
     lora: Optional[dict] = None  # the batch's adapter argument
     chunk_idx: int = 0  # next text chunk
@@ -131,18 +133,21 @@ def _program_span(batch: List[_Pending]):
                         requests=[req.request_id for req in batch])
 
 
-def _count_prefill(batch: List[_Pending], rows_computed: int, n_img: int, width: int, skipped: int = 0) -> None:
-    """Admission counters of one prefill of ``batch``, run on
-    ``rows_computed`` rows (padding rows included) of ``width`` positions
-    (image tokens + bucket), the first ``skipped`` of each taken from the
-    prefix cache: its real rows and positions (image and real prompt
-    tokens), and the rows and positions it computes."""
+def _count_prefill(batch: List[_Pending], n_img: int, width: int, skipped: int = 0) -> None:
+    """Admission counters of one prefill of ``batch`` of ``width`` positions
+    a row (image tokens + bucket), the first ``skipped`` of each taken from
+    the prefix cache: its real rows and positions (image and real prompt
+    tokens), and the rows and positions it computes. Every caller (miss,
+    chunked miss, partial-hit tails) runs on the batch's rows alone, so the
+    bucket's prompt padding is all it computes that is not real. The dense
+    server and the speculative draft, which pad rows, count nothing."""
     if not tracing.on():
         return
-    tracing.count("serve.admit.rows", len(batch))
-    tracing.count("serve.admit.rows_computed", rows_computed)
+    rows = len(batch)
+    tracing.count("serve.admit.rows", rows)
+    tracing.count("serve.admit.rows_computed", rows)
     tracing.count("serve.admit.positions", sum(n_img + int(req.attention_mask.sum()) - skipped for req in batch))
-    tracing.count("serve.admit.positions_computed", rows_computed * (width - skipped))
+    tracing.count("serve.admit.positions_computed", rows * (width - skipped))
 
 
 class PagedKVPool:
@@ -169,7 +174,7 @@ class PagedKVPool:
             self.pool_k_scale = self.pool_v_scale = None
         self.pool_k = torch.zeros(shape, dtype=dtype, device=device)
         self.pool_v = torch.zeros(shape, dtype=dtype, device=device)
-        # Page 0 = trash: never allocated, absorbs writes from dummy rows.
+        # Page 0 = trash: never allocated, absorbs the writes of inactive tick rows and of shared tail entries.
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._refcount = np.zeros(num_pages, np.int64)
         # Host page tables; 0 (trash) marks unallocated entries.
@@ -579,24 +584,26 @@ class PagedGenerationServer:
 
     @torch.no_grad()
     def _admit(self, batch: List[_Pending]) -> None:
-        bp = self.prefill_batch
+        """Prefill a miss batch of one bucket on its own rows: the frames,
+        the tower, the dense cache, the prefill, the first tokens and the
+        scatter are all ``len(batch)`` rows."""
+        n = len(batch)
         # Logical prefill width: image tokens + padded prompt (the cursor
         # advances by the padded width; see models/fastvlm.py::prefill).
         prefill_len = self.model.cfg.num_image_tokens + batch[0].bucket
-        _count_prefill(batch, bp, self.model.cfg.num_image_tokens, prefill_len)
-        ids, mask, images = admission_arrays(batch, bp, self.eos_token_id)
-        pages = np.zeros((bp, self.pool.pages_per_slot), np.int32)
-        for row, req in enumerate(batch):
+        _count_prefill(batch, self.model.cfg.num_image_tokens, prefill_len)
+        ids, mask, images = admission_arrays(batch, n, self.eos_token_id)
+        for req in batch:
             self.pool.allocate(req.slot, prefill_len + 1)
-            pages[row] = self.pool.page_table[req.slot]
+        pages = self.pool.page_table[[req.slot for req in batch]]  # fancy indexing: a copy
 
         model = self.model
         images = device_images(self, images)
         with tracing.span("serve.admit.upload"):
             ids, mask = self._to_device(ids), self._to_device(mask)
         with tracing.span("serve.admit.prefill"):
-            cache = init_kv_cache(rank_text_config(model), bp, self._max_len, device=self.device)
-            last_logits, _, cache, _, _ = model.prefill(images, ids, mask, cache, lora=batch_lora(self, batch, bp))
+            cache = init_kv_cache(rank_text_config(model), n, self._max_len, device=self.device)
+            last_logits, _, cache, _, _ = model.prefill(images, ids, mask, cache, lora=batch_lora(self, batch, n))
             tokens = self._sample(last_logits)
         with tracing.span("serve.admit.scatter"):
             self._scatter_prefill(cache, self._to_device(pages).long())
@@ -606,13 +613,13 @@ class PagedGenerationServer:
         self._register_misses(batch, tokens, masks, last_logits, prefill_len)
 
     def _scatter_prefill(self, cache: dict, pages: torch.Tensor) -> None:
-        """Write the prefilled (L, bp, max_len, K[, D]) rows into ``pages``
-        (bp, pages_per_slot); dummy rows' pages are all the trash page."""
+        """Write the prefilled (L, n, max_len, K[, D]) rows into ``pages``
+        (n, pages_per_slot); entries that are 0 write the trash page."""
         pool = self.pool
-        n_layers, bp = cache["k"].shape[:2]
+        n_layers, n = cache["k"].shape[:2]
 
-        def paged(buf):  # -> (L, bp, P_slot, K, page[, D]) pool layout
-            split = buf.reshape((n_layers, bp, pool.pages_per_slot, pool.page_size) + tuple(buf.shape[3:]))
+        def paged(buf):  # -> (L, n, P_slot, K, page[, D]) pool layout
+            split = buf.reshape((n_layers, n, pool.pages_per_slot, pool.page_size) + tuple(buf.shape[3:]))
             return split.permute(0, 1, 2, 4, 3, 5) if buf.ndim == 5 else split.permute(0, 1, 2, 4, 3)
 
         for name, buf in pool.pools().items():
@@ -675,30 +682,28 @@ class PagedGenerationServer:
                 self._finalize_inflight(inf)
 
     def _start_inflight(self, batch: List[_Pending]) -> _Inflight:
-        """Host set-up of a chunked miss batch: the padded arrays of
-        ``_admit``, its pages allocated up front, a fresh dense cache and
-        zero running logits."""
+        """Host set-up of a chunked miss batch, on its own rows as in
+        ``_admit``: its arrays, its pages allocated up front, a fresh dense
+        cache and zero running logits."""
         cfg = self.model.cfg
-        bp = self.prefill_batch
-        _count_prefill(batch, bp, cfg.num_image_tokens, cfg.num_image_tokens + batch[0].bucket)
-        ids, mask, images = admission_arrays(batch, bp, self.eos_token_id)
+        n = len(batch)
+        _count_prefill(batch, cfg.num_image_tokens, cfg.num_image_tokens + batch[0].bucket)
+        ids, mask, images = admission_arrays(batch, n, self.eos_token_id)
         for req in batch:
             self.pool.allocate(req.slot, cfg.num_image_tokens + batch[0].bucket + 1)
         return _Inflight(
             batch=batch, bucket=batch[0].bucket, ids=ids, mask=mask, images=images,
-            cache=init_kv_cache(rank_text_config(self.model), bp, self._max_len, device=self.device),
-            last_logits=torch.zeros((bp, cfg.text.vocab_size), dtype=cfg.text.dtype, device=self.device),
+            cache=init_kv_cache(rank_text_config(self.model), n, self._max_len, device=self.device),
+            last_logits=torch.zeros((n, cfg.text.vocab_size), dtype=cfg.text.dtype, device=self.device),
             images_done=images is None or cfg.num_image_tokens == 0,
-            lora=batch_lora(self, batch, bp),
+            lora=batch_lora(self, batch, n),
         )
 
     @torch.no_grad()
     def _finalize_inflight(self, inf: _Inflight) -> None:
         """The last chunk landed: scatter the chunk cache into the pages,
         sample each first token from the running logits, activate."""
-        pages = np.zeros((self.prefill_batch, self.pool.pages_per_slot), np.int32)
-        for row, req in enumerate(inf.batch):
-            pages[row] = self.pool.page_table[req.slot]
+        pages = self.pool.page_table[[req.slot for req in inf.batch]]  # fancy indexing: a copy
         with tracing.span("serve.admit.scatter"):
             self._scatter_prefill(inf.cache, self._to_device(pages).long())
         tokens = self._sample(inf.last_logits)
@@ -798,7 +803,7 @@ class PagedGenerationServer:
         row, last-position logits)}``."""
         ps, n_img, bucket = self.pool.page_size, self.model.cfg.num_image_tokens, batch[0].bucket
         n = len(batch)
-        _count_prefill(batch, n, n_img, n_img + bucket, skipped=m * ps)
+        _count_prefill(batch, n_img, n_img + bucket, skipped=m * ps)
         shared = np.zeros((n, self.pool.pages_per_slot), np.int32)
         mask_host = np.zeros((n, self._max_len), bool)
         for row, req in enumerate(batch):
